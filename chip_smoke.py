@@ -1,8 +1,9 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the six phases below
+    python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
 
-Five phases, one line each (plus detail lines); any failure exits non-zero
+Six phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit.
@@ -11,8 +12,9 @@ and the final line is printed only when every phase passed:
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
-                 version in f32 on the same inputs, and times kernel and
-                 plain (bf16) with CUDA events.
+                 version in f32 on the same inputs, and times kernel, plain
+                 (bf16) and the library call computing the same function
+                 with CUDA events, beside the bound from bytes and FLOPs.
   4. golden   -- rebuilds tests/golden/full_sd15_ddim2.npz's inputs with
                  numpy alone and runs the full SD1.5 UNet for DDIM-2: plain
                  f32 (TF32 off) against the golden, then the kernels in bf16
@@ -21,6 +23,16 @@ and the final line is printed only when every phase passed:
                  50 steps, full ViT-L / UNet / VAE width on seeded random
                  weights, two requests with their own token ids and seeds;
                  checks the images and that each kernel was launched.
+  6. training -- the LoRA DreamBooth train step (training.make_train_step)
+                 on the full SD1.5 UNet in bf16: b4 (2 instance + 2 prior)
+                 cached 64^2 latent moments and text embeddings, rank 128,
+                 alpha 128 on q/k/v/out_proj, EMA, gradient accumulation 2,
+                 no remat.  Records the shapes of one step and checks and
+                 times every kernel at them (K5/K6, the attention backward,
+                 included, with their occupancy and the pair's bound and
+                 library time); holds one micro-step's LoRA gradients on the
+                 same b4 batch against the plain f32 path; times TRAIN_STEPS
+                 steps, which must launch every one of K1-K6.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds).
 """
@@ -37,15 +49,16 @@ import traceback
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances and their reasons.
 # Kernels take bf16 inputs and return bf16; the plain reference runs in f32
 # on the same (bf16-valued) inputs.  A bf16 result carries 2^-9 relative
-# rounding, and the GN+SiLU prologue, the attention probabilities and the
-# GeGLU intermediate are rounded to bf16 once more before a product, as the
-# JAX kernels do: allow max|kernel - plain| <= 2e-2 * max|plain|.
+# rounding, and the GN+SiLU prologue, the attention probabilities, dS and
+# the GeGLU intermediate are rounded to bf16 once more before a product, as
+# the JAX kernels do: allow max|kernel - plain| <= 2e-2 * max|plain|.
 KERNEL_REL_TOL = 2e-2
 # Plain f32 UNet (TF32 off) vs the CPU-made JAX golden: the same f32 maths
 # summed in another order; expect about 1e-3 absolute after two DDIM steps.
@@ -53,26 +66,53 @@ GOLDEN_ATOL = 2e-3
 # bf16 kernels vs the f32 plain UNet: bf16 weights and activations through
 # ~100 layers and two DDIM steps; relative L2 of the latents.
 GOLDEN_BF16_REL_L2 = 5e-2
+# One micro-step's LoRA gradients, bf16 kernels vs plain f32: the same
+# bf16 rounding through the forward and back through the backward; relative
+# L2 over the whole gradient tree.
+TRAIN_GRAD_REL_L2 = 5e-2
 SERVE_STEPS = 50
 SERVE_REQUESTS = 2
+TRAIN_BATCH = 4         # 2 instance + 2 prior, as bench.py's train config
+TRAIN_STEPS = 12        # timed, after two warm-up steps
+TRAIN_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the
+# larger of its bytes over HBM bandwidth and its FLOPs over the peak of
+# their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 KERNELS = {
     "K1": dict(route="triton", source="stable_diffusion_tpu_torch/ops/groupnorm.py",
                replaces="stable_diffusion_tpu/ops/groupnorm.py:30",
                replaces_all=["stable_diffusion_tpu/ops/groupnorm.py:30 _stats_kernel",
-                             "stable_diffusion_tpu/ops/groupnorm.py:71 _norm_kernel"]),
+                             "stable_diffusion_tpu/ops/groupnorm.py:71 _norm_kernel"],
+               library="F.group_norm + F.silu (norm shapes), torch.var_mean (stats shapes)"),
     "K2": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/conv3x3.cu",
                replaces="stable_diffusion_tpu/ops/conv.py:36",
-               replaces_all=["stable_diffusion_tpu/ops/conv.py:36 _conv3x3_kernel"]),
+               replaces_all=["stable_diffusion_tpu/ops/conv.py:36 _conv3x3_kernel"],
+               library="F.conv2d channels-last (the GN+SiLU prologue not included)"),
     "K3": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/attention.cu",
                replaces="stable_diffusion_tpu/ops/flash_attention.py:213",
                replaces_all=["stable_diffusion_tpu/ops/flash_attention.py:213 _single_pass_kernel",
                              "stable_diffusion_tpu/ops/flash_attention.py:135 _flash_kernel",
-                             "stable_diffusion_tpu/ops/flash_attention.py:317 _cross_kernel"]),
+                             "stable_diffusion_tpu/ops/flash_attention.py:317 _cross_kernel"],
+               library="F.scaled_dot_product_attention"),
     "K4": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/ffn.cu",
                replaces="stable_diffusion_tpu/ops/ffn.py:67",
-               replaces_all=["stable_diffusion_tpu/ops/ffn.py:67 _make_kernel"]),
+               replaces_all=["stable_diffusion_tpu/ops/ffn.py:67 _make_kernel"],
+               library=None),  # no one PyTorch call computes LN -> GeGLU -> FFN
+    "K5": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/attention_bwd.cu",
+               replaces="stable_diffusion_tpu/ops/flash_attention.py:558",
+               replaces_all=["stable_diffusion_tpu/ops/flash_attention.py:558 _bwd_dq_kernel"],
+               library=None),  # no one call computes dq alone; see attention_bwd_pair
+    "K6": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/attention_bwd.cu",
+               replaces="stable_diffusion_tpu/ops/flash_attention.py:607",
+               replaces_all=["stable_diffusion_tpu/ops/flash_attention.py:607 _bwd_dkv_kernel"],
+               library=None),
 }
+SERVING_KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def say(msg: str) -> None:
@@ -104,6 +144,12 @@ def cuda_ms(fn, reps: int = 10, rounds: int = 3, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(flops: float, nbytes: float, flop_rate: float):
+    """(ms, "bytes" | "operations"): the least time for the work."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
 # ---------------------------------------------------------------------------
 # Models
 # ---------------------------------------------------------------------------
@@ -131,32 +177,46 @@ def request_ids(seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: every kernel at every main-path shape vs its plain version
+# Phases 3 and 6: every kernel at every main-path shape vs its plain version
 # ---------------------------------------------------------------------------
 
 
-def _inputs_and_fns(kernel: str, key, gen):
-    """(kernel fn, plain bf16 fn, plain f32 fn) on random inputs of one
-    recorded shape key."""
-    from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm
+def _case(kernel: str, key, gen):
+    """A dict for one recorded shape key: ``kernel``, ``plain`` (bf16) and
+    ``ref`` (plain on f32 copies) callables on the same random inputs,
+    ``library`` (one PyTorch call computing the same function, or None),
+    and the work: ``flops``, ``bytes`` and the peak ``rate`` of the FLOPs'
+    type."""
+    from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention as fa, groupnorm
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
 
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    library = None
     if kernel == "K1":
         kind, b, hw, c = key[:4]
         eps = key[5]
         x = rn(b, hw, 1, c, scale=2.0) + 0.5
         w, bias = 1 + rn(c, scale=0.1), rn(c, scale=0.1)
+        nx = b * hw * c
         if kind == "stats":
             def run(x, w, bias, impl):
                 return groupnorm.gn_scale_shift(x, w, bias, eps=eps, impl=impl)
+
+            def library():
+                return torch.var_mean(x.view(b, hw, 32, c // 32), dim=(1, 3))
+            work = dict(flops=3 * nx, bytes=nx * 2 + b * 2 * c * 4 + 4 * c, rate=F32_FLOPS)
         else:
             silu = key[6]
 
             def run(x, w, bias, impl):
                 return groupnorm.group_norm_silu(x, w, bias, eps=eps, silu=silu, impl=impl)
+
+            def library():
+                y = F.group_norm(x.view(b, hw, c).transpose(1, 2), 32, w, bias, eps)
+                return F.silu(y) if silu else y
+            work = dict(flops=(9 if silu else 5) * nx, bytes=2 * nx * 2 + 4 * c, rate=F32_FLOPS)
         args = [x, w, bias]
     elif kernel == "K2":
         b, h, w_, cin, cout, prologue = key
@@ -172,13 +232,25 @@ def _inputs_and_fns(kernel: str, key, gen):
             def run(x, wt, bias, impl):
                 return conv.conv3x3(x, wt, bias, impl=impl)
             args = [x, wt, bias]
+
+        def library():
+            return F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1)
+        px = b * h * w_
+        work = dict(flops=2 * px * cin * cout * 9,
+                    bytes=2 * (px * (cin + cout) + 9 * cin * cout + cout)
+                    + (b * 2 * cin * 4 if prologue else 0), rate=BF16_TC_FLOPS)
     elif kernel == "K3":
         b, sq, sk, h, d = key
         args = [rn(b, sq, h, d), rn(b, sk, h, d), rn(b, sk, h, d)]
 
         def run(q, k, v, impl):
-            return flash_attention.attention(q, k, v, impl=impl)
-    else:
+            return fa.attention(q, k, v, impl=impl)
+
+        def library():
+            return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in args))
+        work = dict(flops=4 * b * h * sq * sk * d, bytes=2 * b * h * d * (2 * sq + 2 * sk),
+                    rate=BF16_TC_FLOPS)
+    elif kernel == "K4":
         m, c = key
         args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
                 rn(8 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1),
@@ -186,40 +258,112 @@ def _inputs_and_fns(kernel: str, key, gen):
 
         def run(*a, impl):
             return ffn.geglu_ffn(*a[:7], a[7], impl=impl)
-    return (lambda: run(*args, impl="cuda"), lambda: run(*args, impl="torch"),
-            lambda: run(*f32(args), impl="torch"))
+        work = dict(flops=24 * m * c * c, bytes=2 * (3 * m * c + 12 * c * c + 11 * c),
+                    rate=BF16_TC_FLOPS)
+    else:  # K5 / K6: the self-attention backward, q/k/v strided as the fused QKV's split
+        b, s, h, d = key
+        qkv = rn(b, s, 3 * h * d)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        do = rn(b, s, h, d)
+        with torch.no_grad():
+            o, lse2 = fa.attention_kernel(q, k, v, return_lse=True)
+            _, lse, delta = fa.attention_bwd_dq_plain(q, k, v, o, do)
+            _, delta_k = fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do)
+        nbhsd = b * h * s * d
+        # The gradient's least work (five S x S x D products; q, k, v, o, dO
+        # read and dq, dk, dv written once) split between the two kernels:
+        # K5 the five reads, S, dP, dQ and dq; K6 dK, dV, dk and dv.  The
+        # recomputed S and dP of the two-kernel design are the kernels' cost.
+        if kernel == "K5":
+            args = [q, k, v, o, do]
+
+            def kern():
+                return fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do)[0]
+
+            def plain_fn(*a):
+                return fa.attention_bwd_dq_plain(*a)[0]
+            work = dict(flops=6 * nbhsd * s, bytes=2 * 6 * nbhsd, rate=BF16_TC_FLOPS)
+        else:
+            args = [q, k, v, do, lse, delta]
+
+            def kern():
+                return torch.stack(fa.attention_bwd_dkv_kernel(q, k, v, lse2, delta_k, do))
+
+            def plain_fn(*a):
+                return torch.stack(fa.attention_bwd_dkv_plain(*a))
+            work = dict(flops=4 * nbhsd * s, bytes=2 * 2 * nbhsd, rate=BF16_TC_FLOPS)
+        return dict(kernel=kern, plain=lambda: plain_fn(*args),
+                    ref=lambda: plain_fn(*(t.float() for t in args)), library=None, **work)
+    return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
+                ref=lambda: run(*f32(args), impl="torch"), library=library, **work)
 
 
-def phase_kernels(shapes):
+def check_kernels(shapes, kernels, label: str):
+    """Each kernel at each recorded shape: error against plain f32, and the
+    kernel, plain, library and bound times.  Totals are per pass: each
+    shape's time per call times its calls in the recorded run."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    summary = {}
-    ok = True
-    for kernel in ("K1", "K2", "K3", "K4"):
+    summary, ok = {}, True
+    for kernel in kernels:
         keys = sorted(shapes[kernel], key=str)
         if not keys:
-            raise RuntimeError(f"{kernel}: the main path gave it no shape")
-        rows = []
+            raise RuntimeError(f"{kernel}: the {label} path gave it no shape")
+        tot = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        by = {"bytes": 0.0, "operations": 0.0}
         for key in keys:
-            k_fn, p_fn, ref_fn = _inputs_and_fns(kernel, key, gen)
-            got = k_fn().float()
-            ref = ref_fn().float()
+            case = _case(kernel, key, gen)
+            got = case["kernel"]().float()
+            ref = case["ref"]().float()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             rel = err / max(ref.abs().max().item(), 1e-30)
             good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
             ok &= good
-            k_ms, p_ms = cuda_ms(k_fn), cuda_ms(p_fn)
-            rows.append((err, rel, k_ms, p_ms))
+            del got, ref
+            n = shapes[kernel][key]
+            k_ms, p_ms = cuda_ms(case["kernel"]), cuda_ms(case["plain"])
+            lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
+            b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"])
+            tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
+            tot["ms"] += n * k_ms
+            tot["plain_ms"] += n * p_ms
+            tot["bound_ms"] += n * b_ms
+            by[b_by] += n * b_ms
+            tot["library_ms"] += n * (lib_ms or 0.0)
             shown = tuple(str(s).replace("torch.", "") for s in key)
-            say(f"  {kernel} {'ok ' if good else 'BAD'} shape={shown} calls/pass="
-                f"{shapes[kernel][key]} max_abs_err={err:.3e} rel={rel:.3e} "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+            say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} calls={n} "
+                f"max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
         summary[kernel] = dict(
-            shapes=len(rows), max_abs_err=max(r[0] for r in rows),
-            max_rel_err=max(r[1] for r in rows),
-            ms_per_pass=sum(r[2] * shapes[kernel][k] for r, k in zip(rows, keys)),
-            plain_ms_per_pass=sum(r[3] * shapes[kernel][k] for r, k in zip(rows, keys)))
+            shapes=len(keys), max_abs_err=tot["err"], max_rel_err=tot["rel"], ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=max(by, key=by.get),
+            library_ms=tot["library_ms"] if KERNELS[kernel]["library"] else None)
     return ok, summary
+
+
+def attention_bwd_pair(shapes, gen):
+    """K5 + K6 as the one function they compute, per train pass: the bound
+    of the whole self-attention gradient (10 B H S^2 D FLOP; q, k, v, o, dO
+    read and dq, dk, dv written once) and the time of the library call for
+    it, the backward of F.scaled_dot_product_attention; each shape's figure
+    times its calls."""
+    pair_bound = pair_lib = 0.0
+    for key, n in sorted(shapes["K5"].items(), key=str):
+        b, s, h, d = key
+        nbhsd = b * h * s * d
+        b_ms = bound_ms(10 * nbhsd * s, 2 * 8 * nbhsd, BF16_TC_FLOPS)[0]
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+                   .requires_grad_() for _ in range(3))
+        out = F.scaled_dot_product_attention(q, k, v)
+        g = torch.randn_like(out)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+        pair_bound += n * b_ms
+        pair_lib += n * lib_ms
+        say(f"  train K5+K6 shape={key} calls={n} bound_ms={b_ms:.4f} sdpa_backward_ms={lib_ms:.4f}")
+        del q, k, v, out, g
+    return pair_bound, pair_lib
 
 
 def record_main_path_shapes(pipe, counters):
@@ -311,6 +455,182 @@ def phase_serving(pipe, counters):
     return ok, secs, launches, peak_gib
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+
+def train_setup(unet):
+    """bench.py's train config on ``unet``: (step_fn, state, batch maker)."""
+    from stable_diffusion_tpu_torch import training as T
+    from stable_diffusion_tpu_torch.schedulers import schedule as S
+
+    cfg = T.TrainConfig(rank=128, alpha=128.0, use_ema=True, gradient_checkpointing=False,
+                        grad_accum_steps=2, lora_targets=TRAIN_TARGETS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = {"unet": unet}
+    state = T.init_train_state(gen, base, cfg)
+    step_fn = T.make_train_step(base, schedule=S.make_schedule(), train_cfg=cfg, impl="cuda")
+    b = TRAIN_BATCH
+    # the cached frozen encoders' outputs: constants of the instance/prior set
+    fixed = {"latent_mean": torch.randn((b, 64, 64, 4), generator=gen, device="cuda").bfloat16(),
+             "latent_std": F.softplus(torch.randn((b, 64, 64, 4), generator=gen,
+                                                  device="cuda")).bfloat16(),
+             "text_emb": torch.randn((b, 77, 768), generator=gen, device="cuda").bfloat16()}
+
+    def batch():  # fresh t and noise every step
+        t, noise, vnoise = T.sample_noise_for_latents(gen, (b, 64, 64, 4), dtype=torch.bfloat16)
+        return {**fixed, "t": t, "noise": noise, "vae_noise": vnoise}
+
+    return cfg, step_fn, state, batch
+
+
+def check_train_grads(unet, cfg, batch):
+    """One micro-step's LoRA gradients, kernels in bf16 against the plain
+    f32 path (TF32 off) on the same weights, LoRA tree and (whole) batch."""
+    from stable_diffusion_tpu_torch import training as T
+    from stable_diffusion_tpu_torch.models import lora as L
+    from stable_diffusion_tpu_torch.models.unet import UNet
+    from stable_diffusion_tpu_torch.schedulers import schedule as S
+    from stable_diffusion_tpu_torch.utils import weights as W
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lora = {"unet": L.init_lora(gen, unet, rank=cfg.rank, alpha=cfg.alpha,
+                                targets=cfg.lora_targets)}
+    for e in lora["unet"].values():  # B != 0, so A and alpha get gradients too
+        e["lora_B"] = torch.randn(e["lora_B"].shape, generator=gen, device="cuda") * 1e-4
+    table = torch.as_tensor(S.make_schedule().alphas_hat, device="cuda")
+    loss16, g16 = T.loss_and_grad(lora, {"unet": unet}, batch, alphas_hat=table, train_cfg=cfg,
+                                  impl="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    unet32 = W.build(UNet, unet.cfg, device="cuda", dtype=torch.float32)
+    unet32.load_state_dict(unet.state_dict())
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    loss32, g32 = T.loss_and_grad(lora, {"unet": unet32}, batch32, alphas_hat=table,
+                                  train_cfg=cfg, impl="torch")
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    a, b = tree_leaves(g16), tree_leaves(g32)
+    num = sum(((x.float() - y) ** 2).sum() for x, y in zip(a, b)).sqrt().item()
+    den = sum((y ** 2).sum() for y in b).sqrt().item()
+    finite = all(bool(torch.isfinite(x).all()) for x in a)
+    del unet32, g16, g32
+    torch.cuda.empty_cache()
+    rel = num / max(den, 1e-30)
+    say(f"  train grads bf16 kernels vs f32 plain (b{len(batch['t'])}, {len(a)} leaves): "
+        f"rel_l2={rel:.3e} (tol {TRAIN_GRAD_REL_L2}) loss {loss16.item():.5f} vs "
+        f"{loss32.item():.5f}; f32 peak_mem={peak32:.2f} GiB")
+    return finite and rel <= TRAIN_GRAD_REL_L2, rel
+
+
+def _lora_checksum(lora) -> float:
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+
+    return float(sum(x.double().sum() for x in tree_leaves(lora)).item())
+
+
+def phase_training(unet, counters):
+    from stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    cfg, step_fn, state, batch = train_setup(unet)
+    # 1. the shapes of one step (the first warm-up)
+    for c in counters.values():
+        c.record()
+    b0 = batch()
+    state, _ = step_fn(state, b0)
+    torch.cuda.synchronize()
+    shapes = {k: c.stop_recording() for k, c in counters.items()}
+    say("  train step shapes: " + ", ".join(f"{k} {len(v)} shapes {sum(v.values())} calls"
+                                            for k, v in shapes.items()))
+    # 2-3. every kernel at the step's shapes; K5/K6's occupancy and the pair
+    for d in sorted({key[3] for key in shapes["K5"]}):
+        occ = fa.attention_bwd_occupancy(d)
+        say(f"  K5/K6 occupancy d={d}: " + "; ".join(
+            f"{k} {o['registers']} registers, {o['spill_bytes']} spill bytes, "
+            f"{o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM"
+            for k, o in occ.items()))
+    ok_k, summary = check_kernels(shapes, tuple(KERNELS), "train")
+    pair_bound, pair_lib = attention_bwd_pair(shapes, torch.Generator(device="cuda").manual_seed(7))
+    # 4. gradients against the plain f32 path
+    ok_g, grad_rel = check_train_grads(unet, cfg, b0)
+    # 5. timed steps
+    state, _ = step_fn(state, batch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    secs, ok_s = [], True
+    for i in range(TRAIN_STEPS):
+        updates = state["opt_state"]["mini_step"] == cfg.grad_accum_steps - 1
+        before = _lora_checksum(state["lora"])
+        bt = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, bt)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        changed = _lora_checksum(state["lora"]) != before
+        good = np.isfinite(loss) and np.isfinite(gnorm) and changed == updates
+        ok_s &= good
+        say(f"  train step {i}: {secs[-1]:.4f} s loss={loss:.5f} grad_norm={gnorm:.4f} "
+            f"lora {'updated' if changed else 'unchanged'} {'ok' if good else 'BAD'}")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = ok_k and ok_g and ok_s and all(n > 0 for n in launches.values())
+    return ok, dict(summary=summary, secs=secs, launches=launches, peak_gib=peak,
+                    grad_rel=grad_rel, shapes=shapes, pair_bound_ms=pair_bound,
+                    pair_library_ms=pair_lib)
+
+
+def profile_train_step(unet):
+    """One-off torch.profiler trace of two steady train steps: device busy
+    per step (sum of CUDA kernel times) and the kernels that take it."""
+    cfg, step_fn, state, batch = train_setup(unet)
+    for _ in range(3):
+        state, m = step_fn(state, batch())
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(5):
+        bt = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, bt)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    wall = statistics.median(secs)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            state, m = step_fn(state, batch())
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / 2, e.count / 2)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    say(f"profile train step: unprofiled s/step median {wall:.4f} ({[round(s, 4) for s in secs]}); "
+        f"device busy {busy:.2f} ms/step; idle share {1 - busy / 1e3 / wall:.3f}")
+    def group(name: str) -> str:
+        if name in ("partial_stats", "finalize", "apply"):  # the Triton kernels' names
+            return "K1"
+        for pat, k in (("bwd_dq_kernel", "K5"), ("bwd_dkv_kernel", "K6"), ("conv3x3", "K2"),
+                       ("attention_kernel", "K3"), ("ffn_", "K4")):
+            if pat in name:
+                return k
+        return "library and elementwise"
+
+    by_group = {}
+    for key, ms, _ in rows:
+        by_group[group(key)] = by_group.get(group(key), 0.0) + ms
+    for name, ms in sorted(by_group.items()):
+        say(f"  {name}: {ms:.2f} ms/step ({100 * ms / max(busy, 1e-9):.1f}% of busy)")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:15]:
+        say(f"  {ms:8.2f} ms/step {n:6.0f} calls  {key[:110]}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -323,7 +643,8 @@ def main() -> int:
 
     from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm
 
-    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4}
+    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
+                "K5": flash_attention.K5, "K6": flash_attention.K6}
 
     # 2. build
     t0 = time.perf_counter()
@@ -336,13 +657,20 @@ def main() -> int:
     say(f"phase 2 build: ok, {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}, Triton JIT included)")
 
-    # 3. kernels vs plain at the main path's shapes
     pipe = build_pipeline(torch.bfloat16, "cuda")
+    if "--profile-train" in sys.argv[1:]:
+        del pipe.vae, pipe.text_encoder
+        profile_train_step(pipe.unet)
+        return 0
+
+    # 3. kernels vs plain at the main path's shapes
     shapes = record_main_path_shapes(pipe, counters)
-    ok3, summary = phase_kernels(shapes)
+    ok3, summary = check_kernels(shapes, SERVING_KERNELS, "serve")
     say(f"phase 3 kernels: {'ok' if ok3 else 'FAIL'}, " + ", ".join(
-        f"{k} {s['shapes']} shapes max_rel={s['max_rel_err']:.2e} "
-        f"kernel {s['ms_per_pass']:.2f} ms vs plain {s['plain_ms_per_pass']:.2f} ms per pass"
+        f"{k} {s['shapes']} shapes max_rel={s['max_rel_err']:.2e} kernel {s['ms']:.2f} ms, "
+        f"plain {s['plain_ms']:.2f}, library "
+        f"{'-' if s['library_ms'] is None else format(s['library_ms'], '.2f')}, "
+        f"bound {s['bound_ms']:.2f} ({s['bound_by']}) per pass"
         for k, s in summary.items())
         + " (a pass: text encode + one CFG UNet step + VAE decode)")
     if not ok3:
@@ -357,7 +685,7 @@ def main() -> int:
 
     # 5. serving
     ok5, secs, launches, peak = phase_serving(pipe, counters)
-    ok5 &= all(n > 0 for n in launches.values())
+    ok5 &= all(launches[k] > 0 for k in SERVING_KERNELS)
     say(f"phase 5 serving: {'ok' if ok5 else 'FAIL'}, {SERVE_REQUESTS} requests at 512^2, "
         f"DDIM {SERVE_STEPS} steps, CFG 7.5: s/request={[round(s, 3) for s in secs]} "
         f"launches={launches} peak_mem={peak:.2f} GiB")
@@ -372,16 +700,54 @@ def main() -> int:
     pipe.generate(cond, uncond, inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
     say(f"  plain impl='torch' bf16, same request: {time.perf_counter() - t0:.3f} s")
 
-    # ms / plain_ms: milliseconds per pass (each main-path shape's median
-    # time times its calls in one text encode + CFG UNet step + VAE decode)
-    kernels = [dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
-                    replaces=KERNELS[k]["replaces"], launches=launches[k],
-                    max_abs_err=summary[k]["max_abs_err"], ms=summary[k]["ms_per_pass"],
-                    plain_ms=summary[k]["plain_ms_per_pass"],
-                    max_rel_err=summary[k]["max_rel_err"],
-                    shapes=summary[k]["shapes"], replaces_all=KERNELS[k]["replaces_all"])
-               for k in ("K1", "K2", "K3", "K4")]
-    say(json.dumps({"kernels": kernels}))
+    # 6. training
+    unet = pipe.unet
+    del pipe
+    torch.cuda.empty_cache()
+    ok6, train = phase_training(unet, counters)
+    ts = train["secs"]
+    tsum = train["summary"]
+    say(f"phase 6 training: {'ok' if ok6 else 'FAIL'}, SD1.5 LoRA r128 DreamBooth b{TRAIN_BATCH} "
+        f"512^2, accumulation 2, EMA: s/step median {statistics.median(ts):.4f} "
+        f"(min {min(ts):.4f}, max {max(ts):.4f}, {len(ts)} steps) "
+        f"peak_mem={train['peak_gib']:.2f} GiB launches={train['launches']} "
+        f"grad rel_l2={train['grad_rel']:.3e}; K5+K6 {tsum['K5']['ms'] + tsum['K6']['ms']:.3f} ms "
+        f"vs plain {tsum['K5']['plain_ms'] + tsum['K6']['plain_ms']:.3f}, SDPA backward "
+        f"{train['pair_library_ms']:.3f}, bound {train['pair_bound_ms']:.3f} "
+        f"(K5's {tsum['K5']['bound_ms']:.3f} + K6's {tsum['K6']['bound_ms']:.3f}) ms per step")
+    if not ok6:
+        return 1
+
+    # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
+    # serving (text encode + CFG UNet step + VAE decode), launches over phase
+    # 5's requests, with their train-step figures under train_*; K5/K6: one
+    # train micro-step, launches over phase 6's timed steps.
+    kernels = []
+    for k in KERNELS:
+        serving = k in SERVING_KERNELS
+        s = summary[k] if serving else tsum[k]
+        row = dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
+                   replaces=KERNELS[k]["replaces"],
+                   launches=launches[k] if serving else train["launches"][k],
+                   max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+                   bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"],
+                   max_rel_err=s["max_rel_err"], shapes=s["shapes"],
+                   pass_="serving: text encode + CFG UNet step + VAE decode" if serving
+                   else "one train micro-step (b4)",
+                   library_call=KERNELS[k]["library"], replaces_all=KERNELS[k]["replaces_all"])
+        if serving:
+            t = tsum[k]
+            row.update(train_launches=train["launches"][k], train_ms=t["ms"],
+                       train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
+                       train_library_ms=t["library_ms"], train_max_rel_err=t["max_rel_err"])
+        row["pass"] = row.pop("pass_")
+        kernels.append(row)
+    # K5 + K6 as the one function they compute, per train micro-step
+    pair = dict(kernels=["K5", "K6"], ms=tsum["K5"]["ms"] + tsum["K6"]["ms"],
+                plain_ms=tsum["K5"]["plain_ms"] + tsum["K6"]["plain_ms"],
+                bound_ms=train["pair_bound_ms"], library_ms=train["pair_library_ms"],
+                library_call="F.scaled_dot_product_attention backward (dq, dk, dv)")
+    say(json.dumps({"kernels": kernels, "pair": pair}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

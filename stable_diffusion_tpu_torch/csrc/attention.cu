@@ -27,9 +27,12 @@
 // lanes.  The output accumulator holds at most 160 columns per pass; wider
 // heads (the VAE's d=512) run four 128-column passes over the keys,
 // recomputing the logits.  Softmax statistics stay in f32; scale is d^-0.5.
+// For a training step the kernel also writes each row's log-sum-exp (in the
+// log2 domain of its running max, f32 (B, H, Sq)), so that the backward
+// (K5/K6, attention_bwd.cu) need not recompute the row statistics.
 #include <math.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace sdtk {
 namespace {
@@ -43,36 +46,11 @@ struct AttnArgs {
   const bf16* k;
   const bf16* v;
   bf16* o;  // (B, Sq, H, D) contiguous
+  float* lse;  // (B, H, Sq) log2(sum_k exp2(s_k * scale * log2 e)), or null
   long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;  // batch and sequence strides, in elements
   int H, Sq, Sk, D, DQ, passes, kv_len;     // DQ: padded head dim held in shared memory
   float scale_log2;  // d^-0.5 * log2(e)
 };
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed, from shared memory.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 template <int DC>  // output columns per pass, a multiple of 16
 __global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
@@ -211,6 +189,10 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
     // O / l -> bf16 for this pass's columns.
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int r0 = q0 + warp * 16 + g;
+    if (a.lse != nullptr && pass == 0 && t == 0) {  // lanes 4g..4g+3 hold the same row stats
+      if (r0 < a.Sq) a.lse[(long)bh * a.Sq + r0] = m0 + log2f(l0);
+      if (r0 + 8 < a.Sq) a.lse[(long)bh * a.Sq + r0 + 8] = m1 + log2f(l1);
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = d0 + 8 * j + 2 * t;
@@ -240,14 +222,17 @@ int launch(const AttnArgs& a, int B, cudaStream_t st) {
 }  // namespace sdtk
 
 // Shape rules (checked by the Python wrapper): D % 8 == 0, D <= 512, every
-// stride a multiple of 8, 16-byte aligned pointers, 0 < kv_len <= Sk.
-extern "C" int sdtk_attention(const void* q, const void* k, const void* v, void* o, long q_sb,
-                              long q_ss, long k_sb, long k_ss, long v_sb, long v_ss, int B, int H,
-                              int Sq, int Sk, int D, int kv_len, float scale, void* stream) {
+// stride a multiple of 8, 16-byte aligned pointers, 0 < kv_len <= Sk.  lse
+// may be null.
+extern "C" int sdtk_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                              long q_sb, long q_ss, long k_sb, long k_ss, long v_sb, long v_ss,
+                              int B, int H, int Sq, int Sk, int D, int kv_len, float scale,
+                              void* stream) {
   using namespace sdtk;
   const int DP = (D + 15) / 16 * 16;
   AttnArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-             static_cast<bf16*>(o),       q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+             static_cast<bf16*>(o),       static_cast<float*>(lse),
+             q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
              H, Sq, Sk, D, DP, 1, kv_len, scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DP) {  // one pass with the output tile as wide as the padded head

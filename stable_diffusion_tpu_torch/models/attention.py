@@ -30,18 +30,31 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=out_bias)
 
     def fused_qkv(self):
-        """(3E, E) weight and (3E,) bias of the fused projection, cached until
-        a projection's parameters change."""
+        """(3E, E) weight and (3E,) bias of the fused projection.
+
+        With grad enabled it is concatenated live from the projections'
+        current tensors, so gradients reach them (and a
+        ``torch.func.functional_call`` substitution, as the LoRA merge makes,
+        is followed).  Under no_grad it is cached until one of those tensors
+        is replaced or changed in place; the cache holds the tensors
+        themselves, so a freed tensor's address cannot alias a new one."""
         ps = [self.q_proj, self.k_proj, self.v_proj]
-        key = tuple((p.weight.data_ptr(), p.weight._version, p.weight.dtype) for p in ps)
+        tensors = [t for p in ps for t in (p.weight, p.bias) if t is not None]
+        if torch.is_grad_enabled():
+            return self._concat(ps)
+        key = [(t, t._version, t.data_ptr(), t.dtype) for t in tensors]
         cached = getattr(self, "_qkv_cache", None)
-        if cached is None or cached[0] != key:
-            w = torch.cat([p.weight.detach() for p in ps], dim=0)
-            b = (torch.cat([p.bias.detach() for p in ps])
-                 if self.q_proj.bias is not None else None)
-            cached = (key, w, b)
+        if (cached is None or len(cached[0]) != len(key)
+                or any(a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(cached[0], key))):
+            cached = (key, *self._concat(ps))
             self._qkv_cache = cached
         return cached[1], cached[2]
+
+    @staticmethod
+    def _concat(ps):
+        w = torch.cat([p.weight for p in ps], dim=0)
+        b = torch.cat([p.bias for p in ps]) if ps[0].bias is not None else None
+        return w, b
 
 
 def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None,

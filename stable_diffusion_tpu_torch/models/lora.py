@@ -1,0 +1,85 @@
+"""LoRA as a tree of tensors merged functionally (port of
+stable_diffusion_tpu/models/lora.py).
+
+The tree is keyed by the dotted module path of each target (the JAX key
+path, which the port's module names follow): ``{path: {"lora_A", "lora_B",
+"alpha"}}``, in torch orientation (linear A (out, r), B (r, in); conv A
+(O, r, kh, kw), B (r, I, kh, kw)), so a JAX tree carries over as it is
+(``utils.weights.lora_from_jax``).  ``alpha`` is a 0-d tensor and a trained
+leaf, as in JAX, where ``jax.value_and_grad`` differentiates the whole tree.
+
+* delta = (A @ B) * scale (conv: ``einsum("orhw,rihw->oihw")``), with
+  scale = rank / alpha, the reference's inverted convention, cast to the
+  base weight's dtype.
+* The merge is functional: :func:`merge_lora` returns new weight tensors,
+  which reach the model through ``torch.func.functional_call``, so the
+  gradients flow to A, B and alpha and the base weights stay as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Sequence
+
+import torch
+from torch import nn
+
+# Default target suffixes, matching the reference CLIs.
+DEFAULT_UNET_TARGETS = (
+    "q_proj", "k_proj", "v_proj", "out_proj", "conv_input", "conv_output",
+    "ffn.0.proj", "ffn.1",
+)
+
+
+def _kernel_modules(model: nn.Module):
+    """(path, module) for every module that owns a kernel (JAX ``kernel``):
+    the linears and convs."""
+    return [(p, m) for p, m in model.named_modules() if isinstance(m, (nn.Linear, nn.Conv2d))]
+
+
+def match_targets(model: nn.Module, targets: Sequence[str]) -> List[str]:
+    """Sorted paths of kernel-owning modules whose path ends with a target."""
+    return sorted(p for p, _ in _kernel_modules(model) if any(p.endswith(t) for t in targets))
+
+
+def init_lora(generator: torch.Generator, model: nn.Module, *, rank: int, alpha: float,
+              targets: Sequence[str] = DEFAULT_UNET_TARGETS, dtype=torch.float32,
+              device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A ~ N(0, 1) drawn from ``generator`` in sorted path order, B = 0."""
+    mods = dict(_kernel_modules(model))
+    device = next(model.parameters()).device if device is None else device
+    lora = {}
+    for path in match_targets(model, targets):
+        w = mods[path].weight
+        if w.dim() == 2:
+            out_dim, in_dim = w.shape
+            a_shape, b_shape = (out_dim, rank), (rank, in_dim)
+        else:
+            out_dim, in_dim, kh, kw = w.shape
+            a_shape, b_shape = (out_dim, rank, kh, kw), (rank, in_dim, kh, kw)
+        a = torch.randn(a_shape, generator=generator, device=generator.device, dtype=dtype)
+        lora[path] = {"lora_A": a.to(device), "lora_B": torch.zeros(b_shape, dtype=dtype, device=device),
+                      "alpha": torch.tensor(alpha, dtype=dtype, device=device)}
+    return lora
+
+
+def lora_delta(entry: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The weight delta of one entry, in the weight's torch layout."""
+    a, b = entry["lora_A"], entry["lora_B"]
+    scale = a.shape[1] / entry["alpha"]
+    if a.dim() == 2:
+        return (a @ b) * scale
+    return torch.einsum("orhw,rihw->oihw", a, b) * scale
+
+
+def merge_lora(params: Mapping[str, torch.Tensor], lora: Mapping[str, Mapping[str, torch.Tensor]],
+               *, enabled: bool = True) -> Dict[str, torch.Tensor]:
+    """``params`` (``dict(model.named_parameters())``) with each target's
+    ``{path}.weight`` replaced by weight + delta (cast to the weight's
+    dtype); the others are the same tensors.  Pure: nothing is written."""
+    out = dict(params)
+    if not enabled:
+        return out
+    for path, entry in lora.items():
+        w = out[f"{path}.weight"]
+        out[f"{path}.weight"] = w + lora_delta(entry).to(w.dtype)
+    return out

@@ -8,6 +8,12 @@ conv runs as K1 stats + K2, every non-causal attention as K3, every
 feed-forward block as K4; the 1x1 convs, projections, stride-2 convs,
 conv_in/conv_out and the time embedding are plain matmuls and convs, as
 JAX leaves them to XLA.  The DeepCache split is not ported yet.
+
+``gradient_checkpointing`` recomputes each resblock+transformer unit in the
+backward (JAX ``_block_apply(remat=True)``, ``jax.checkpoint``) through
+``torch.utils.checkpoint``.  The unit's parameters go to the checkpointed
+function as explicit inputs, so a recompute after a
+``torch.func.functional_call`` (the LoRA merge) sees the merged tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from stable_diffusion_tpu_torch.models import layers
@@ -110,6 +117,16 @@ class Transformer(nn.Module):
         self.conv_output = _conv(ch, ch, 1)
 
 
+class _Block(nn.ModuleDict):
+    """One resblock (``"0"``) and optional transformer (``"1"``) unit."""
+
+    def forward(self, x, t_embed, cond, *, num_heads: int, eps: float, impl: str):
+        x = resblock_apply(self["0"], x, t_embed, eps=eps, impl=impl)
+        if "1" in self:
+            x = transformer_apply(self["1"], x, cond, num_heads=num_heads, impl=impl)
+        return x
+
+
 class _Conv(nn.Module):
     """Holder for a key path ending in ``.conv``."""
 
@@ -145,6 +162,39 @@ class _TimeEmbedding(nn.Module):
         self.ffn = nn.ModuleDict({"0": nn.Linear(t_in, t_dim), "2": nn.Linear(t_dim, t_dim)})
 
 
+def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
+    h = gn_silu_conv3x3(x, p.groupnorm_1.weight, p.groupnorm_1.bias, p.conv_1.weight,
+                        p.conv_1.bias, eps=eps, impl=impl)
+    h = h + layers.linear(p.t_embed, layers.silu(t_embed))[:, None, None, :]
+    h = gn_silu_conv3x3(h, p.groupnorm_2.weight, p.groupnorm_2.bias, p.conv_2.weight,
+                        p.conv_2.bias, eps=eps, impl=impl)
+    if hasattr(p, "proj_input"):
+        b, hh, ww, ci = x.shape
+        co = h.shape[-1]
+        y = matmul_residual(x.reshape(b, hh * ww, ci), p.proj_input.weight[:, :, 0, 0],
+                            p.proj_input.bias, h.reshape(b, hh * ww, co))
+        return y.reshape(h.shape)
+    return h + x
+
+
+def transformer_apply(p: Transformer, x, cond, *, num_heads: int, impl: str):
+    b, hh, ww, c = x.shape
+    res = x
+    x = gn_matmul(x, p.groupnorm.weight, p.groupnorm.bias, p.conv_input.weight[:, :, 0, 0],
+                  p.conv_input.bias, eps=1e-6, impl=impl).reshape(b, hh * ww, c)
+    tb = p.transformer_block
+    x = multihead_attention(tb.attn1, x, num_heads=num_heads, impl=impl,
+                            ln=tb.layernorm_1, residual=x)
+    x = multihead_attention(tb.attn2, x, num_heads=num_heads, cond=cond, impl=impl,
+                            ln=tb.layernorm_2, residual=x)
+    ffn = tb.ffn
+    x = geglu_ffn(x, tb.layernorm_3.weight, tb.layernorm_3.bias, ffn["0"].proj.weight,
+                  ffn["0"].proj.bias, ffn["1"].weight, ffn["1"].bias, residual=x, impl=impl)
+    x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
+                        res.reshape(b, hh * ww, c))
+    return x.reshape(b, hh, ww, c)
+
+
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -160,7 +210,7 @@ class UNet(nn.Module):
             m = {"0": ResBlock(in_ch, out_ch, t_dim, g)}
             if has_attn[stage]:
                 m["1"] = Transformer(out_ch, cross[stage], g)
-            return nn.ModuleDict(m)
+            return _Block(m)
 
         block_in = [bc[0]] + bc
         down = {}
@@ -200,49 +250,25 @@ class UNet(nn.Module):
         ffn = self.time_embedding.ffn
         return layers.linear(ffn["2"], layers.silu(layers.linear(ffn["0"], t)))
 
-    def _resblock(self, p: ResBlock, x, t_embed, impl):
-        eps = self.cfg.norm_eps
-        h = gn_silu_conv3x3(x, p.groupnorm_1.weight, p.groupnorm_1.bias, p.conv_1.weight,
-                            p.conv_1.bias, eps=eps, impl=impl)
-        h = h + layers.linear(p.t_embed, layers.silu(t_embed))[:, None, None, :]
-        h = gn_silu_conv3x3(h, p.groupnorm_2.weight, p.groupnorm_2.bias, p.conv_2.weight,
-                            p.conv_2.bias, eps=eps, impl=impl)
-        if hasattr(p, "proj_input"):
-            b, hh, ww, ci = x.shape
-            co = h.shape[-1]
-            y = matmul_residual(x.reshape(b, hh * ww, ci), p.proj_input.weight[:, :, 0, 0],
-                                p.proj_input.bias, h.reshape(b, hh * ww, co))
-            return y.reshape(h.shape)
-        return h + x
+    def _block(self, p: _Block, x, t_embed, cond, num_heads, impl, remat):
+        kw = dict(num_heads=num_heads, eps=self.cfg.norm_eps, impl=impl)
+        if not (remat and torch.is_grad_enabled()):
+            return p(x, t_embed, cond, **kw)
+        names, tensors = zip(*p.named_parameters())
 
-    def _transformer(self, p: Transformer, x, cond, num_heads, impl):
-        b, hh, ww, c = x.shape
-        res = x
-        x = gn_matmul(x, p.groupnorm.weight, p.groupnorm.bias, p.conv_input.weight[:, :, 0, 0],
-                      p.conv_input.bias, eps=1e-6, impl=impl).reshape(b, hh * ww, c)
-        tb = p.transformer_block
-        x = multihead_attention(tb.attn1, x, num_heads=num_heads, impl=impl,
-                                ln=tb.layernorm_1, residual=x)
-        x = multihead_attention(tb.attn2, x, num_heads=num_heads, cond=cond, impl=impl,
-                                ln=tb.layernorm_2, residual=x)
-        ffn = tb.ffn
-        x = geglu_ffn(x, tb.layernorm_3.weight, tb.layernorm_3.bias, ffn["0"].proj.weight,
-                      ffn["0"].proj.bias, ffn["1"].weight, ffn["1"].bias, residual=x, impl=impl)
-        x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
-                            res.reshape(b, hh * ww, c))
-        return x.reshape(b, hh, ww, c)
+        def run(x, t_embed, cond, *tensors):
+            return torch.func.functional_call(p, dict(zip(names, tensors)), (x, t_embed, cond), kw)
 
-    def _block(self, p: nn.ModuleDict, x, t_embed, cond, num_heads, impl):
-        x = self._resblock(p["0"], x, t_embed, impl)
-        if "1" in p:
-            x = self._transformer(p["1"], x, cond, num_heads, impl)
-        return x
+        return torch.utils.checkpoint.checkpoint(run, x, t_embed, cond, *tensors,
+                                                 use_reentrant=False)
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
-                impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto", gradient_checkpointing: bool = False) -> torch.Tensor:
         """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
         cond: (B, 77, cross_dim).  Returns the epsilon prediction."""
         cfg = self.cfg
+        remat = gradient_checkpointing
+        eps = cfg.norm_eps
         heads = cfg.heads_per_stage
         n = cfg.num_stages
         t_embed = self.time_embedding_apply(timestep, x.dtype)
@@ -252,23 +278,23 @@ class UNet(nn.Module):
         for i in range(n):
             stage = self.encoder.down[str(i)]
             for j in range(cfg.layers_per_block):
-                h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl)
+                h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl, remat)
                 skips.append(h)
             if i != n - 1:
                 h = layers.conv2d(stage.downsample.conv, h, stride=2, padding=1)
                 skips.append(h)
 
         mid = self.bottleneck
-        h = self._resblock(mid["0"], h, t_embed, impl)
-        h = self._transformer(mid["1"], h, cond, heads[-1], impl)
-        h = self._resblock(mid["2"], h, t_embed, impl)
+        h = resblock_apply(mid["0"], h, t_embed, eps=eps, impl=impl)
+        h = transformer_apply(mid["1"], h, cond, num_heads=heads[-1], impl=impl)
+        h = resblock_apply(mid["2"], h, t_embed, eps=eps, impl=impl)
 
         for u, i in enumerate(reversed(range(n))):
             stage = self.decoder.up[str(u)]
             prev_hw = skips[-1].shape[2]
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=-1)
-                h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl)
+                h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl, remat)
             if i != 0:
                 if not (skips and skips[-1].shape[2] == prev_hw):
                     h = layers.upsample_nearest_2x(h)
@@ -276,6 +302,5 @@ class UNet(nn.Module):
                 h = conv3x3(h, conv.weight, conv.bias, impl=impl)
 
         out = self.output
-        h = group_norm_silu(h, out["0"].weight, out["0"].bias, eps=cfg.norm_eps, silu=True,
-                            impl=impl)
+        h = group_norm_silu(h, out["0"].weight, out["0"].bias, eps=eps, silu=True, impl=impl)
         return layers.conv2d(out["2"], h)

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("conv3x3.cu", "attention.cu", "ffn.cu")
+_SOURCES = ("conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
@@ -88,12 +88,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.sdtk_conv3x3_ksplit.argtypes = [I, I, I, I, I]
     lib.sdtk_conv3x3.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
-    lib.sdtk_attention.argtypes = [P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F, P]
+    lib.sdtk_attention.argtypes = [P, P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F, P]
+    lib.sdtk_attention_bwd_dq.argtypes = [P] * 8 + [L] * 10 + [I] * 4 + [F, P]
+    lib.sdtk_attention_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + [I] * 4 + [F, P]
     IP = ctypes.POINTER(ctypes.c_int)
+    lib.sdtk_attention_bwd_attrs.argtypes = [I, IP]
     lib.sdtk_ffn_plan.argtypes = [I, I, IP, IP, IP]
     lib.sdtk_ffn.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
     for fn in (lib.sdtk_conv3x3_ksplit, lib.sdtk_conv3x3, lib.sdtk_attention,
-               lib.sdtk_ffn_plan, lib.sdtk_ffn):
+               lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
+               lib.sdtk_attention_bwd_attrs, lib.sdtk_ffn_plan, lib.sdtk_ffn):
         fn.restype = ctypes.c_int
     return lib
 

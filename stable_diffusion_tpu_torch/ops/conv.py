@@ -9,16 +9,27 @@ without a prologue (the upsamplers).
 
 Weights arrive in PyTorch's OIHW layout; the kernel reads HWIO, re-laid once
 per weight and cached on the weight tensor.
+
+Gradients follow the JAX package's ``jax.custom_vjp`` rules (``_conv_bwd``,
+``_gn_split_bwd``): the input gradient of a SAME 3x3 stride-1 conv is such a
+conv with the spatially flipped, I/O-swapped kernel, so it runs on K2 too
+(``transposed=True``); the weight and bias gradients come from the plain
+conv's VJP; the GroupNorm+SiLU chain is differentiated through its plain
+version, recomputed.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from stable_diffusion_tpu_torch.ops import _cuda
-from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift, group_norm_plain
-from stable_diffusion_tpu_torch.utils.device import LaunchCounter, require, use_kernel
+from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, gn_scale_shift_plain,
+                                                      group_norm_plain)
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
+                                                     require_no_grad, use_kernel, wants_grad)
 
 K2 = LaunchCounter()
 
@@ -34,6 +45,21 @@ def conv3x3_plain(x, weight, bias=None):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv3x3_scale_shift_plain(x, weight, bias=None, scale_shift=None):
+    """The function K2 computes: with a (B, 2, Cin) f32 ``scale_shift``,
+    ``silu(x * scale + shift)`` is convolved instead of x."""
+    if scale_shift is not None:
+        xf = at_least_f32(x) * scale_shift[:, None, None, 0] + scale_shift[:, None, None, 1]
+        x = F.silu(xf).to(x.dtype)
+    return conv3x3_plain(x, weight, bias)
+
+
+def flip_io(weight):
+    """OIHW (Cout, Cin, 3, 3) -> (Cin, Cout, 3, 3) spatially flipped: the
+    kernel whose conv is the input gradient of ``weight``'s (JAX ``_dx_conv``)."""
+    return weight.flip(2, 3).transpose(0, 1)
+
+
 def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias=None, *,
                           num_groups: int = 32, eps: float = 1e-5):
     """GroupNorm -> SiLU -> zero-padded 3x3 conv, as the JAX XLA path."""
@@ -46,29 +72,38 @@ def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias=None, *,
 # ---------------------------------------------------------------------------
 
 
-def hwio(weight: torch.Tensor) -> torch.Tensor:
-    """The weight in HWIO layout, contiguous, cached on the weight tensor."""
-    key = (weight.data_ptr(), weight._version, weight.dtype, weight.device)
-    cached = getattr(weight, "_sdtk_hwio", None)
+def hwio(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
+    """The weight in HWIO layout, contiguous, cached on the weight tensor;
+    ``transposed`` gives that of :func:`flip_io` (weight)."""
+    key = (weight.data_ptr(), weight._version, weight.dtype, weight.device, transposed)
+    attr = "_sdtk_hwio_t" if transposed else "_sdtk_hwio"
+    cached = getattr(weight, attr, None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    w = weight.detach().permute(2, 3, 1, 0).contiguous()
-    weight._sdtk_hwio = (key, w)
+    # a detached copy: the raw kernel refuses tensors that want a gradient,
+    # so this copy never stands in for a weight in a recorded graph
+    w = weight.detach()
+    w = (w.flip(2, 3).permute(2, 3, 0, 1) if transposed else w.permute(2, 3, 1, 0)).contiguous()
+    setattr(weight, attr, (key, w))
     return w
 
 
-def conv3x3_kernel(x, weight, bias=None, scale_shift=None):
+def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool = False):
     """Launch K2.  x (B,H,W,Cin) bf16 contiguous; weight OIHW (Cout,Cin,3,3);
-    scale_shift (B, 2, Cin) f32 applies GroupNorm+SiLU to x first."""
+    scale_shift (B, 2, Cin) f32 applies GroupNorm+SiLU to x first.  With
+    ``transposed`` the conv runs with :func:`flip_io` (weight): the input
+    gradient of ``weight``'s conv, for x of Cout channels."""
+    require_no_grad("K2", x, weight, bias, scale_shift)
     require(x.is_cuda, f"K2 needs a CUDA tensor, got {x.device}")
     require(x.dtype == torch.bfloat16, f"K2 takes bf16, got {x.dtype}")
     require(x.dim() == 4 and x.is_contiguous(), "K2 needs a contiguous NHWC tensor")
     b, h, w, cin = x.shape
-    cout = weight.shape[0]
-    require(tuple(weight.shape) == (cout, cin, 3, 3), f"K2: weight {tuple(weight.shape)} for Cin={cin}")
+    cout = weight.shape[1] if transposed else weight.shape[0]
+    want = (cin, cout, 3, 3) if transposed else (cout, cin, 3, 3)
+    require(tuple(weight.shape) == want, f"K2: weight {tuple(weight.shape)} for Cin={cin}")
     require(weight.dtype == torch.bfloat16, f"K2: weight dtype {weight.dtype}")
     require(cin % 8 == 0 and cout % 8 == 0, f"K2 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
-    wk = hwio(weight)
+    wk = hwio(weight, transposed=transposed)
     if bias is not None:
         require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
                 "K2: bias must be contiguous bf16 (Cout,)")
@@ -92,6 +127,87 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None):
 
 
 # ---------------------------------------------------------------------------
+# Autograd: the forward and the input-gradient conv are arguments, so the
+# CPU tests run the same Functions on the plain versions
+# ---------------------------------------------------------------------------
+
+
+class ConvOps(NamedTuple):
+    conv: Callable         # (x, weight, bias, scale_shift) -> y
+    conv_dx: Callable      # (g, weight) -> the conv of g with flip_io(weight)
+    scale_shift: Callable  # (x, gn_weight, gn_bias, num_groups, eps) -> (B, 2, C) f32
+
+
+KERNEL_OPS = ConvOps(
+    conv3x3_kernel,
+    lambda g, weight: conv3x3_kernel(g, weight, transposed=True),
+    lambda x, gw, gb, groups, eps: gn_scale_shift_kernel(x, gw, gb, num_groups=groups, eps=eps))
+PLAIN_OPS = ConvOps(
+    conv3x3_scale_shift_plain,
+    lambda g, weight: conv3x3_plain(g, flip_io(weight)),
+    lambda x, gw, gb, groups, eps: gn_scale_shift_plain(x, gw, gb, groups, eps))
+
+
+def _weight_grads(x, weight, bias, g, need_w: bool, need_b: bool):
+    """dW and db of ``conv3x3_plain(x, weight, bias)`` against g (plain VJP)."""
+    dw = (torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), weight.shape, g.permute(0, 3, 1, 2),
+                                      padding=1) if need_w else None)
+    db = g.float().sum(dim=(0, 1, 2)).to(bias.dtype) if need_b else None
+    return dw, db
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """3x3 conv: dx by the conv with the flipped, I/O-swapped weight (JAX
+    ``_conv_bwd``), dW and db from the plain VJP."""
+
+    @staticmethod
+    def forward(ctx, ops: ConvOps, x, weight, bias):
+        ctx.ops = ops
+        ctx.save_for_backward(x, weight, bias)
+        return ops.conv(x, weight, bias, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        _, nx, nw, nb = ctx.needs_input_grad
+        g = g.contiguous()
+        dx = ctx.ops.conv_dx(g, weight) if nx else None
+        dw, db = _weight_grads(x, weight, bias, g, nw, nb and bias is not None)
+        return None, dx, dw, db
+
+
+class GnSiluConv3x3Fn(torch.autograd.Function):
+    """GroupNorm -> SiLU -> 3x3 conv with the split backward of JAX
+    ``_gn_split_bwd``: the conv's input gradient by the flipped-weight conv
+    (no prologue), then the VJP of the plain GroupNorm+SiLU, recomputed; dW
+    and db from the plain conv VJP on the recomputed activation."""
+
+    @staticmethod
+    def forward(ctx, ops: ConvOps, x, gn_weight, gn_bias, weight, bias, num_groups, eps):
+        ctx.ops, ctx.num_groups, ctx.eps = ops, num_groups, eps
+        ctx.save_for_backward(x, gn_weight, gn_bias, weight, bias)
+        ss = ops.scale_shift(x, gn_weight, gn_bias, num_groups, eps)
+        return ops.conv(x, weight, bias, ss)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gw, gb, weight, bias = ctx.saved_tensors
+        _, nx, ngw, ngb, nw, nb, _, _ = ctx.needs_input_grad
+        g = g.contiguous()
+        need = (nx, ngw, ngb)
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip((x, gw, gb), need)]
+            xn = group_norm_plain(*ins, ctx.num_groups, ctx.eps, silu=True)
+        dw, db = _weight_grads(xn.detach(), weight, bias, g, nw, nb and bias is not None)
+        dx = dgw = dgb = None
+        if any(need):
+            dxn = ctx.ops.conv_dx(g, weight).to(xn.dtype)
+            got = iter(torch.autograd.grad(xn, [t for t, n in zip(ins, need) if n], dxn))
+            dx, dgw, dgb = (next(got) if n else None for n in need)
+        return None, dx, dgw, dgb, dw, db, None, None
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -100,6 +216,8 @@ def conv3x3(x, weight, bias=None, *, impl: str = "auto"):
     """3x3 SAME stride-1 conv (the upsamplers' conv)."""
     if not use_kernel(impl, x):
         return conv3x3_plain(x, weight, bias)
+    if wants_grad(x, weight, bias):
+        return Conv3x3Fn.apply(KERNEL_OPS, x, weight, bias)
     return conv3x3_kernel(x, weight, bias)
 
 
@@ -110,5 +228,8 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int
     if not use_kernel(impl, x):
         return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias,
                                      num_groups=num_groups, eps=eps)
-    ss = gn_scale_shift(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps, impl=impl)
+    if wants_grad(x, gn_weight, gn_bias, weight, bias):
+        return GnSiluConv3x3Fn.apply(KERNEL_OPS, x, gn_weight, gn_bias, weight, bias,
+                                     num_groups, eps)
+    ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps)
     return conv3x3_kernel(x, weight, bias, ss)

@@ -9,18 +9,22 @@ memory.  The note at the top of the source says what bounds it and how it
 is built.
 
 Weights are in PyTorch's layout: W1 (8C, C) with the value rows first and
-the gate rows second, W2 (C, 4C).
+the gate rows second, W2 (C, 4C).  The gradient is the VJP of the plain
+version, recomputed (JAX ``_ln_ffn_res_bwd``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from stable_diffusion_tpu_torch.ops import _cuda
-from stable_diffusion_tpu_torch.utils.device import LaunchCounter, require, use_kernel
+from stable_diffusion_tpu_torch.ops._autograd import Recompute
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
+                                                     require_no_grad, use_kernel, wants_grad)
 
 K4 = LaunchCounter()
 
@@ -28,19 +32,20 @@ K4 = LaunchCounter()
 def geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5):
     """LN -> GeGLU -> W2 (+residual), as the JAX layer path: f32 LN stats, the
     gelu taken in f32 and cast back (``_ffn_xla``)."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
-    h = ((xf - mean) * torch.rsqrt(var + eps) * ln_weight.float() + ln_bias.float()).to(x.dtype)
+    h = ((xf - mean) * torch.rsqrt(var + eps) * at_least_f32(ln_weight) + at_least_f32(ln_bias)).to(x.dtype)
     h = F.linear(h, w1, b1)
     value, gate = h.chunk(2, dim=-1)
-    h = value * F.gelu(gate.float()).to(x.dtype)
+    h = value * F.gelu(at_least_f32(gate)).to(x.dtype)
     out = F.linear(h, w2, b2)
     return out if residual is None else out + residual
 
 
 def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5):
     """Launch K4.  x (..., C) bf16 on CUDA; every parameter bf16 and contiguous."""
+    require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
     require(x.is_cuda, f"K4 needs a CUDA tensor, got {x.device}")
     c = x.shape[-1]
     m = x.numel() // c
@@ -74,6 +79,11 @@ def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, ep
 def geglu_ffn(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
               impl: str = "auto"):
     """LN -> GeGLU FFN (-> +residual): K4 on the card, the plain version on the CPU."""
+    args = (x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
+    plain = functools.partial(geglu_ffn_plain, eps=eps)
     if not use_kernel(impl, x):
-        return geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, eps=eps)
-    return geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, eps=eps)
+        return plain(*args)
+    fwd = functools.partial(geglu_ffn_kernel, eps=eps)
+    if wants_grad(*args):
+        return Recompute.apply(fwd, plain, *args)
+    return fwd(*args)

@@ -1,26 +1,50 @@
-"""Non-causal attention over (B, S, H, D): kernel K3 (CUDA) beside its plain version.
+"""Non-causal attention over (B, S, H, D): kernel K3 (CUDA) for the forward
+and kernels K5 + K6 (CUDA) for the self-attention backward, beside their
+plain versions.
 
 K3 (csrc/attention.cu) replaces three TPU kernels of
 stable_diffusion_tpu/ops/flash_attention.py with one blockwise online
 softmax: ``_single_pass_kernel`` and ``_flash_kernel`` (self-attention) and
 ``_cross_kernel`` (the 77-token text cross-attention, masked by ``kv_len``).
-The note at the top of the source says what bounds it and how it is built.
+K5 and K6 (csrc/attention_bwd.cu) replace the two passes of
+``_premerged_flash_bwd``: ``_bwd_dq_kernel`` (dQ and delta = rowsum(dO*O))
+and ``_bwd_dkv_kernel`` (dK, dV).  The notes at the top of the sources say
+what bounds each and how it is built.
 
 q, k and v may be strided views (the split of a fused QKV projection): the
-kernel takes each tensor's batch and sequence strides and needs only the
+kernels take each tensor's batch and sequence strides and need only the
 head and head-dim axes packed.
+
+Gradients (JAX ``_flash_self_premerged`` / ``_flash_cross_premerged``): an
+attention with as many keys as queries and a head dim up to
+:data:`BWD_MAX_D` saves q, k, v, o and K3's row log-sum-exp and runs K5 +
+K6 backward; other shapes (the 77-token cross-attention) differentiate the
+plain version, recomputed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from stable_diffusion_tpu_torch.ops import _cuda
-from stable_diffusion_tpu_torch.utils.device import LaunchCounter, require, use_kernel
+from stable_diffusion_tpu_torch.ops._autograd import Recompute
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
+                                                     require_no_grad, use_kernel, wants_grad)
 
 K3 = LaunchCounter()
+K5 = LaunchCounter()
+K6 = LaunchCounter()
+
+BWD_MAX_D = 160  # widest head dim K5/K6 take (the SD1.5 UNet's deepest stages)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
 
 
 def attention_plain(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None,
@@ -30,7 +54,7 @@ def attention_plain(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[
     or past ``kv_len`` are masked out."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", at_least_f32(q), at_least_f32(k)) * scale
     sq, sk = q.shape[1], k.shape[1]
     if causal or kv_len is not None:
         qi = torch.arange(sq, device=q.device)[:, None]
@@ -45,13 +69,56 @@ def attention_plain(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def attention_bwd_dq_plain(q, k, v, o, do, scale: Optional[float] = None):
+    """What K5 computes (``_bwd_dq_kernel``), in f32: returns dq (q's dtype),
+    the row log-sum-exp and delta = rowsum(dO * O), both (B, H, S)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qf, kf, vf, dof = (at_least_f32(t) for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    delta = (dof * at_least_f32(o)).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = torch.exp(s - lse[..., None]) * (dp - delta[..., None]) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype), lse, delta
+
+
+def attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: Optional[float] = None):
+    """What K6 computes (``_bwd_dkv_kernel``), in f32: dk, dv (k's dtype)
+    from the row log-sum-exp and delta of :func:`attention_bwd_dq_plain`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qf, kf, vf, dof = (at_least_f32(t) for t in (q, k, v, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_plain(q, k, v, o, do, scale: Optional[float] = None):
+    """dq, dk, dv of ``softmax(q k^T scale) v`` against do: the explicit f32
+    formula of the two TPU backward kernels (K5 then K6)."""
+    dq, lse, delta = attention_bwd_dq_plain(q, k, v, o, do, scale)
+    dk, dv = attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
 def _strides_ok(t: torch.Tensor, d: int) -> bool:
     return (t.stride(3) == 1 and t.stride(2) == d and t.stride(0) % 8 == 0
             and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0)
 
 
-def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None):
-    """Launch K3.  q (B, Sq, H, D), k/v (B, Sk, H, D), bf16 on CUDA."""
+def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None,
+                     return_lse: bool = False):
+    """Launch K3.  q (B, Sq, H, D), k/v (B, Sk, H, D), bf16 on CUDA.  With
+    ``return_lse`` also the f32 (B, H, Sq) row log-sum-exp in the log2
+    domain (log2 sum_k 2^(s_k scale log2 e)), which K5/K6 take."""
+    require_no_grad("K3", q, k, v)
     require(q.is_cuda, f"K3 needs a CUDA tensor, got {q.device}")
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "K3 takes (B, S, H, D) tensors")
     b, sq, h, d = q.shape
@@ -66,18 +133,141 @@ def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional
     require(0 < kv_len <= sk, f"K3: kv_len={kv_len} for Sk={sk}")
     scale = d ** -0.5 if scale is None else float(scale)
     o = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
     code = _cuda.library().sdtk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         b, h, sq, sk, d, kv_len, scale, _cuda.stream_handle(q))
     _cuda.check(code, "K3 attention")
     K3.launched((b, sq, sk, h, d))
-    return o
+    return (o, lse) if return_lse else o
+
+
+def _bwd_checks(name, q, k, v, lse, *rest):
+    require(q.is_cuda, f"{name} needs a CUDA tensor, got {q.device}")
+    b, s, h, d = q.shape
+    require(all(t.shape == q.shape for t in (k, v, *rest)),
+            f"{name}: q, k, v, do must all be (B, S, H, D), got q {tuple(q.shape)}")
+    require(all(t.dtype == torch.bfloat16 for t in (q, k, v, *rest)), f"{name} takes bf16 tensors")
+    require(d % 8 == 0 and d <= BWD_MAX_D,
+            f"{name} takes head dims that are multiples of 8 up to {BWD_MAX_D}, got {d}")
+    require(all(_strides_ok(t, d) for t in (q, k, v, *rest)),
+            f"{name} needs packed (H, D) axes, strides that are multiples of 8 and 16-byte alignment")
+    require(lse.shape == (b, h, s) and lse.dtype == torch.float32 and lse.is_contiguous(),
+            f"{name}: lse must be contiguous f32 (B, H, S)")
+    return b, s, h, d
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    return t if _strides_ok(t, t.shape[-1]) else t.contiguous()
+
+
+def attention_bwd_dq_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None):
+    """Launch K5: dq (B, S, H, D) bf16 and delta (B, H, S) f32."""
+    require_no_grad("K5", q, k, v, o, do)
+    do = _packed(do)
+    b, s, h, d = _bwd_checks("K5", q, k, v, lse, o, do)
+    scale = d ** -0.5 if scale is None else float(scale)
+    delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    dq = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
+    code = _cuda.library().sdtk_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+        b, h, s, d, scale, _cuda.stream_handle(q))
+    _cuda.check(code, "K5 attention backward (dq)")
+    K5.launched((b, s, h, d))
+    return dq, delta
+
+
+def attention_bwd_dkv_kernel(q, k, v, lse, delta, do, *, scale: Optional[float] = None):
+    """Launch K6: dk, dv (B, S, H, D) bf16 from K5's delta."""
+    require_no_grad("K6", q, k, v, do)
+    do = _packed(do)
+    b, s, h, d = _bwd_checks("K6", q, k, v, lse, do)
+    require(delta.shape == lse.shape and delta.dtype == torch.float32 and delta.is_contiguous(),
+            "K6: delta must be contiguous f32 (B, H, S)")
+    scale = d ** -0.5 if scale is None else float(scale)
+    dk = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    code = _cuda.library().sdtk_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), do.stride(0), do.stride(1), b, h, s, d, scale,
+        _cuda.stream_handle(q))
+    _cuda.check(code, "K6 attention backward (dk, dv)")
+    K6.launched((b, s, h, d))
+    return dk, dv
+
+
+def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None):
+    """K5 then K6: dq, dk, dv of the self-attention whose forward K3 ran
+    (``lse`` from ``attention_kernel(..., return_lse=True)``)."""
+    do = _packed(do)
+    dq, delta = attention_bwd_dq_kernel(q, k, v, o, lse, do, scale=scale)
+    dk, dv = attention_bwd_dkv_kernel(q, k, v, lse, delta, do, scale=scale)
+    return dq, dk, dv
+
+
+def attention_bwd_occupancy(d: int) -> dict:
+    """The compiled K5 and K6 for head dim ``d`` on the current card:
+    ``{"K5": {...}, "K6": {...}}``, each with its registers a thread, spill
+    (local) bytes a thread, shared bytes a block and resident blocks an SM."""
+    out = (ctypes.c_int * 8)()
+    _cuda.check(_cuda.library().sdtk_attention_bwd_attrs(d, out), "K5/K6 attributes")
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    return {"K5": dict(zip(keys, out[:4])), "K6": dict(zip(keys, out[4:]))}
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+class AttentionOps(NamedTuple):
+    forward: Callable   # (q, k, v, scale) -> (o, row statistics for ``backward``)
+    backward: Callable  # (q, k, v, o, stats, do, scale) -> (dq, dk, dv)
+
+
+KERNEL_OPS = AttentionOps(
+    lambda q, k, v, scale: attention_kernel(q, k, v, scale=scale, return_lse=True),
+    lambda q, k, v, o, lse, do, scale: attention_bwd_kernel(q, k, v, o, lse, do, scale=scale))
+PLAIN_OPS = AttentionOps(
+    lambda q, k, v, scale: (attention_plain(q, k, v, scale=scale), None),
+    lambda q, k, v, o, _, do, scale: attention_bwd_plain(q, k, v, o, do, scale))
+
+
+class SelfAttentionFn(torch.autograd.Function):
+    """Attention whose backward is the two-pass flash backward (JAX
+    ``_self_premerged_fwd`` / ``_self_premerged_bwd``): the forward saves q,
+    k, v, o and the row statistics."""
+
+    @staticmethod
+    def forward(ctx, ops: AttentionOps, q, k, v, scale):
+        o, stats = ops.forward(q, k, v, scale)
+        ctx.ops, ctx.scale = ops, scale
+        ctx.save_for_backward(q, k, v, o, stats)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, stats = ctx.saved_tensors
+        grads = ctx.ops.backward(q, k, v, o, stats, do, ctx.scale)
+        return (None, *(g if n else None for g, n in zip(grads, ctx.needs_input_grad[1:4])), None)
 
 
 def attention(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None,
               impl: str = "auto"):
-    """Non-causal attention: K3 on the card, the plain version on the CPU."""
+    """Non-causal attention: K3 on the card (K5 + K6 for its gradient), the
+    plain version on the CPU."""
+    plain = functools.partial(attention_plain, scale=scale, kv_len=kv_len)
     if not use_kernel(impl, q):
-        return attention_plain(q, k, v, scale=scale, kv_len=kv_len)
-    return attention_kernel(q, k, v, scale=scale, kv_len=kv_len)
+        return plain(q, k, v)
+    if not wants_grad(q, k, v):
+        return attention_kernel(q, k, v, scale=scale, kv_len=kv_len)
+    d = q.shape[-1]
+    if q.shape[1] == k.shape[1] and kv_len is None and d % 8 == 0 and d <= BWD_MAX_D:
+        return SelfAttentionFn.apply(KERNEL_OPS, q, k, v, d ** -0.5 if scale is None else scale)
+    fwd = functools.partial(attention_kernel, scale=scale, kv_len=kv_len)
+    return Recompute.apply(fwd, plain, q, k, v)

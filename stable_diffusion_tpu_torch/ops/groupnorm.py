@@ -24,12 +24,15 @@ it (+SiLU).  The scale/shift is also exposed on its own
 
 from __future__ import annotations
 
+import functools
 import os
 from pathlib import Path
 
 import torch
 
-from stable_diffusion_tpu_torch.utils.device import LaunchCounter, require, use_kernel
+from stable_diffusion_tpu_torch.ops._autograd import Recompute
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
+                                                     require_no_grad, use_kernel, wants_grad)
 
 K1 = LaunchCounter()
 
@@ -55,14 +58,14 @@ def gn_scale_shift_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-
     two-pass f32 statistics as models/layers.group_norm."""
     b, c = x.shape[0], x.shape[-1]
     g = num_groups
-    xf = x.float().reshape(b, -1, g, c // g)
+    xf = at_least_f32(x).reshape(b, -1, g, c // g)
     mean = xf.mean(dim=(1, 3))
     var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
     inv = torch.rsqrt(var + eps)
     mean_c = mean.repeat_interleave(c // g, dim=-1)
     inv_c = inv.repeat_interleave(c // g, dim=-1)
-    scale = weight.float()[None, :] * inv_c
-    shift = bias.float()[None, :] - mean_c * scale
+    scale = at_least_f32(weight)[None, :] * inv_c
+    shift = at_least_f32(bias)[None, :] - mean_c * scale
     return torch.stack([scale, shift], dim=1)
 
 
@@ -70,11 +73,11 @@ def group_norm_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5, s
     """models/layers.group_norm (+SiLU): f32 statistics, cast back."""
     b, c = x.shape[0], x.shape[-1]
     g = num_groups
-    xf = x.float().reshape(b, -1, g, c // g)
+    xf = at_least_f32(x).reshape(b, -1, g, c // g)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    y = (y * weight.float() + bias.float()).to(x.dtype)
+    y = (y * at_least_f32(weight) + at_least_f32(bias)).to(x.dtype)
     return torch.nn.functional.silu(y) if silu else y
 
 
@@ -207,11 +210,10 @@ def _stats_launch(x3, weight, bias, num_groups, eps):
     return ss
 
 
-def gn_scale_shift(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
-                   impl: str = "auto") -> torch.Tensor:
-    """Folded GroupNorm affine (B, 2, C) f32: ``y = x * out[:, 0] + out[:, 1]``."""
-    if not use_kernel(impl, x):
-        return gn_scale_shift_plain(x, weight, bias, num_groups, eps)
+def gn_scale_shift_kernel(x, weight, bias, *, num_groups: int = 32,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Launch K1's statistics kernels: the folded (B, 2, C) f32 affine."""
+    require_no_grad("K1", x, weight, bias)
     _check(x, weight, num_groups)
     x3 = _hw_view(x)
     ss = _stats_launch(x3, weight, bias, num_groups, eps)
@@ -219,11 +221,10 @@ def gn_scale_shift(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
     return ss
 
 
-def group_norm_silu(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
-                    silu: bool = True, impl: str = "auto") -> torch.Tensor:
-    """GroupNorm over the channel (last) dim of an NHWC tensor (+SiLU)."""
-    if not use_kernel(impl, x):
-        return group_norm_plain(x, weight, bias, num_groups, eps, silu)
+def group_norm_silu_kernel(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
+                           silu: bool = True) -> torch.Tensor:
+    """Launch K1: statistics, then the normalize (+SiLU) pass."""
+    require_no_grad("K1", x, weight, bias)
     _check(x, weight, num_groups)
     triton, _, _, apply = _kernels()
     x3 = _hw_view(x)
@@ -234,3 +235,34 @@ def group_norm_silu(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
         x3, ss, y, hw, c, SILU=silu, BR=64, BC=_BC)
     K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
     return y
+
+
+# ---------------------------------------------------------------------------
+# Entry points: the kernel on the card (in its autograd Function when a
+# gradient is wanted), the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+
+def gn_scale_shift(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
+                   impl: str = "auto") -> torch.Tensor:
+    """Folded GroupNorm affine (B, 2, C) f32: ``y = x * out[:, 0] + out[:, 1]``."""
+    plain = functools.partial(gn_scale_shift_plain, num_groups=num_groups, eps=eps)
+    if not use_kernel(impl, x):
+        return plain(x, weight, bias)
+    fwd = functools.partial(gn_scale_shift_kernel, num_groups=num_groups, eps=eps)
+    if wants_grad(x, weight, bias):
+        return Recompute.apply(fwd, plain, x, weight, bias)
+    return fwd(x, weight, bias)
+
+
+def group_norm_silu(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
+                    silu: bool = True, impl: str = "auto") -> torch.Tensor:
+    """GroupNorm over the channel (last) dim of an NHWC tensor (+SiLU).  Its
+    gradient is the VJP of the plain version, recomputed (JAX ``_gn_bwd``)."""
+    plain = functools.partial(group_norm_plain, num_groups=num_groups, eps=eps, silu=silu)
+    if not use_kernel(impl, x):
+        return plain(x, weight, bias)
+    fwd = functools.partial(group_norm_silu_kernel, num_groups=num_groups, eps=eps, silu=silu)
+    if wants_grad(x, weight, bias):
+        return Recompute.apply(fwd, plain, x, weight, bias)
+    return fwd(x, weight, bias)

@@ -1,6 +1,7 @@
-"""DDIM schedule tables and step (port of
+"""DDIM schedule tables and step, and the training-time noising (port of
 stable_diffusion_tpu/schedulers/schedule.py: ``make_schedule`` (linear),
-``inference_timesteps``, ``ddim_step``).
+``inference_timesteps``, ``ddim_step``, ``forward_process``,
+``v_prediction_targets``).
 
 The tables are host numpy, built once; the step gathers from them on the
 device in f32.  Kept deviation from the original PyTorch code (COMPONENTS.md,
@@ -77,3 +78,22 @@ def ddim_step(alphas_hat: torch.Tensor, x_t: torch.Tensor, t, prev_t, model_outp
             raise ValueError("eta > 0 needs per-step noise")
         prev_x = prev_x + std_dev_t * noise.float()
     return prev_x.to(x_t.dtype)
+
+
+def _per_sample(alphas_hat: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
+    """alphas_hat[t] in ``like``'s dtype, broadcast over its trailing dims;
+    t is (B,) (one timestep per sample) or a scalar."""
+    ah = alphas_hat[torch.as_tensor(t, device=alphas_hat.device).long()].to(like.dtype)
+    return ah.reshape(ah.shape + (1,) * (like.dim() - ah.dim()))
+
+
+def forward_process(alphas_hat: torch.Tensor, x0: torch.Tensor, t, noise: torch.Tensor):
+    """q(x_t | x_0) sample: sqrt(ah) x0 + sqrt(1 - ah) noise, in x0's dtype."""
+    ah = _per_sample(alphas_hat, t, x0)
+    return torch.sqrt(ah) * x0 + torch.sqrt(1.0 - ah) * noise
+
+
+def v_prediction_targets(alphas_hat: torch.Tensor, x0: torch.Tensor, noise: torch.Tensor, t):
+    """v = sqrt(ah) noise - sqrt(1 - ah) x0, the v-prediction training target."""
+    ah = _per_sample(alphas_hat, t, x0)
+    return torch.sqrt(ah) * noise - torch.sqrt(1.0 - ah) * x0

@@ -28,10 +28,31 @@ def use_kernel(impl: str, x: torch.Tensor) -> bool:
     raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is when wider (f64 in the gradient checks):
+    the plain versions' statistics and softmaxes run in this."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def require(cond: bool, what: str) -> None:
     """Raise ValueError(what) unless ``cond``: the kernels' shape checks."""
     if not cond:
         raise ValueError(what)
+
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd would record an operation on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def require_no_grad(kernel: str, *tensors) -> None:
+    """A raw kernel wrapper writes into ``torch.empty`` through ctypes, so its
+    output has no ``grad_fn``: raise rather than return a result that would
+    silently cut the graph.  The entry points wrap the kernel in its
+    ``torch.autograd.Function`` where a gradient is wanted."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{kernel}: the raw kernel carries no gradient; call its entry point, "
+                           "which wraps it in an autograd Function, or run under torch.no_grad()")
 
 
 class LaunchCounter:

@@ -152,3 +152,21 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
             std = 1.0 if leaf == "embedding" else 1.0 / math.sqrt(p[0].numel())
             p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
     return module
+
+
+def lora_from_jax(tree, *, dtype=None, device=None):
+    """A JAX LoRA tree (``{path: {lora_A, lora_B, alpha}}``, possibly under
+    ``unet``/``text_encoder``; numpy or array leaves) -> the port's tree of
+    tensors.  Both keep torch orientation, so the arrays carry over as they
+    are."""
+    if isinstance(tree, Mapping):
+        return {k: lora_from_jax(v, dtype=dtype, device=device) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lora_to_jax(tree):
+    """The port's LoRA tree -> numpy f32 leaves, the JAX layout."""
+    if isinstance(tree, Mapping):
+        return {k: lora_to_jax(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()

@@ -1,4 +1,4 @@
-"""The port's kernels K1-K4 against their plain versions, on a CUDA card.
+"""The port's kernels K1-K6 against their plain versions, on a CUDA card.
 
 Every test here needs the card and skips without one.  This file imports no
 JAX, so it also runs where JAX is not installed; run it there with the
@@ -9,7 +9,10 @@ repository's conftest (which imports JAX) left out:
 Inputs are bf16 draws from a seeded generator; the reference is the plain
 version in f32 on the same values.  Tolerance: max|kernel - plain| <=
 2e-2 * max|plain| (bf16 outputs and bf16-rounded intermediates, as in the
-JAX kernels).
+JAX kernels).  Gradients through the autograd Functions with
+``impl="cuda"`` (bf16) against ``impl="torch"`` (f32, same values): 5e-2
+of the largest gradient, since the recomputed plain backward also runs in
+bf16 there.
 """
 
 import pytest
@@ -122,3 +125,95 @@ def test_kernels_raise_on_shapes_they_do_not_take(gen):
     with pytest.raises(ValueError, match="K3"):
         q = torch.randn(1, 8, 1, 8, device="cuda")  # f32
         flash_attention.attention(q, q, q, impl="cuda")
+
+
+def _lse2(q, k):
+    """The row log-sum-exp K3 saves: log2 domain, (B, H, S)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    return torch.logsumexp(s, dim=-1) * 1.4426950408889634
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
+                                   (4, 64, 8, 160), (1, 100, 3, 24), (2, 192, 2, 128)])
+def test_k5_k6_attention_bwd(gen, shape):
+    b, s, h, d = shape
+    qkv = _rn(gen, b, s, 3 * h * d)  # strided q, k, v: the split of a fused projection
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = _rn(gen, b, s, h, d)
+    o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True)
+    _check(lse, _lse2(q, k))
+    before = (flash_attention.K5.launches, flash_attention.K6.launches)
+    got = flash_attention.attention_bwd_kernel(q, k, v, o, lse, do)
+    assert (flash_attention.K5.launches, flash_attention.K6.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention.attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)))
+    for g, w in zip(got, want):
+        _check(g, w)
+
+
+@pytest.mark.parametrize("d", [24, 40, 80, 128, 160])
+def test_k5_k6_occupancy(gen, d):
+    """The runtime's view of the compiled K5/K6: at least one block an SM,
+    and the shared memory the launch asks for."""
+    occ = flash_attention.attention_bwd_occupancy(d)
+    dq = (d + 15) // 16 * 16
+    for k in ("K5", "K6"):
+        assert occ[k]["blocks_per_sm"] >= 1 and 0 < occ[k]["registers"] <= 255, occ
+        assert occ[k]["smem_bytes"] >= 4 * 64 * (dq + 8) * 2, occ
+
+
+def _grads(fn, args, impl, seed=1):
+    args = [a.detach().clone().requires_grad_(a.is_floating_point()) for a in args]
+    out = fn(*args, impl=impl)
+    w = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    loss = (out.float() * w).sum()
+    return torch.autograd.grad(loss, [a for a in args if a.requires_grad])
+
+
+def _function_cases(gen):
+    x = _rn(gen, 2, 16, 16, 64) + 0.5
+    gw, gb = 1 + _rn(gen, 64, scale=0.1), _rn(gen, 64, scale=0.1)
+    wt, bias = _rn(gen, 96, 64, 3, 3, scale=(9 * 64) ** -0.5), _rn(gen, 96, scale=0.1)
+    m, c = 128, 64
+    ffn_args = [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+                _rn(gen, 8 * c, c, scale=c ** -0.5), _rn(gen, 8 * c, scale=0.1),
+                _rn(gen, c, 4 * c, scale=(4 * c) ** -0.5), _rn(gen, c, scale=0.1), _rn(gen, m, c)]
+    q, k, v = (_rn(gen, 2, 256, 4, 40) for _ in range(3))
+    kc, vc = _rn(gen, 2, 77, 4, 40), _rn(gen, 2, 77, 4, 40)
+    return {
+        "group_norm_silu": (lambda x, w, b, impl: groupnorm.group_norm_silu(x, w, b, impl=impl),
+                            [x, gw, gb]),
+        "gn_scale_shift": (lambda x, w, b, impl: groupnorm.gn_scale_shift(x, w, b, impl=impl),
+                           [x, gw, gb]),
+        "conv3x3": (lambda x, w, b, impl: conv.conv3x3(x, w, b, impl=impl), [x, wt, bias]),
+        "gn_silu_conv3x3": (lambda x, gw, gb, w, b, impl: conv.gn_silu_conv3x3(
+            x, gw, gb, w, b, impl=impl), [x, gw, gb, wt, bias]),
+        "geglu_ffn": (lambda *a, impl: ffn.geglu_ffn(*a, impl=impl), ffn_args),
+        "self_attention": (lambda q, k, v, impl: flash_attention.attention(q, k, v, impl=impl),
+                           [q, k, v]),
+        "cross_attention": (lambda q, k, v, impl: flash_attention.attention(q, k, v, impl=impl),
+                            [q, kc, vc]),
+    }
+
+
+@pytest.mark.parametrize("case", ["group_norm_silu", "gn_scale_shift", "conv3x3",
+                                  "gn_silu_conv3x3", "geglu_ffn", "self_attention",
+                                  "cross_attention"])
+def test_function_grads_cuda_vs_torch(gen, case):
+    fn, args = _function_cases(gen)[case]
+    got = _grads(fn, args, "cuda")
+    want = _grads(fn, [a.float() for a in args], "torch")
+    for g, w in zip(got, want):
+        torch.cuda.synchronize()
+        assert torch.isfinite(g).all()
+        rel = ((g.float() - w).abs().max() / w.abs().max()).item()
+        assert rel <= 5e-2, (case, rel)
+
+
+def test_self_attention_backward_runs_k5_k6(gen):
+    q, k, v = (_rn(gen, 1, 128, 2, 80).requires_grad_() for _ in range(3))
+    before = (flash_attention.K5.launches, flash_attention.K6.launches)
+    flash_attention.attention(q, k, v, impl="cuda").float().sum().backward()
+    assert (flash_attention.K5.launches, flash_attention.K6.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        flash_attention.attention_kernel(q, k, v)
