@@ -1,9 +1,9 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the six phases below
+    python3 chip_smoke.py                  # the seven phases below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
 
-Six phases, one line each (plus detail lines); any failure exits non-zero
+Seven phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit.
@@ -23,7 +23,21 @@ and the final line is printed only when every phase passed:
                  50 steps, full ViT-L / UNet / VAE width on seeded random
                  weights, two requests with their own token ids and seeds;
                  checks the images and that each kernel was launched.
-  6. training -- the LoRA DreamBooth train step (training.make_train_step)
+  6. w8a8     -- static-W8A8 serving (bench.py's BENCH_INT8=full UNet, with
+                 calibrated scales): calibrates a copy of phase 5's UNet on
+                 forward_process latents at t = 999/749/499/249 with a text
+                 context at UNet batch 8, quantizes its linears and 3x3 convs;
+                 records the shapes K1-K3 and K7-K9 get in one b4 DDIM step
+                 and checks and times each kernel there (K7-K9 beside their
+                 bf16 counterparts, and torch._int_mm for K8); holds one CFG
+                 UNet step against the plain W8A8 path in f32, below the
+                 distance of the unquantized bf16 UNet from it, beside the
+                 plain W8A8 path in bf16 as a witness, and reports it against
+                 the bf16 UNet (gated, and shown to catch scales left at
+                 1.0); serves two
+                 b4 512^2 DDIM-50 requests, which must launch K7, K8 and K9 and
+                 not K4, beside one bf16 b4 request with the same ids and seed.
+  7. training -- the LoRA DreamBooth train step (training.make_train_step)
                  on the full SD1.5 UNet in bf16: b4 (2 instance + 2 prior)
                  cached 64^2 latent moments and text embeddings, rank 128,
                  alpha 128 on q/k/v/out_proj, EMA, gradient accumulation 2,
@@ -70,6 +84,24 @@ GOLDEN_BF16_REL_L2 = 5e-2
 # bf16 rounding through the forward and back through the backward; relative
 # L2 over the whole gradient tree.
 TRAIN_GRAD_REL_L2 = 5e-2
+# The W8A8 UNet step, bf16 kernels vs the plain W8A8 path in f32 (TF32 off)
+# on the same int8 weights and scales: every int8 product is exact in both,
+# so they differ by the bf16 rounding of the activations between quantizers
+# and by the codes that rounding moves across a half step; relative L2.  On
+# an H100 (PERF.md, Findings) the plain W8A8 path run in bf16 reads
+# 3.46e-2 from the f32 one (the cost of bf16 activations alone) and the
+# unquantized bf16 UNet 4.12e-2 (one quantization's worth): the tolerance
+# sits between the two, and the step check fails if it is not below the
+# second.
+W8A8_STEP_REL_L2 = 3.8e-2
+# The W8A8 step vs the unquantized bf16 UNet on the same inputs: calibrated
+# per-layer activation scales and per-channel weight scales cost each of the
+# ~140 int8 products about 1% (8 bits over the calibrated range), adding in
+# quadrature through the UNet; scales left at attach_act_scales' 1.0 clip
+# nearly every activation and land far above this bound.
+W8A8_VS_BF16_REL_L2 = 0.2
+W8A8_BATCH = 4          # requests per batch: the UNet runs at 8 with CFG
+W8A8_CAL_T = (999, 749, 499, 249)
 SERVE_STEPS = 50
 SERVE_REQUESTS = 2
 TRAIN_BATCH = 4         # 2 instance + 2 prior, as bench.py's train config
@@ -81,6 +113,7 @@ TRAIN_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj")
 # their type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+INT8_TC_OPS = 1979e12
 F32_FLOPS = 67e12
 
 KERNELS = {
@@ -111,8 +144,27 @@ KERNELS = {
                replaces="stable_diffusion_tpu/ops/flash_attention.py:607",
                replaces_all=["stable_diffusion_tpu/ops/flash_attention.py:607 _bwd_dkv_kernel"],
                library=None),
+    "K7": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/conv3x3_q.cu",
+               replaces="stable_diffusion_tpu/ops/conv.py:333",
+               replaces_all=["stable_diffusion_tpu/ops/conv.py:333 _conv3x3_q_kernel"],
+               library=None,  # no one PyTorch call computes an int8 conv
+               bf16="K2 with the GN+SiLU prologue (gn_silu_conv3x3) on the bf16 weight"),
+    "K8": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/linear_q.cu",
+               replaces="stable_diffusion_tpu/ops/linear.py:400",
+               replaces_all=["stable_diffusion_tpu/ops/linear.py:400 _make_q_kernel"],
+               library="torch._int_mm on the int8 operands (the product only: no LN, quantize "
+                       "or dequantize; shapes with M > 16)",
+               bf16="layer_norm_plain (LN shapes) -> F.linear on the bf16 weight (+ residual)"),
+    "K9": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/ffn_q.cu",
+               replaces="stable_diffusion_tpu/ops/ffn.py:319",
+               replaces_all=["stable_diffusion_tpu/ops/ffn.py:319 _make_q_kernel"],
+               library=None,  # no one PyTorch call computes LN -> int8 GeGLU -> FFN
+               bf16="K4 (geglu_ffn) on the bf16 weights"),
 }
 SERVING_KERNELS = ("K1", "K2", "K3", "K4")
+W8A8_KERNELS = ("K7", "K8", "K9")
+W8A8_PATH_KERNELS = ("K1", "K2", "K3", *W8A8_KERNELS)  # K4 is not on the W8A8 path
+TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def say(msg: str) -> None:
@@ -169,16 +221,109 @@ def build_pipeline(dtype, impl, seed=0):
     return pipe
 
 
-def request_ids(seed: int):
+def request_ids(seed: int, batch: int = 1):
     rng = np.random.default_rng(seed)
-    cond = rng.integers(0, 49408, (1, 77))
-    uncond = np.zeros((1, 77), np.int64)
+    cond = rng.integers(0, 49408, (batch, 77))
+    uncond = np.zeros((batch, 77), np.int64)
     return cond, uncond
 
 
 # ---------------------------------------------------------------------------
 # Phases 3 and 6: every kernel at every main-path shape vs its plain version
 # ---------------------------------------------------------------------------
+
+
+def _w8a8_case(kernel: str, key, gen):
+    """``_case`` for K7-K9: int8 codes and scales of seeded N(0, 1/fan_in)
+    weights, the activation range calibrated on the case's own input, the
+    bf16 counterpart at the same shape on the same weights dequantized
+    (``bf16``), and ``plain_once``: the plain version's int8 products run in
+    f64 for exactness, so it is timed over one call."""
+    from stable_diffusion_tpu_torch.ops import conv, ffn, linear
+    from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift_plain
+    from stable_diffusion_tpu_torch.ops.quantize import act_step, quantize_act, quantize_tensor
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def q8(n, k):  # codes, scales, and the dequantized bf16 weight
+        q, sc = quantize_tensor(torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5,
+                                axis=1)
+        return q, sc.reshape(-1), (q.float() * sc).bfloat16()
+
+    def f32(t):
+        return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+
+    library = None
+    if kernel == "K7":
+        b, h, w_, cin, cout, prologue = key
+        assert prologue, "the W8A8 path runs K7 with its GroupNorm+SiLU prologue"
+        x = rn(b, h, w_, cin)
+        q, sc, wd = q8(cout, 9 * cin)
+        wq, wd = (t.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).contiguous() for t in (q, wd))
+        gw, gb, bias = 1 + rn(cin, scale=0.1), rn(cin, scale=0.1), rn(cout, scale=0.1)
+        act = conv.gn_silu_prologue(x.float(), gn_scale_shift_plain(x, gw, gb)).abs().amax()
+        args = [x, gw, gb, wq, sc, act, bias]
+
+        def run(*a, impl):
+            return conv.gn_silu_conv3x3_w8a8(*a, impl=impl)
+
+        def bf16():
+            return conv.gn_silu_conv3x3(x, gw, gb, wd, bias, impl="cuda")
+        px = b * h * w_
+        work = dict(flops=2 * px * cin * cout * 9,
+                    bytes=2 * px * (cin + cout) + 9 * cin * cout + 6 * cout + b * 2 * cin * 4)
+    elif kernel == "K8":
+        m, k, n, ln, res = key
+        x = rn(m, k, scale=2.0)
+        q, sc, wd = q8(n, k)
+        bias = rn(n, scale=0.1)
+        lw, lb = (1 + rn(k, scale=0.1), rn(k, scale=0.1)) if ln else (None, None)
+        r = rn(m, n) if res else None
+        h = linear.layer_norm_plain(x, lw, lb) if ln else x
+        act = h.float().abs().amax()
+        args = [x, q, sc, act, bias, r, lw, lb]
+
+        def run(x, q, sc, act, bias, r, lw, lb, impl):
+            if lw is None:
+                return linear.matmul_w8a8(x, q, sc, act, bias, residual=r, impl=impl)
+            return linear.ln_matmul_w8a8(lw, lb, x, q, sc, act, bias, residual=r, impl=impl)
+
+        def bf16():  # the bf16 path's LN (layers.layer_norm) included, as in K8
+            y = F.linear(linear.layer_norm_plain(x, lw, lb) if ln else x, wd, bias)
+            return y if r is None else y + r
+        if m > 16:  # torch._int_mm's shape rule
+            xq = quantize_act(h, act_step(act))
+
+            def library():
+                return torch._int_mm(xq, q.t())
+        work = dict(flops=2 * m * k * n,
+                    bytes=2 * m * k + n * k + 2 * m * n * (2 if res else 1) + 6 * n
+                    + (4 * k if ln else 0))
+    else:  # K9
+        m, c, hidden, ln, res = key
+        assert ln and res, "the W8A8 path runs K9 with its LayerNorm and residual"
+        x = rn(m, c)
+        lw, lb = 1 + rn(c, scale=0.1), rn(c, scale=0.1)
+        q1, s1, w1d = q8(2 * hidden, c)
+        q2, s2, w2d = q8(c, hidden)
+        b1, b2, r = rn(2 * hidden, scale=0.1), rn(c, scale=0.1), rn(m, c)
+        hn = linear.layer_norm_plain(x.float(), lw.float(), lb.float())
+        act1 = hn.abs().amax()
+        hh = linear.matmul_w8a8_plain(hn, q1, s1, act1, b1.float())
+        act2 = (hh[:, :hidden] * F.gelu(hh[:, hidden:])).abs().amax()
+        del hn, hh
+        args = [x, lw, lb, q1, s1, b1, act1, q2, s2, b2, act2, r]
+
+        def run(*a, impl):
+            return ffn.geglu_ffn_w8a8(*a, impl=impl)
+
+        def bf16():
+            return ffn.geglu_ffn(x, lw, lb, w1d, b1, w2d, b2, r, impl="cuda")
+        work = dict(flops=6 * m * c * hidden, bytes=6 * m * c + 3 * c * hidden + 12 * hidden + 10 * c)
+    return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
+                ref=lambda: run(*map(f32, args), impl="torch"), library=library, bf16=bf16,
+                plain_once=True, rate=INT8_TC_OPS, **work)
 
 
 def _case(kernel: str, key, gen):
@@ -188,6 +333,9 @@ def _case(kernel: str, key, gen):
     and the work: ``flops``, ``bytes`` and the peak ``rate`` of the FLOPs'
     type."""
     from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention as fa, groupnorm
+
+    if kernel in W8A8_KERNELS:
+        return _w8a8_case(kernel, key, gen)
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
@@ -308,7 +456,9 @@ def check_kernels(shapes, kernels, label: str):
         keys = sorted(shapes[kernel], key=str)
         if not keys:
             raise RuntimeError(f"{kernel}: the {label} path gave it no shape")
-        tot = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        tot = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   bf16_ms=0.0, ms_at_library_shapes=0.0)
+        lib_shapes = 0
         by = {"bytes": 0.0, "operations": 0.0}
         for key in keys:
             case = _case(kernel, key, gen)
@@ -321,25 +471,39 @@ def check_kernels(shapes, kernels, label: str):
             ok &= good
             del got, ref
             n = shapes[kernel][key]
-            k_ms, p_ms = cuda_ms(case["kernel"]), cuda_ms(case["plain"])
+            k_ms = cuda_ms(case["kernel"])
+            p_ms = cuda_ms(case["plain"], **(dict(reps=1, rounds=1, warmup=1)
+                                             if case.get("plain_once") else {}))
             lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
+            bf_ms = cuda_ms(case["bf16"]) if case.get("bf16") is not None else None
             b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"])
             tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
             tot["ms"] += n * k_ms
             tot["plain_ms"] += n * p_ms
             tot["bound_ms"] += n * b_ms
             by[b_by] += n * b_ms
-            tot["library_ms"] += n * (lib_ms or 0.0)
+            if lib_ms is not None:
+                tot["library_ms"] += n * lib_ms
+                tot["ms_at_library_shapes"] += n * k_ms
+                lib_shapes += 1
+            tot["bf16_ms"] += n * (bf_ms or 0.0)
+            del case
             shown = tuple(str(s).replace("torch.", "") for s in key)
             say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} calls={n} "
                 f"max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-                f"bound_ms={b_ms:.4f} ({b_by})")
+                + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
+                + f"bound_ms={b_ms:.4f} ({b_by})")
         summary[kernel] = dict(
             shapes=len(keys), max_abs_err=tot["err"], max_rel_err=tot["rel"], ms=tot["ms"],
             plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=max(by, key=by.get),
             library_ms=tot["library_ms"] if KERNELS[kernel]["library"] else None)
+        if KERNELS[kernel].get("bf16"):
+            summary[kernel]["bf16_ms"] = tot["bf16_ms"]
+        if KERNELS[kernel]["library"] and lib_shapes < len(keys):
+            summary[kernel].update(library_shapes=lib_shapes,
+                                   ms_at_library_shapes=tot["ms_at_library_shapes"])
     return ok, summary
 
 
@@ -366,12 +530,12 @@ def attention_bwd_pair(shapes, gen):
     return pair_bound, pair_lib
 
 
-def record_main_path_shapes(pipe, counters):
+def record_main_path_shapes(pipe, counters, batch: int = 1):
     """Run the main path once (1 DDIM step: every step gives the kernels the
     same shapes) with per-shape launch counting on."""
     for c in counters.values():
         c.record()
-    cond, uncond = request_ids(99)
+    cond, uncond = request_ids(99, batch)
     pipe.generate(cond, uncond, inference_steps=1, seed=99, output_dtype="uint8")
     torch.cuda.synchronize()
     return {k: c.stop_recording() for k, c in counters.items()}
@@ -456,7 +620,158 @@ def phase_serving(pipe, counters):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: training
+# Phase 6: static-W8A8 serving
+# ---------------------------------------------------------------------------
+
+
+def w8a8_pipeline(pipe):
+    """A W8A8 copy of ``pipe``'s UNet, calibrated and quantized as bench.py's
+    BENCH_INT8=full (linears and 3x3 convs), beside the bf16 text tower and
+    VAE; and the calibration batches."""
+    import copy
+
+    from stable_diffusion_tpu_torch.models import layers
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.schedulers import schedule as S
+    from stable_diffusion_tpu_torch.utils import quantize_model as QM
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    cond, uncond = request_ids(77, W8A8_BATCH)
+    table = torch.as_tensor(S.make_schedule().alphas_hat, device="cuda")
+    with torch.no_grad():
+        ids = torch.as_tensor(np.concatenate([uncond, cond]), device="cuda")
+        ctx = pipe.text_encoder(ids, impl="cuda")
+        batches = []
+        for t in W8A8_CAL_T:
+            x0, noise = (torch.randn((2 * W8A8_BATCH, 64, 64, 4), generator=gen, device="cuda")
+                         .bfloat16() for _ in range(2))
+            batches.append((S.forward_process(table, x0, t, noise),
+                            torch.full((1,), t, dtype=torch.long, device="cuda"), ctx))
+
+    def apply(m, b):
+        with torch.no_grad():
+            m(*b, impl="cuda")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unet = QM.quantize_unet_static(copy.deepcopy(pipe.unet), batches, impl="cuda")
+    QM.quantize_convs(QM.calibrate_static_conv_activations(apply, unet, batches))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_lin = sum(isinstance(m, layers.QLinear) and m.w8a8 for m in unet.modules())
+    n_conv = sum(isinstance(m, layers.QConv2d) and m.w8a8 for m in unet.modules())
+    n_wo = sum(isinstance(m, layers.QConv2d) and not m.w8a8 for m in unet.modules())
+    errs = QM.quantization_error(pipe.unet, unet)
+    worst = max(errs, key=errs.get)
+    say(f"  w8a8 calibration: {len(batches)} batches of UNet batch {2 * W8A8_BATCH} at t="
+        f"{list(W8A8_CAL_T)}, {secs:.2f} s; act scales attached to {n_lin} linears and {n_conv} "
+        f"resblock convs ({n_wo} weight-only 3x3 convs); quantization_error worst "
+        f"{worst} {errs[worst]:.3e}, median {statistics.median(errs.values()):.3e} over "
+        f"{len(errs)} layers")
+    return StableDiffusion(unet, pipe.text_encoder, pipe.vae, impl="cuda"), batches
+
+
+def check_w8a8_step(pipe, qpipe, batch):
+    """One CFG UNet step (UNet batch 8) of the W8A8 kernels: against the
+    plain W8A8 path in f32 (TF32 off) on the same int8 weights and scales,
+    and against the unquantized bf16 UNet, as the same step with every act
+    scale left at attach_act_scales' 1.0 is too.  Two witnesses place the
+    first tolerance: the plain W8A8 path in bf16 against the same f32
+    result (what bf16 activations alone cost), and the unquantized bf16
+    UNet against it (one quantization's worth, which the tolerance must
+    stay below)."""
+    import copy
+
+    from stable_diffusion_tpu_torch.utils import quantize_model as QM
+
+    xt, t, ctx = batch
+    rel = lambda a, b: (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()  # noqa: E731
+    with torch.no_grad():
+        got = qpipe.unet(xt, t, ctx, impl="cuda").float()
+        bf16 = pipe.unet(xt, t, ctx, impl="cuda").float()
+        plain16 = qpipe.unet(xt, t, ctx, impl="torch").float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    q32 = copy.deepcopy(qpipe.unet).float()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = q32(xt.float(), t, ctx.float(), impl="torch")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del q32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    unc = QM.attach_act_scales(copy.deepcopy(qpipe.unet), 1.0, convs=True)
+    with torch.no_grad():
+        got_unc = unc(xt, t, ctx, impl="cuda").float()
+    del unc
+    torch.cuda.empty_cache()
+    r_plain, r_bf16, r_unc = rel(got, ref), rel(got, bf16), rel(got_unc, bf16)
+    r_plain16, r_quant, r_k_p16 = rel(plain16, ref), rel(bf16, ref), rel(got, plain16)
+    ok = (bool(torch.isfinite(got).all()) and r_plain <= W8A8_STEP_REL_L2 < r_quant
+          and r_bf16 <= W8A8_VS_BF16_REL_L2 < r_unc)
+    say(f"  w8a8 step (UNet batch {xt.shape[0]}, t={t.item()}): kernels vs plain f32 W8A8 "
+        f"rel_l2={r_plain:.3e} (tol {W8A8_STEP_REL_L2}; plain f32 step {plain_s:.2f} s); "
+        f"witnesses vs plain f32 W8A8: plain bf16 W8A8 {r_plain16:.3e}, unquantized bf16 UNet "
+        f"{r_quant:.3e} (must exceed the tol); kernels vs plain bf16 W8A8 {r_k_p16:.3e}; vs bf16 "
+        f"UNet rel_l2={r_bf16:.3e} (gate {W8A8_VS_BF16_REL_L2}); act scales at 1.0 vs bf16 "
+        f"rel_l2={r_unc:.3e} (must exceed the gate) {'ok' if ok else 'BAD'}")
+    return ok, dict(rel_plain=r_plain, rel_bf16=r_bf16, rel_uncalibrated=r_unc,
+                    rel_plain_bf16=r_plain16, rel_quant=r_quant, rel_kernels_plain_bf16=r_k_p16)
+
+
+def phase_w8a8(pipe, counters):
+    qpipe, batches = w8a8_pipeline(pipe)
+    # 1. every kernel of the path at the shapes of one b4 DDIM step (K1-K3
+    # at UNet batch 8 and in the b4 VAE decode, K7-K9), against plain f32
+    shapes = record_main_path_shapes(qpipe, counters, W8A8_BATCH)
+    say("  w8a8 step shapes: " + ", ".join(f"{k} {len(shapes[k])} shapes {sum(shapes[k].values())} "
+                                            f"calls" for k in (*W8A8_PATH_KERNELS, "K4")))
+    ok_k, summary = check_kernels(shapes, W8A8_PATH_KERNELS, "w8a8")
+    # 2. one CFG UNet step against the plain W8A8 path and the bf16 UNet
+    ok_s, step = check_w8a8_step(pipe, qpipe, batches[1])
+    # 3. two b4 requests through the W8A8 UNet, then one bf16 request
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    secs, imgs, ok_r = [], [], True
+    for r in range(SERVE_REQUESTS):
+        cond, uncond = request_ids(r, W8A8_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = qpipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
+                             inference_steps=SERVE_STEPS, seed=2000 + r, output_dtype="uint8")
+        secs.append(time.perf_counter() - t0)
+        good = (img.shape == (W8A8_BATCH, 512, 512, 3) and img.dtype == np.uint8
+                and int(img.max()) > int(img.min()))
+        ok_r &= good
+        imgs.append(img)
+        say(f"  w8a8 request {r}: {secs[-1]:.3f} s shape={img.shape} dtype={img.dtype} "
+            f"min={int(img.min())} max={int(img.max())} mean={float(img.mean()):.2f} "
+            f"{'ok' if good else 'BAD'}")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok_r &= all(launches[k] > 0 for k in W8A8_KERNELS) and launches["K4"] == 0
+    torch.cuda.reset_peak_memory_stats()
+    cond, uncond = request_ids(0, W8A8_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img16 = pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
+                          inference_steps=SERVE_STEPS, seed=2000, output_dtype="uint8")
+    bf16_s = time.perf_counter() - t0
+    peak16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    drift = np.abs(imgs[0].astype(np.float32) - img16.astype(np.float32)) / 255.0
+    say(f"  bf16 b{W8A8_BATCH} request, request 0's ids and seed: {bf16_s:.3f} s, peak_mem "
+        f"{peak16:.2f} GiB; W8A8 vs bf16 image drift |d| on [0, 1]: p50 "
+        f"{np.percentile(drift, 50):.4f} p99 {np.percentile(drift, 99):.4f} max {drift.max():.4f}")
+    del qpipe
+    torch.cuda.empty_cache()
+    ok = ok_k and ok_s and ok_r
+    return ok, dict(summary=summary, launches=launches, secs=secs, peak_gib=peak, bf16_s=bf16_s,
+                    bf16_peak_gib=peak16, drift_p99=float(np.percentile(drift, 99)), **step)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training
 # ---------------------------------------------------------------------------
 
 
@@ -543,8 +858,8 @@ def phase_training(unet, counters):
     state, _ = step_fn(state, b0)
     torch.cuda.synchronize()
     shapes = {k: c.stop_recording() for k, c in counters.items()}
-    say("  train step shapes: " + ", ".join(f"{k} {len(v)} shapes {sum(v.values())} calls"
-                                            for k, v in shapes.items()))
+    say("  train step shapes: " + ", ".join(f"{k} {len(shapes[k])} shapes "
+                                            f"{sum(shapes[k].values())} calls" for k in TRAIN_KERNELS))
     # 2-3. every kernel at the step's shapes; K5/K6's occupancy and the pair
     for d in sorted({key[3] for key in shapes["K5"]}):
         occ = fa.attention_bwd_occupancy(d)
@@ -552,7 +867,7 @@ def phase_training(unet, counters):
             f"{k} {o['registers']} registers, {o['spill_bytes']} spill bytes, "
             f"{o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM"
             for k, o in occ.items()))
-    ok_k, summary = check_kernels(shapes, tuple(KERNELS), "train")
+    ok_k, summary = check_kernels(shapes, TRAIN_KERNELS, "train")
     pair_bound, pair_lib = attention_bwd_pair(shapes, torch.Generator(device="cuda").manual_seed(7))
     # 4. gradients against the plain f32 path
     ok_g, grad_rel = check_train_grads(unet, cfg, b0)
@@ -578,7 +893,7 @@ def phase_training(unet, counters):
         ok_s &= good
         say(f"  train step {i}: {secs[-1]:.4f} s loss={loss:.5f} grad_norm={gnorm:.4f} "
             f"lora {'updated' if changed else 'unchanged'} {'ok' if good else 'BAD'}")
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: counters[k].launches for k in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ok = ok_k and ok_g and ok_s and all(n > 0 for n in launches.values())
     return ok, dict(summary=summary, secs=secs, launches=launches, peak_gib=peak,
@@ -641,10 +956,11 @@ def main() -> int:
     say(f"phase 1 device: ok, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm
+    from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm, linear
 
     counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
-                "K5": flash_attention.K5, "K6": flash_attention.K6}
+                "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
+                "K8": linear.K8, "K9": ffn.K9}
 
     # 2. build
     t0 = time.perf_counter()
@@ -699,15 +1015,29 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe.generate(cond, uncond, inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
     say(f"  plain impl='torch' bf16, same request: {time.perf_counter() - t0:.3f} s")
+    pipe.impl = "cuda"
 
-    # 6. training
+    # 6. static-W8A8 serving
+    ok6, w8 = phase_w8a8(pipe, counters)
+    wsum = w8["summary"]
+    say(f"phase 6 w8a8: {'ok' if ok6 else 'FAIL'}, {SERVE_REQUESTS} b{W8A8_BATCH} requests at "
+        f"512^2, DDIM {SERVE_STEPS}, CFG 7.5: s/request={[round(s, 3) for s in w8['secs']]} "
+        f"(bf16 {w8['bf16_s']:.3f}) peak_mem={w8['peak_gib']:.2f} GiB (bf16 "
+        f"{w8['bf16_peak_gib']:.2f}) launches={w8['launches']}; drift p99={w8['drift_p99']:.4f}; "
+        + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                    f"{v['ms']:.2f} ms, " + (f"bf16 {v['bf16_ms']:.2f}, " if "bf16_ms" in v else "")
+                    + f"bound {v['bound_ms']:.2f}" for k, v in wsum.items()) + " per pass")
+    if not ok6:
+        return 1
+
+    # 7. training
     unet = pipe.unet
     del pipe
     torch.cuda.empty_cache()
-    ok6, train = phase_training(unet, counters)
+    ok7, train = phase_training(unet, counters)
     ts = train["secs"]
     tsum = train["summary"]
-    say(f"phase 6 training: {'ok' if ok6 else 'FAIL'}, SD1.5 LoRA r128 DreamBooth b{TRAIN_BATCH} "
+    say(f"phase 7 training: {'ok' if ok7 else 'FAIL'}, SD1.5 LoRA r128 DreamBooth b{TRAIN_BATCH} "
         f"512^2, accumulation 2, EMA: s/step median {statistics.median(ts):.4f} "
         f"(min {min(ts):.4f}, max {max(ts):.4f}, {len(ts)} steps) "
         f"peak_mem={train['peak_gib']:.2f} GiB launches={train['launches']} "
@@ -715,31 +1045,42 @@ def main() -> int:
         f"vs plain {tsum['K5']['plain_ms'] + tsum['K6']['plain_ms']:.3f}, SDPA backward "
         f"{train['pair_library_ms']:.3f}, bound {train['pair_bound_ms']:.3f} "
         f"(K5's {tsum['K5']['bound_ms']:.3f} + K6's {tsum['K6']['bound_ms']:.3f}) ms per step")
-    if not ok6:
+    if not ok7:
         return 1
 
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
-    # 5's requests, with their train-step figures under train_*; K5/K6: one
-    # train micro-step, launches over phase 6's timed steps.
+    # 5's requests, with their train-step figures under train_* and (K1-K3)
+    # their W8A8 serving figures under w8a8_*; K5/K6: one train micro-step,
+    # launches over phase 7's timed steps; K7-K9: the W8A8 b4 serving pass,
+    # launches over phase 6's requests.
+    passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
+              "train": "one train micro-step (b4)",
+              "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode"}
     kernels = []
     for k in KERNELS:
         serving = k in SERVING_KERNELS
-        s = summary[k] if serving else tsum[k]
+        which = "serve" if serving else "w8a8" if k in W8A8_KERNELS else "train"
+        s, n = {"serve": (summary.get(k), launches), "train": (tsum.get(k), train["launches"]),
+                "w8a8": (wsum.get(k), w8["launches"])}[which]
         row = dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
-                   replaces=KERNELS[k]["replaces"],
-                   launches=launches[k] if serving else train["launches"][k],
+                   replaces=KERNELS[k]["replaces"], launches=n[k],
                    max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
                    bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"],
-                   max_rel_err=s["max_rel_err"], shapes=s["shapes"],
-                   pass_="serving: text encode + CFG UNet step + VAE decode" if serving
-                   else "one train micro-step (b4)",
+                   max_rel_err=s["max_rel_err"], shapes=s["shapes"], pass_=passes[which],
                    library_call=KERNELS[k]["library"], replaces_all=KERNELS[k]["replaces_all"])
-        if serving:
-            t = tsum[k]
-            row.update(train_launches=train["launches"][k], train_ms=t["ms"],
-                       train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
-                       train_library_ms=t["library_ms"], train_max_rel_err=t["max_rel_err"])
+        for extra in ("bf16_ms", "library_shapes", "ms_at_library_shapes"):
+            if extra in s:
+                row[extra] = s[extra]
+        if KERNELS[k].get("bf16"):
+            row["bf16_call"] = KERNELS[k]["bf16"]
+        for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"])):
+            if serving and k in other:
+                t = other[k]
+                row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],
+                            f"{tag}_max_rel_err": t["max_rel_err"], f"{tag}_ms": t["ms"],
+                            f"{tag}_plain_ms": t["plain_ms"], f"{tag}_bound_ms": t["bound_ms"],
+                            f"{tag}_library_ms": t["library_ms"]})
         row["pass"] = row.pop("pass_")
         kernels.append(row)
     # K5 + K6 as the one function they compute, per train micro-step

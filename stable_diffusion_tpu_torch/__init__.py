@@ -4,14 +4,19 @@ Mirrors the JAX package's layout (``ops/``, ``models/``, ``schedulers/``,
 ``pipeline.py``, ``utils/``); the JAX package is the reference each module is
 held against.  Activations are NHWC at the public functions, as in JAX.
 
-Every Pallas kernel on the SD1.5 txt2img path has a hand-written Hopper
-counterpart beside its plain PyTorch version (``csrc/`` for the CUDA C++
-sources):
+Every Pallas kernel on the ported paths (SD1.5 txt2img, its static-W8A8
+serving form, the LoRA train step) has a hand-written Hopper counterpart
+beside its plain PyTorch version (``csrc/`` for the CUDA C++ sources):
 
   K1  ops/groupnorm.py        GroupNorm stats + normalize(+SiLU), Triton
   K2  ops/conv.py             3x3 conv with the GN+SiLU prologue, CUDA
   K3  ops/flash_attention.py  self / short-KV cross attention, CUDA
   K4  ops/ffn.py              LN -> GeGLU -> W2 -> +residual, CUDA
+  K5  ops/flash_attention.py  self-attention backward: dQ, CUDA
+  K6  ops/flash_attention.py  self-attention backward: dK, dV, CUDA
+  K7  ops/conv.py             int8 3x3 conv with GN+SiLU+quantize prologue, CUDA
+  K8  ops/linear.py           (LN ->) int8 matmul (+residual), CUDA
+  K9  ops/ffn.py              LN -> int8 GeGLU FFN -> +residual, CUDA
 
 The ``impl`` argument chooses between them: ``"torch"`` runs the plain
 versions, ``"cuda"`` runs the kernels (and raises on a CPU tensor or a shape

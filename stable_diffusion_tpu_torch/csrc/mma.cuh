@@ -1,6 +1,8 @@
 // Warp-level tensor-core helpers shared by the attention kernels (K3, K5, K6):
 // `mma.sync` m16n8k16 (bf16 in, f32 accumulate) with fragments taken from
-// shared memory by 32-bit loads or `ldmatrix`.
+// shared memory by 32-bit loads or `ldmatrix`; and by the W8A8 kernels
+// (K7, K8, K9): `mma.sync` m16n8k32 (s8 in, s32 accumulate) and the int8
+// quantizer.
 //
 // Fragment layout of one m16n8k16 product, lane = 4 g + t (g = lane / 4,
 // t = lane % 4): the A fragment holds A[g][2t..2t+1], A[g+8][2t..2t+1],
@@ -31,6 +33,57 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A(16x32, row) * B(32x8, col), s8 in, s32 accumulate (the W8A8
+// kernels K7-K9).  Fragments, lane = 4 g + t: A a0 = A[g][4t..4t+3], a1 =
+// A[g+8][4t..4t+3], a2 = A[g][4t+16..4t+19], a3 = A[g+8][4t+16..4t+19]; B
+// b0 = B[4t..4t+3][g], b1 = B[4t+16..4t+19][g]; D as the f32 accumulator
+// above.  So with both operands K-contiguous in shared memory (A row-major,
+// B as rows of N), each register is one aligned 32-bit load.
+__device__ __forceinline__ void mma16832_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment of rows [0, 16) and k [0, 32) of a row-major int8 tile
+// (ld bytes a row, a multiple of 4).
+__device__ __forceinline__ void load_a_s8(uint32_t* a, const int8_t* tile, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  a[0] = lds32(tile + g * ld + 4 * t);
+  a[1] = lds32(tile + (g + 8) * ld + 4 * t);
+  a[2] = lds32(tile + g * ld + 4 * t + 16);
+  a[3] = lds32(tile + (g + 8) * ld + 4 * t + 16);
+}
+
+// The B fragment of columns [0, 8) and k [0, 32) of an int8 tile stored as
+// rows of N (row n holds B[., n], K-contiguous, ld bytes a row).
+__device__ __forceinline__ void load_b_s8(uint32_t& b0, uint32_t& b1, const int8_t* tile, int ld,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  b0 = lds32(tile + g * ld + 4 * t);
+  b1 = lds32(tile + g * ld + 4 * t + 16);
+}
+
+// An activation quantized with the static step s: clip(rint(v / s), +-127).
+// The division is IEEE (nvcc's default -prec-div=true) and __float2int_rn
+// rounds half to even, as torch.round and jnp.round, so the codes match the
+// plain versions' for the same f32 input.
+__device__ __forceinline__ int quantize_s8(float v, float s) {
+  return max(-127, min(127, __float2int_rn(v / s)));
+}
+
+// Four int8 codes packed into one 32-bit word, lowest address first.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
+         ((uint32_t)(d & 0xff) << 24);
 }
 
 // Four 8x8 bf16 matrices, transposed, from shared memory.

@@ -3,7 +3,15 @@ stable_diffusion_tpu/models/attention.py ``multihead_attention``).
 
 The TPU-only ``_premerged_attention`` is not ported: it zero-padded head dims
 to 64 and widths to 128 lanes inside the projection weights, which Hopper
-does not need (K3 pads head dims to a multiple of 16 itself).
+does not need (K3 pads head dims to a multiple of 16 itself).  Its static
+W8A8 form equals the non-premerged one (tests/test_attention.py), which is
+the form here: with W8A8 projections (``layers.QLinear`` with an
+``act_scale``) self-attention runs one LN-prologue int8 QKV product with
+q_proj's act_scale shared by q, k and v, cross-attention LN -> int8 q and
+int8 k, v on the context, each with its own scale, and both an int8 output
+projection with the residual (K8 on the card).  While a calibration
+capture of the linears runs, q, k and v go through ``layers.linear`` one at
+a time, as JAX's ``FORCE_UNFUSED_QKV``.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ from torch import nn
 
 from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.ops.attention import sdpa
+from stable_diffusion_tpu_torch.ops.linear import ln_matmul_w8a8, matmul_w8a8
+from stable_diffusion_tpu_torch.utils.device import cached
 
 
 class MultiheadAttention(nn.Module):
@@ -39,22 +49,54 @@ class MultiheadAttention(nn.Module):
         is replaced or changed in place; the cache holds the tensors
         themselves, so a freed tensor's address cannot alias a new one."""
         ps = [self.q_proj, self.k_proj, self.v_proj]
-        tensors = [t for p in ps for t in (p.weight, p.bias) if t is not None]
         if torch.is_grad_enabled():
             return self._concat(ps)
-        key = [(t, t._version, t.data_ptr(), t.dtype) for t in tensors]
-        cached = getattr(self, "_qkv_cache", None)
-        if (cached is None or len(cached[0]) != len(key)
-                or any(a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(cached[0], key))):
-            cached = (key, *self._concat(ps))
-            self._qkv_cache = cached
-        return cached[1], cached[2]
+        tensors = [t for p in ps for t in (p.weight, p.bias) if t is not None]
+        return cached(self, "_qkv_cache", tensors, lambda: self._concat(ps))
 
     @staticmethod
     def _concat(ps):
         w = torch.cat([p.weight for p in ps], dim=0)
         b = torch.cat([p.bias for p in ps]) if ps[0].bias is not None else None
         return w, b
+
+    def fused_qkv_q(self):
+        """(3E, E) int8 weight, (3E,) f32 scale and (3E,) bias or None of the
+        fused W8A8 projection, cached as :meth:`fused_qkv`'s."""
+        ps = [self.q_proj, self.k_proj, self.v_proj]
+        tensors = [t for p in ps for t in (p.weight_q, p.weight_scale, p.bias) if t is not None]
+
+        def concat():
+            b = torch.cat([p.bias for p in ps]) if ps[0].bias is not None else None
+            return (torch.cat([p.weight_q for p in ps]), torch.cat([p.weight_scale for p in ps]), b)
+
+        return cached(self, "_qkv_q_cache", tensors, concat)
+
+
+def _w8a8_attention(mod: MultiheadAttention, x, kv_in, cond, num_heads, causal, impl, ln,
+                    residual, ln_eps):
+    b, sq, e = x.shape
+    d = e // num_heads
+    qp = mod.q_proj
+
+    def project_x(w, scale, bias):  # the caller's pre-LN as the product's prologue
+        if ln is None:
+            return matmul_w8a8(x, w, scale, qp.act_scale, bias, impl=impl)
+        return ln_matmul_w8a8(ln.weight, ln.bias, x, w, scale, qp.act_scale, bias, eps=ln_eps,
+                              impl=impl)
+
+    if cond is None:
+        q, k, v = project_x(*mod.fused_qkv_q()).split(e, dim=-1)
+        q, k, v = (t.reshape(b, sq, num_heads, d) for t in (q, k, v))
+    else:
+        sk = kv_in.shape[1]
+        q = project_x(qp.weight_q, qp.weight_scale, qp.bias).reshape(b, sq, num_heads, d)
+        k, v = (matmul_w8a8(kv_in, p.weight_q, p.weight_scale, p.act_scale, p.bias, impl=impl)
+                .reshape(b, sk, num_heads, d) for p in (mod.k_proj, mod.v_proj))
+    out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, e)
+    o = mod.out_proj
+    return matmul_w8a8(out, o.weight_q, o.weight_scale, o.act_scale, o.bias, residual=residual,
+                       impl=impl)
 
 
 def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None,
@@ -67,19 +109,23 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
     kv_in = x if cond is None else cond.to(x.dtype)
     b, sq, e = x.shape
     d = e // num_heads
+    unfused = layers.capturing("linear")
+    qp = mod.q_proj
+    if isinstance(qp, layers.QLinear) and qp.w8a8 and not unfused:
+        return _w8a8_attention(mod, x, kv_in, cond, num_heads, causal, impl, ln, residual, ln_eps)
     if ln is not None:
         x = layers.layer_norm(ln, x, eps=ln_eps)
         if cond is None:
             kv_in = x
-    if cond is None:
+    if cond is None and isinstance(qp, nn.Linear) and not unfused:
         w, bias = mod.fused_qkv()
         q, k, v = torch.nn.functional.linear(x, w, bias).split(e, dim=-1)
         q, k, v = (t.reshape(b, sq, num_heads, d) for t in (q, k, v))
     else:
         sk = kv_in.shape[1]
-        q = layers.linear(mod.q_proj, x).reshape(b, sq, num_heads, d)
-        k = layers.linear(mod.k_proj, kv_in).reshape(b, sk, num_heads, d)
-        v = layers.linear(mod.v_proj, kv_in).reshape(b, sk, num_heads, d)
+        q = layers.linear(qp, x, impl=impl).reshape(b, sq, num_heads, d)
+        k = layers.linear(mod.k_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
+        v = layers.linear(mod.v_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
     out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, e)
-    out = layers.linear(mod.out_proj, out)
+    out = layers.linear(mod.out_proj, out, impl=impl)
     return out if residual is None else out + residual

@@ -9,6 +9,13 @@ feed-forward block as K4; the 1x1 convs, projections, stride-2 convs,
 conv_in/conv_out and the time embedding are plain matmuls and convs, as
 JAX leaves them to XLA.  The DeepCache split is not ported yet.
 
+Quantized (utils/quantize_model.py): the call sites hand the int8 holders
+to the layers, so a calibrated UNet runs every W8A8 linear (attention
+projections, ``t_embed``, the time embedding) through K8, every W8A8 FFN
+through K9 and every W8A8 resblock conv through K1 stats + K7; weight-only
+holders run dequantized through the bf16 kernels, and the 1x1 convs stay
+bf16 in both packages.
+
 ``gradient_checkpointing`` recomputes each resblock+transformer unit in the
 backward (JAX ``_block_apply(remat=True)``, ``jax.checkpoint``) through
 ``torch.utils.checkpoint``.  The unit's parameters go to the checkpointed
@@ -28,8 +35,7 @@ from torch import nn
 
 from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.models.attention import MultiheadAttention, multihead_attention
-from stable_diffusion_tpu_torch.ops.conv import conv3x3, gn_silu_conv3x3
-from stable_diffusion_tpu_torch.ops.ffn import geglu_ffn
+from stable_diffusion_tpu_torch.ops.ffn import geglu_ffn, geglu_ffn_w8a8
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 from stable_diffusion_tpu_torch.ops.linear import gn_matmul, matmul_residual
 
@@ -163,11 +169,9 @@ class _TimeEmbedding(nn.Module):
 
 
 def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
-    h = gn_silu_conv3x3(x, p.groupnorm_1.weight, p.groupnorm_1.bias, p.conv_1.weight,
-                        p.conv_1.bias, eps=eps, impl=impl)
-    h = h + layers.linear(p.t_embed, layers.silu(t_embed))[:, None, None, :]
-    h = gn_silu_conv3x3(h, p.groupnorm_2.weight, p.groupnorm_2.bias, p.conv_2.weight,
-                        p.conv_2.bias, eps=eps, impl=impl)
+    h = layers.gn_silu_conv3x3(p.groupnorm_1, p.conv_1, x, eps=eps, impl=impl)
+    h = h + layers.linear(p.t_embed, layers.silu(t_embed), impl=impl)[:, None, None, :]
+    h = layers.gn_silu_conv3x3(p.groupnorm_2, p.conv_2, h, eps=eps, impl=impl)
     if hasattr(p, "proj_input"):
         b, hh, ww, ci = x.shape
         co = h.shape[-1]
@@ -175,6 +179,22 @@ def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
                             p.proj_input.bias, h.reshape(b, hh * ww, co))
         return y.reshape(h.shape)
     return h + x
+
+
+def ffn_apply(ln: nn.LayerNorm, ffn: nn.ModuleDict, x, *, impl: str):
+    """LN -> GeGLU FFN -> +x (JAX ``ops/ffn.geglu_ffn`` on parameter dicts):
+    K9 for W8A8 linears, K4 for bf16 or weight-only ones (dequantized), and
+    the layer path while a calibration capture records the linears."""
+    p0, p1 = ffn["0"].proj, ffn["1"]
+    if layers.capturing("linear"):
+        h = layers.geglu(ffn["0"], layers.layer_norm(ln, x), impl=impl)
+        return layers.linear(p1, h, impl=impl) + x
+    if isinstance(p0, layers.QLinear) and p0.w8a8:
+        return geglu_ffn_w8a8(x, ln.weight, ln.bias, p0.weight_q, p0.weight_scale, p0.bias,
+                              p0.act_scale, p1.weight_q, p1.weight_scale, p1.bias, p1.act_scale,
+                              residual=x, impl=impl)
+    w = [p.dequantized(x.dtype) if isinstance(p, layers.QLinear) else p.weight for p in (p0, p1)]
+    return geglu_ffn(x, ln.weight, ln.bias, w[0], p0.bias, w[1], p1.bias, residual=x, impl=impl)
 
 
 def transformer_apply(p: Transformer, x, cond, *, num_heads: int, impl: str):
@@ -187,9 +207,7 @@ def transformer_apply(p: Transformer, x, cond, *, num_heads: int, impl: str):
                             ln=tb.layernorm_1, residual=x)
     x = multihead_attention(tb.attn2, x, num_heads=num_heads, cond=cond, impl=impl,
                             ln=tb.layernorm_2, residual=x)
-    ffn = tb.ffn
-    x = geglu_ffn(x, tb.layernorm_3.weight, tb.layernorm_3.bias, ffn["0"].proj.weight,
-                  ffn["0"].proj.bias, ffn["1"].weight, ffn["1"].bias, residual=x, impl=impl)
+    x = ffn_apply(tb.layernorm_3, tb.ffn, x, impl=impl)
     x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
                         res.reshape(b, hh * ww, c))
     return x.reshape(b, hh, ww, c)
@@ -240,7 +258,7 @@ class UNet(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def time_embedding_apply(self, timestep: torch.Tensor, dtype) -> torch.Tensor:
+    def time_embedding_apply(self, timestep: torch.Tensor, dtype, impl: str = "auto") -> torch.Tensor:
         """(B,) int timesteps -> (B, 4*t_embed_dim); cos-then-sin sinusoid."""
         half = self.cfg.t_embed_dim // 2
         freqs = torch.exp(-math.log(10000.0)
@@ -248,7 +266,8 @@ class UNet(nn.Module):
         x = timestep.float()[:, None] * freqs[None, :]
         t = torch.cat([torch.cos(x), torch.sin(x)], dim=-1).to(dtype)
         ffn = self.time_embedding.ffn
-        return layers.linear(ffn["2"], layers.silu(layers.linear(ffn["0"], t)))
+        return layers.linear(ffn["2"], layers.silu(layers.linear(ffn["0"], t, impl=impl)),
+                             impl=impl)
 
     def _block(self, p: _Block, x, t_embed, cond, num_heads, impl, remat):
         kw = dict(num_heads=num_heads, eps=self.cfg.norm_eps, impl=impl)
@@ -271,7 +290,7 @@ class UNet(nn.Module):
         eps = cfg.norm_eps
         heads = cfg.heads_per_stage
         n = cfg.num_stages
-        t_embed = self.time_embedding_apply(timestep, x.dtype)
+        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
 
         h = layers.conv2d(self.encoder.conv_in, x)
         skips = [h]
@@ -298,8 +317,7 @@ class UNet(nn.Module):
             if i != 0:
                 if not (skips and skips[-1].shape[2] == prev_hw):
                     h = layers.upsample_nearest_2x(h)
-                conv = stage.upsample.conv
-                h = conv3x3(h, conv.weight, conv.bias, impl=impl)
+                h = layers.conv3x3(stage.upsample.conv, h, impl=impl)
 
         out = self.output
         h = group_norm_silu(h, out["0"].weight, out["0"].bias, eps=eps, silu=True, impl=impl)

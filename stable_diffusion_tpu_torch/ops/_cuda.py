@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu")
+_SOURCES = ("conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu", "conv3x3_q.cu",
+            "linear_q.cu", "ffn_q.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
@@ -95,9 +96,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_attention_bwd_attrs.argtypes = [I, IP]
     lib.sdtk_ffn_plan.argtypes = [I, I, IP, IP, IP]
     lib.sdtk_ffn.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
+    lib.sdtk_conv3x3_q_ksplit.argtypes = [I, I, I, I, I]
+    lib.sdtk_conv3x3_q.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.sdtk_linear_q.argtypes = [P] * 9 + [I, I, I, F, P]
+    lib.sdtk_ffn_q_rows.argtypes = []
+    lib.sdtk_ffn_q_plan.argtypes = [I, I, I, IP, IP]
+    lib.sdtk_ffn_q.argtypes = [P] * 14 + [I] * 5 + [F, P]
     for fn in (lib.sdtk_conv3x3_ksplit, lib.sdtk_conv3x3, lib.sdtk_attention,
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
-               lib.sdtk_attention_bwd_attrs, lib.sdtk_ffn_plan, lib.sdtk_ffn):
+               lib.sdtk_attention_bwd_attrs, lib.sdtk_ffn_plan, lib.sdtk_ffn,
+               lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
+               lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q):
         fn.restype = ctypes.c_int
     return lib
 

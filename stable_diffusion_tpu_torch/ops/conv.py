@@ -16,6 +16,16 @@ conv with the spatially flipped, I/O-swapped kernel, so it runs on K2 too
 (``transposed=True``); the weight and bias gradients come from the plain
 conv's VJP; the GroupNorm+SiLU chain is differentiated through its plain
 version, recomputed.
+
+K7 (csrc/conv3x3_q.cu) is the static-W8A8 form (JAX ``_conv3x3_q_kernel``,
+reached through ``gn_silu_conv3x3``'s W8A8 branch): the GroupNorm+SiLU
+prologue, then the activation quantized to int8 with the layer's calibrated
+scale, an int8 x int8 -> int32 implicit GEMM, and the epilogue
+``acc * (s_x * weight_scale) + bias`` in f32.  The activation is cast to
+its own dtype (bf16 on the card) before the quantizer, as JAX's W8A8
+branch casts it (``ops/conv.py`` ``xn.astype(x.dtype)``); K7 and its plain
+version both do.  Inference only: the W8A8 entry raises
+NotImplementedError when an input wants a gradient.
 """
 
 from __future__ import annotations
@@ -28,10 +38,13 @@ import torch.nn.functional as F
 from stable_diffusion_tpu_torch.ops import _cuda
 from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, gn_scale_shift_plain,
                                                       group_norm_plain)
-from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
-                                                     require_no_grad, use_kernel, wants_grad)
+from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, quantize_act
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, cached, require,
+                                                     require_inference, require_no_grad, use_kernel,
+                                                     wants_grad)
 
 K2 = LaunchCounter()
+K7 = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -45,13 +58,36 @@ def conv3x3_plain(x, weight, bias=None):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def gn_silu_prologue(x, scale_shift):
+    """``silu(x * scale + shift)`` in f32, cast to x's dtype: the activation
+    K2 and K7 convolve, from a (B, 2, Cin) f32 ``scale_shift``."""
+    xf = at_least_f32(x) * scale_shift[:, None, None, 0] + scale_shift[:, None, None, 1]
+    return F.silu(xf).to(x.dtype)
+
+
 def conv3x3_scale_shift_plain(x, weight, bias=None, scale_shift=None):
     """The function K2 computes: with a (B, 2, Cin) f32 ``scale_shift``,
     ``silu(x * scale + shift)`` is convolved instead of x."""
     if scale_shift is not None:
-        xf = at_least_f32(x) * scale_shift[:, None, None, 0] + scale_shift[:, None, None, 1]
-        x = F.silu(xf).to(x.dtype)
+        x = gn_silu_prologue(x, scale_shift)
     return conv3x3_plain(x, weight, bias)
+
+
+def conv3x3_w8a8_plain(x, weight_q, weight_scale, act_scale, bias=None, scale_shift=None):
+    """The function K7 computes (JAX ``_conv3x3_q``): with a (B, 2, Cin) f32
+    ``scale_shift``, ``silu(x * scale + shift)`` cast to x's dtype is the
+    conv's input; it is quantized with s_x = max(act_scale / 127, 1e-12),
+    convolved in exact integers (f64, zero padding 1) with the OIHW int8
+    weight, and dequantized ``acc * (s_x * weight_scale) + bias`` in f32."""
+    if scale_shift is not None:
+        x = gn_silu_prologue(x, scale_shift)
+    s_x = act_step(act_scale, floor=True)
+    xq = quantize_act(x, s_x)
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), weight_q.double(), padding=1).float()
+    y = acc.permute(0, 2, 3, 1) * (s_x * weight_scale.float().reshape(-1))
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).contiguous()
 
 
 def flip_io(weight):
@@ -75,17 +111,14 @@ def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias=None, *,
 def hwio(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
     """The weight in HWIO layout, contiguous, cached on the weight tensor;
     ``transposed`` gives that of :func:`flip_io` (weight)."""
-    key = (weight.data_ptr(), weight._version, weight.dtype, weight.device, transposed)
-    attr = "_sdtk_hwio_t" if transposed else "_sdtk_hwio"
-    cached = getattr(weight, attr, None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    # a detached copy: the raw kernel refuses tensors that want a gradient,
-    # so this copy never stands in for a weight in a recorded graph
-    w = weight.detach()
-    w = (w.flip(2, 3).permute(2, 3, 0, 1) if transposed else w.permute(2, 3, 1, 0)).contiguous()
-    setattr(weight, attr, (key, w))
-    return w
+    def relay():
+        # a detached copy: the raw kernel refuses tensors that want a gradient,
+        # so this copy never stands in for a weight in a recorded graph
+        w = weight.detach()
+        return (w.flip(2, 3).permute(2, 3, 0, 1) if transposed
+                else w.permute(2, 3, 1, 0)).contiguous()
+
+    return cached(weight, "_sdtk_hwio_t" if transposed else "_sdtk_hwio", [weight], relay)
 
 
 def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool = False):
@@ -123,6 +156,55 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool =
         _cuda.stream_handle(x))
     _cuda.check(code, "K2 conv3x3")
     K2.launched((b, h, w, cin, cout, scale_shift is not None))
+    return y
+
+
+def taps_q(weight_q: torch.Tensor) -> torch.Tensor:
+    """The int8 OIHW weight as (3, 3, Cout, Cin) contiguous, each tap's
+    (Cout, Cin) slab K-contiguous for the int8 MMA; cached on the tensor."""
+    return cached(weight_q, "_sdtk_taps", [weight_q],
+                  lambda: weight_q.permute(2, 3, 0, 1).contiguous())
+
+
+def conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, scale_shift=None):
+    """Launch K7.  x (B,H,W,Cin) bf16 contiguous; weight_q OIHW (Cout,Cin,3,3)
+    int8; s_x (1,) and out_scale = s_x * weight_scale (Cout,) f32
+    (``folded_scales(..., floor=True)``); scale_shift (B, 2, Cin) f32
+    applies GroupNorm+SiLU to x first."""
+    require_no_grad("K7", x, bias, scale_shift)
+    require(x.is_cuda, f"K7 needs a CUDA tensor, got {x.device}")
+    require(x.dtype == torch.bfloat16, f"K7 takes bf16, got {x.dtype}")
+    require(x.dim() == 4 and x.is_contiguous(), "K7 needs a contiguous NHWC tensor")
+    b, h, w, cin = x.shape
+    cout = weight_q.shape[0]
+    require(tuple(weight_q.shape) == (cout, cin, 3, 3) and weight_q.dtype == torch.int8,
+            f"K7: weight_q {tuple(weight_q.shape)} {weight_q.dtype} for Cin={cin}")
+    require(cin % 32 == 0 and cout % 8 == 0,
+            f"K7 takes Cin % 32 == 0 and Cout % 8 == 0, got {cin}->{cout}")
+    require(s_x.shape == (1,) and out_scale.shape == (cout,)
+            and all(t.dtype == torch.float32 and t.is_contiguous() for t in (s_x, out_scale)),
+            "K7: s_x (1,) and out_scale (Cout,) must be contiguous f32")
+    if bias is not None:
+        require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
+                "K7: bias must be contiguous bf16 (Cout,)")
+    if scale_shift is not None:
+        require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
+                and scale_shift.is_contiguous(), "K7: scale_shift must be contiguous f32 (B, 2, Cin)")
+    wk = taps_q(weight_q)
+    require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0, "K7 needs 16-byte aligned tensors")
+    lib = _cuda.library()
+    ksplit = lib.sdtk_conv3x3_q_ksplit(b, h, w, cin, cout)
+    ws = (torch.empty((ksplit, b * h * w, cout), device=x.device, dtype=torch.int32)
+          if ksplit > 1 else None)
+    y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    code = lib.sdtk_conv3x3_q(
+        x.data_ptr(), wk.data_ptr(), s_x.data_ptr(), out_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, h, w, cin, cout, ksplit,
+        _cuda.stream_handle(x))
+    _cuda.check(code, "K7 conv3x3_q")
+    K7.launched((b, h, w, cin, cout, scale_shift is not None))
     return y
 
 
@@ -233,3 +315,17 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int
                                      num_groups, eps)
     ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps)
     return conv3x3_kernel(x, weight, bias, ss)
+
+
+def gn_silu_conv3x3_w8a8(x, gn_weight, gn_bias, weight_q, weight_scale, act_scale, bias=None, *,
+                         num_groups: int = 32, eps: float = 1e-5, impl: str = "auto"):
+    """GroupNorm -> SiLU -> static-W8A8 conv3x3 (JAX ``gn_silu_conv3x3`` with
+    ``kernel_q`` and ``act_scale``): K1 stats, then K7 with the normalize,
+    SiLU and int8 quantize in its prologue.  Inference only."""
+    require_inference("W8A8 conv3x3", x, gn_weight, gn_bias, weight_scale, act_scale, bias)
+    if not use_kernel(impl, x):
+        ss = gn_scale_shift_plain(x, gn_weight, gn_bias, num_groups, eps)
+        return conv3x3_w8a8_plain(x, weight_q, weight_scale, act_scale, bias, ss)
+    ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps)
+    s_x, out_scale = folded_scales(weight_scale, act_scale, floor=True)
+    return conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias, ss)

@@ -46,9 +46,10 @@ class StableDiffusion:
 
     @classmethod
     def build(cls, unet_config: UNetConfig, text_config: CLIPTextConfig,
-              vae_config: VAEConfig = VAEConfig(), *, device, dtype=torch.float32,
+              vae_config: VAEConfig = VAEConfig(), *, device="cuda", dtype=torch.float32,
               impl: str = "auto") -> "StableDiffusion":
-        """Uninitialised models on ``device``: load a state_dict into each
+        """Uninitialised models on ``device`` (the card unless the caller asks
+        for the CPU): load a state_dict into each
         (``utils.weights.from_jax_params``) or initialise them
         (``utils.weights.init_random_``) before generating.  On a CUDA device
         the kernels take bf16: build with ``dtype=torch.bfloat16``, or use

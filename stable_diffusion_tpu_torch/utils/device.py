@@ -1,8 +1,11 @@
-"""The ``impl`` switch and the launch counters every kernel wrapper keeps."""
+"""The ``impl`` switch, the launch counters every kernel wrapper keeps, and
+the cache of the tensors it derives from its weights."""
 
 from __future__ import annotations
 
 import collections
+import weakref
+from typing import Callable, Sequence
 
 import torch
 
@@ -55,6 +58,15 @@ def require_no_grad(kernel: str, *tensors) -> None:
                            "which wraps it in an autograd Function, or run under torch.no_grad()")
 
 
+def require_inference(what: str, *tensors) -> None:
+    """The W8A8 forms are inference-only (JAX ``_q_raise_bwd``): raise
+    rather than differentiate through the int8 round/clip quantizer."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{what} is inference-only: gradients through the int8 round/clip quantizer would be "
+            "silently wrong; train in bf16 and quantize afterwards (utils/quantize_model)")
+
+
 class LaunchCounter:
     """A kernel's launch count.
 
@@ -83,3 +95,20 @@ class LaunchCounter:
     def stop_recording(self) -> collections.Counter:
         shapes, self.shapes = self.shapes, None
         return shapes
+
+
+def cached(owner, attr: str, tensors: Sequence[torch.Tensor], make: Callable):
+    """``make()``, kept in ``owner.__dict__[attr]`` until one of ``tensors``
+    is replaced or changed in place (a weight re-laid for a kernel, a
+    concatenation, folded scales).  The cache refers to the tensors weakly:
+    a freed tensor's address cannot alias a new one, and a cache kept on a
+    tensor it was made from forms no reference cycle, so it is freed with
+    the tensor (the LoRA merge makes new weights every step)."""
+    key = [(t._version, t.data_ptr()) for t in tensors]
+    hit = owner.__dict__.get(attr)
+    if (hit is not None and len(hit[0]) == len(tensors)
+            and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == key):
+        return hit[2]
+    value = make()
+    owner.__dict__[attr] = ([weakref.ref(t) for t in tensors], key, value)
+    return value

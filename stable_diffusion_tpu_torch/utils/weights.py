@@ -5,7 +5,10 @@ The JAX trees' key paths mirror the module names, so the bridge is the
 inverse of stable_diffusion_tpu/utils/torch_interop.py ``convert_tensor``:
 ``kernel`` HWIO -> ``weight`` OIHW, ``kernel`` (in, out) -> ``weight``
 (out, in), ``scale`` -> ``weight``, ``embedding`` -> ``weight`` as it is,
-``bias`` as it is.  That module cannot be imported here (importing anything
+``bias`` as it is.  The int8 forms (utils/quantize_model.py) follow the
+same rules: ``kernel_q`` -> ``weight_q`` laid out as ``kernel`` (int8 kept),
+``kernel_scale`` (1, out) -> ``weight_scale`` (out,), ``act_scale`` as it
+is (the scales stay f32).  That module cannot be imported here (importing anything
 under ``stable_diffusion_tpu`` imports jax), so ``flatten_tree`` and the
 layout rules are written again.
 """
@@ -51,29 +54,44 @@ def _is_embedding(parts) -> bool:
     return any(m in owner for m in _EMBEDDING_MARKERS)
 
 
+_QUANT_LEAVES = {"weight_q": "kernel_q", "weight_scale": "kernel_scale"}
+_TORCH_NAMES = {"kernel_q": "weight_q", "kernel_scale": "weight_scale", "bias": "bias",
+                "act_scale": "act_scale"}
+_KERNELS = ("kernel", "kernel_q")
+
+
 def _jax_leaf(parts, ndim: int) -> str:
     """JAX leaf name of a torch parameter key (split on '.')."""
     name = parts[-1]
     if name != "weight":
-        return name
+        return _QUANT_LEAVES.get(name, name)
     if ndim == 2 and _is_embedding(parts):
         return "embedding"
     return {4: "kernel", 2: "kernel", 1: "scale"}[ndim]
 
 
+def _torch_name(leaf: str) -> str:
+    """Torch parameter or buffer name of a JAX leaf."""
+    return _TORCH_NAMES.get(leaf, "weight")
+
+
 def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and value.ndim == 4:
+    if leaf in _KERNELS and value.ndim == 4:
         return np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
-    if leaf == "kernel" and value.ndim == 2:
+    if leaf in _KERNELS and value.ndim == 2:
         return np.transpose(value, (1, 0))  # (in, out) -> (out, in)
+    if leaf == "kernel_scale":
+        return value.reshape(-1)  # (1, out) -> (out,)
     return value
 
 
 def _to_jax_layout(leaf: str, value: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and value.ndim == 4:
+    if leaf in _KERNELS and value.ndim == 4:
         return np.transpose(value, (2, 3, 1, 0))  # OIHW -> HWIO
-    if leaf == "kernel" and value.ndim == 2:
+    if leaf in _KERNELS and value.ndim == 2:
         return np.transpose(value, (1, 0))
+    if leaf == "kernel_scale":
+        return value.reshape(1, -1)
     return value
 
 
@@ -83,24 +101,30 @@ def jax_key(torch_key: str, ndim: int) -> str:
 
 
 def from_jax_params(tree, *, dtype=None, device=None) -> "OrderedDict[str, torch.Tensor]":
-    """A JAX parameter tree (nested dicts of arrays) -> a torch ``state_dict``."""
+    """A JAX parameter tree (nested dicts of arrays) -> a torch ``state_dict``.
+    ``dtype`` casts the weights and biases; int8 kernels and the quantization
+    scales keep theirs."""
     out = OrderedDict()
     for key, value in flatten_tree(tree).items():
         parts = key.split(".")
         leaf = parts[-1]
         value = _to_torch_layout(leaf, np.asarray(value))
-        name = "bias" if leaf == "bias" else "weight"
+        name = _torch_name(leaf)
         t = torch.from_numpy(np.require(value, requirements=["C", "W"]))
-        out[".".join(parts[:-1] + [name])] = t.to(device=device, dtype=dtype or t.dtype)
+        cast = dtype if name in ("weight", "bias") else None
+        out[".".join(parts[:-1] + [name])] = t.to(device=device, dtype=cast or t.dtype)
     return out
 
 
 def to_jax_params(module: nn.Module) -> Dict:
-    """The module's parameters as a JAX-layout tree of numpy f32 arrays."""
+    """The module's parameters as a JAX-layout tree of numpy arrays: f32,
+    and int8 for the quantized kernels."""
     flat = {}
     for key, t in module.state_dict().items():
         leaf = _jax_leaf(key.split("."), t.dim())
-        flat[jax_key(key, t.dim())] = _to_jax_layout(leaf, t.detach().float().cpu().numpy())
+        t = t.detach().cpu()
+        value = (t if t.dtype == torch.int8 else t.float()).numpy()
+        flat[jax_key(key, t.dim())] = _to_jax_layout(leaf, value)
     return unflatten(flat)
 
 
@@ -115,10 +139,10 @@ def jax_param_shapes(module: nn.Module) -> Dict[str, tuple]:
     return shapes
 
 
-def build(cls, cfg, *, device, dtype) -> nn.Module:
+def build(cls, cfg, *, device="cuda", dtype=torch.float32) -> nn.Module:
     """Construct a module without running its initialisers (meta device),
-    then allocate uninitialised storage on ``device``; load or initialise
-    the weights afterwards."""
+    then allocate uninitialised storage on ``device`` (the card unless the
+    caller asks for the CPU); load or initialise the weights afterwards."""
     with torch.device("meta"):
         mod = cls(cfg)
     return mod.to_empty(device=device).to(dtype)

@@ -1,4 +1,4 @@
-"""The port's kernels K1-K6 against their plain versions, on a CUDA card.
+"""The port's kernels K1-K9 against their plain versions, on a CUDA card.
 
 Every test here needs the card and skips without one.  This file imports no
 JAX, so it also runs where JAX is not installed; run it there with the
@@ -12,13 +12,17 @@ version in f32 on the same values.  Tolerance: max|kernel - plain| <=
 JAX kernels).  Gradients through the autograd Functions with
 ``impl="cuda"`` (bf16) against ``impl="torch"`` (f32, same values): 5e-2
 of the largest gradient, since the recomputed plain backward also runs in
-bf16 there.
+bf16 there.  The W8A8 kernels K7-K9 are held to the same 2e-2 against
+their plain versions in f32 on the same int8 weights and scales: an
+activation code may differ by one where the kernel's bf16 rounding before
+the quantizer and the f32 reference's lie on two sides of a half step.
 """
 
 import pytest
 import torch
 
-from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm
+from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear
+from stable_diffusion_tpu_torch.ops.quantize import folded_scales, quantize_tensor
 
 pytestmark = pytest.mark.gpu
 REL = 2e-2
@@ -217,3 +221,87 @@ def test_self_attention_backward_runs_k5_k6(gen):
     assert (flash_attention.K5.launches, flash_attention.K6.launches) == (before[0] + 1, before[1] + 1)
     with pytest.raises(RuntimeError, match="carries no gradient"):
         flash_attention.attention_kernel(q, k, v)
+
+
+def _q8(gen, n, k):
+    """(n, k) int8 codes and f32 scales of a seeded N(0, 1/k) weight."""
+    q, scale = quantize_tensor(torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5, axis=1)
+    return q, scale.reshape(-1)
+
+
+def _act(x):
+    return x.float().abs().amax() * 0.9  # a calibrated range that clips the largest few
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 320, 320), (8, 32, 32, 640, 640), (8, 8, 8, 2560, 1280),
+                                   (2, 64, 64, 320, 320), (1, 5, 7, 64, 40), (2, 6, 6, 96, 32)])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k7_conv3x3_q(gen, shape, prologue):
+    b, h, w, cin, cout = shape
+    x = _rn(gen, b, h, w, cin)
+    q, scale = _q8(gen, cout, 9 * cin)
+    wq = q.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).contiguous()
+    bias = _rn(gen, cout, scale=0.1)
+    ss = None
+    if prologue:
+        gw, gb = 1 + _rn(gen, cin, scale=0.1), _rn(gen, cin, scale=0.1)
+        ss = groupnorm.gn_scale_shift_plain(x, gw, gb)
+    act = _act(x if ss is None else conv.gn_silu_prologue(x.float(), ss))
+    before = conv.K7.launches
+    s_x, out_scale = folded_scales(scale, act, floor=True)
+    got = conv.conv3x3_w8a8_kernel(x, wq, s_x, out_scale, bias, ss)
+    assert conv.K7.launches == before + 1
+    _check(got, conv.conv3x3_w8a8_plain(x.float(), wq, scale, act, bias.float(), ss))
+
+
+@pytest.mark.parametrize("shape", [(32768, 320, 960, True, False), (32768, 320, 320, False, True),
+                                   (8192, 640, 640, True, True), (616, 768, 1280, False, False),
+                                   (1, 1280, 320, False, False), (100, 64, 40, True, True)])
+def test_k8_linear_q(gen, shape):
+    m, k, n, ln, res = shape
+    x = _rn(gen, m, k, scale=2.0)
+    q, scale = _q8(gen, n, k)
+    bias = _rn(gen, n, scale=0.1)
+    lw, lb = (1 + _rn(gen, k, scale=0.1), _rn(gen, k, scale=0.1)) if ln else (None, None)
+    r = _rn(gen, m, n) if res else None
+    h = linear.layer_norm_plain(x.float(), lw, lb) if ln else x
+    act = _act(h)
+    before = linear.K8.launches
+    if ln:
+        got = linear.ln_matmul_w8a8(lw, lb, x, q, scale, act, bias, residual=r, impl="cuda")
+    else:
+        got = linear.matmul_w8a8(x, q, scale, act, bias, residual=r, impl="cuda")
+    assert linear.K8.launches == before + 1
+    f = lambda t: None if t is None else t.float()  # noqa: E731
+    _check(got, linear.matmul_w8a8_plain(x.float(), q, scale, act, bias.float(), f(r), f(lw), f(lb)))
+
+
+@pytest.mark.parametrize("shape", [(32768, 320), (8192, 640), (2048, 1280), (512, 1280), (100, 64)])
+def test_k9_ffn_q(gen, shape):
+    m, c = shape
+    hidden = 4 * c
+    x = _rn(gen, m, c)
+    lw, lb = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
+    q1, s1 = _q8(gen, 2 * hidden, c)
+    q2, s2 = _q8(gen, c, hidden)
+    b1, b2, r = _rn(gen, 2 * hidden, scale=0.1), _rn(gen, c, scale=0.1), _rn(gen, m, c)
+    hn = linear.layer_norm_plain(x.float(), lw.float(), lb.float())
+    act1 = _act(hn)
+    hh = linear.matmul_w8a8_plain(hn, q1, s1, act1, b1.float())
+    act2 = _act(hh[:, :hidden] * torch.nn.functional.gelu(hh[:, hidden:]))
+    args = [x, lw, lb, q1, s1, b1, act1, q2, s2, b2, act2, r]
+    before = ffn.K9.launches
+    got = ffn.geglu_ffn_w8a8(*args, impl="cuda")
+    assert ffn.K9.launches == before + 1
+    _check(got, ffn.geglu_ffn_w8a8_plain(*(t.float() if t.dtype == torch.bfloat16 else t
+                                           for t in args)))
+
+
+def test_w8a8_kernels_raise_on_shapes_they_do_not_take(gen):
+    x = _rn(gen, 4, 48)  # K % 32 != 0
+    q, scale = _q8(gen, 64, 48)
+    with pytest.raises(ValueError, match="K8"):
+        linear.matmul_w8a8(x, q, scale, _act(x), impl="cuda")
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        linear.matmul_w8a8(_rn(gen, 4, 64).requires_grad_(), *_q8(gen, 64, 64),
+                           torch.tensor(1.0, device="cuda"), impl="cuda")
