@@ -1,9 +1,10 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the seven phases below
+    python3 chip_smoke.py                  # the eight phases below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
+    python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
 
-Seven phases, one line each (plus detail lines); any failure exits non-zero
+Eight phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit.
@@ -47,6 +48,21 @@ and the final line is printed only when every phase passed:
                  library time); holds one micro-step's LoRA gradients on the
                  same b4 batch against the plain f32 path; times TRAIN_STEPS
                  steps, which must launch every one of K1-K6.
+  8. sd21     -- SD2.1 768^2 v-prediction txt2img (StableDiffusion.for_version
+                 "2.1": OpenCLIP ViT-H, UNetConfig.sd21(), full width, seeded
+                 random weights) with the JAX package's kernel switches
+                 SD_TPU_FUSED_MM and SD_TPU_WINOGRAD off and on: records the
+                 shapes of one b1 CFG DDIM step each way, checks K1-K4 at
+                 SD2.1's shapes and K10-K12 at every shape of the switched
+                 step against their plain f32 versions (K12 also within 2.5x
+                 of K2's error against the f32 direct conv), and times each
+                 beside its bound, its library call and the route it
+                 replaces; holds the full SD2.1 UNet to
+                 tests/golden/full_sd21_ddim2.npz (plain f32, then the
+                 kernels in bf16 with the switches off and on); serves two
+                 768^2 DDIM-50 CFG-7.5 requests with the switches off (K1-K4
+                 launched, K10-K12 not) and one with them on (K1-K4 and K10-K12
+                 launched), same ids and seed, and reports the image drift.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds).
 """
@@ -107,6 +123,14 @@ SERVE_REQUESTS = 2
 TRAIN_BATCH = 4         # 2 instance + 2 prior, as bench.py's train config
 TRAIN_STEPS = 12        # timed, after two warm-up steps
 TRAIN_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj")
+SD21_SIZE = (768, 768)
+# K12 against the f32 direct conv (TF32 off), relative max: within this
+# factor of K2's own error on the same inputs (tests/test_winograd.py's
+# bar: V and U are rounded to bf16 after transforms that grow magnitudes).
+WINOGRAD_VS_DIRECT = 2.5
+# The JAX package's kernel switches, read at call time; phase 8 sets and
+# restores them.
+SWITCHES_ON = {"SD_TPU_FUSED_MM": "all", "SD_TPU_WINOGRAD": "1"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the
 # larger of its bytes over HBM bandwidth and its FLOPs over the peak of
@@ -161,7 +185,26 @@ KERNELS = {
                library=None,  # no one PyTorch call computes LN -> int8 GeGLU -> FFN
                bf16="K4 (geglu_ffn) on the bf16 weights"),
 }
+KERNELS.update({
+    "K10": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/linear.cu",
+                replaces="stable_diffusion_tpu/ops/linear.py:45",
+                replaces_all=["stable_diffusion_tpu/ops/linear.py:45 _make_kernel"],
+                library="F.linear (the product and bias: no LayerNorm, no residual)",
+                bf16="the unswitched route: layer_norm_plain -> F.linear (LN sites), "
+                     "F.linear + add (residual sites)"),
+    "K11": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/linear.cu",
+                replaces="stable_diffusion_tpu/ops/linear.py:283",
+                replaces_all=["stable_diffusion_tpu/ops/linear.py:283 _gn_mm_kernel"],
+                library="F.linear (the product and bias: no GroupNorm)",
+                bf16="the unswitched route: K1 (stats + normalize) -> F.linear"),
+    "K12": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/winograd.cu",
+                replaces="stable_diffusion_tpu/ops/winograd.py:81",
+                replaces_all=["stable_diffusion_tpu/ops/winograd.py:81 _wino_kernel"],
+                library="F.conv2d channels-last (the GN+SiLU prologue not included)",
+                bf16="the unswitched route: K2 (with its GN+SiLU prologue where K12 has it)"),
+})
 SERVING_KERNELS = ("K1", "K2", "K3", "K4")
+SWITCHED_KERNELS = ("K10", "K11", "K12")
 W8A8_KERNELS = ("K7", "K8", "K9")
 W8A8_PATH_KERNELS = ("K1", "K2", "K3", *W8A8_KERNELS)  # K4 is not on the W8A8 path
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
@@ -207,18 +250,34 @@ def bound_ms(flops: float, nbytes: float, flop_rate: float):
 # ---------------------------------------------------------------------------
 
 
-def build_pipeline(dtype, impl, seed=0):
-    from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig
-    from stable_diffusion_tpu_torch.models.unet import UNetConfig
-    from stable_diffusion_tpu_torch.models.vae import VAEConfig
+def build_pipeline(dtype, impl, seed=0, version="1.5"):
     from stable_diffusion_tpu_torch.pipeline import StableDiffusion
     from stable_diffusion_tpu_torch.utils.weights import init_random_
 
-    pipe = StableDiffusion.build(UNetConfig.sd15(), CLIPTextConfig.vit_l(), VAEConfig(),
-                                 device="cuda", dtype=dtype, impl=impl)
+    pipe = StableDiffusion.for_version(version, device="cuda", dtype=dtype, impl=impl)
     for i, m in enumerate((pipe.unet, pipe.text_encoder, pipe.vae)):
         init_random_(m, seed + i)
     return pipe
+
+
+class switches:
+    """The JAX package's kernel switches (SD_TPU_FUSED_MM, SD_TPU_WINOGRAD)
+    set on or off inside the block, and restored after it."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in SWITCHES_ON}
+        for k, v in SWITCHES_ON.items():
+            os.environ[k] = v if self.on else "0"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def request_ids(seed: int, batch: int = 1):
@@ -326,6 +385,101 @@ def _w8a8_case(kernel: str, key, gen):
                 plain_once=True, rate=INT8_TC_OPS, **work)
 
 
+def _switched_case(kernel: str, key, gen):
+    """``_case`` for K10-K12, the kernels behind the JAX package's switches:
+    the caller holds the switches on; ``bf16`` runs the same entry with them
+    off (the route the kernel replaces).  K12 also carries ``bar``: its error
+    against the f32 direct conv (TF32 off) within WINOGRAD_VS_DIRECT of
+    K2's on the same inputs."""
+    from stable_diffusion_tpu_torch.ops import conv, groupnorm, linear
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def f32(t):
+        return t.float() if t is not None else t
+
+    def unswitched(fn):
+        def run():
+            with switches(False):
+                return fn()
+        return run
+
+    bar = None
+    if kernel == "K10":
+        m, k, n, ln, res = key
+        x, w, bias = rn(m, k, scale=2.0), rn(n, k, scale=k ** -0.5), rn(n, scale=0.1)
+        lw, lb = (1 + rn(k, scale=0.1), rn(k, scale=0.1)) if ln else (None, None)
+        r = rn(m, n) if res else None
+        args = [x, w, bias, r, lw, lb]
+
+        def run(x, w, bias, r, lw, lb, impl):
+            if lw is not None:
+                return linear.ln_matmul(lw, lb, x, w, bias, impl=impl)
+            return linear.matmul_residual(x, w, bias, r, impl=impl)
+
+        def library():
+            return F.linear(x, w, bias)
+        work = dict(flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n * (2 if res else 1) + n)
+                    + (4 * k if ln else 0))
+    elif kernel == "K11":
+        b, rows, k, n = key
+        x = rn(b, rows, 1, k, scale=2.0) + 0.5
+        gw, gb = 1 + rn(k, scale=0.1), rn(k, scale=0.1)
+        w, bias = rn(n, k, scale=k ** -0.5), rn(n, scale=0.1)
+        args = [x, gw, gb, w, bias]
+
+        def run(x, gw, gb, w, bias, impl):
+            return linear.gn_matmul(x, gw, gb, w, bias, eps=1e-6, impl=impl)
+
+        def library():
+            return F.linear(x, w, bias)
+        m = b * rows
+        work = dict(flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n + n + 2 * k))
+    else:  # K12
+        b, h, w_, cin, cout, prologue = key
+        x = rn(b, h, w_, cin)
+        wt, bias = rn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rn(cout, scale=0.1)
+        gw, gb = 1 + rn(cin, scale=0.1), rn(cin, scale=0.1)
+        if prologue:
+            def run(x, gw, gb, wt, bias, impl):
+                return conv.gn_silu_conv3x3(x, gw, gb, wt, bias, impl=impl)
+            args = [x, gw, gb, wt, bias]
+        else:
+            def run(x, wt, bias, impl):
+                return conv.conv3x3(x, wt, bias, impl=impl)
+            args = [x, wt, bias]
+
+        def library():
+            return F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1)
+
+        def bar(got):
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                xin = (conv.gn_silu_prologue(x.float(), groupnorm.gn_scale_shift_plain(
+                    x, gw, gb)) if prologue else x.float())
+                truth = conv.conv3x3_plain(xin, wt.float(), bias.float())
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            with switches(False):
+                direct = run(*args, impl="cuda").float()
+            scale = truth.abs().max()
+            e12 = ((got - truth).abs().max() / scale).item()
+            e2 = ((direct - truth).abs().max() / scale).item()
+            return e12 <= WINOGRAD_VS_DIRECT * max(e2, 1e-4), f"vs f32 direct {e12:.3e}, K2 {e2:.3e}"
+        px = b * h * w_
+        # Winograd's own operations (JAX's cost estimate): 16 products per 4 outputs
+        work = dict(flops=2 * px * 4 * cin * cout,
+                    bytes=2 * (px * (cin + cout) + 16 * cin * cout + cout)
+                    + (b * 2 * cin * 4 if prologue else 0),
+                    plain_once=px * max(cin, cout) >= 2 ** 25)  # the VAE's 768^2 stages
+    return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
+                ref=lambda: run(*map(f32, args), impl="torch"), library=library,
+                bf16=unswitched(lambda: run(*args, impl="cuda")), bar=bar, rate=BF16_TC_FLOPS,
+                **work)
+
+
 def _case(kernel: str, key, gen):
     """A dict for one recorded shape key: ``kernel``, ``plain`` (bf16) and
     ``ref`` (plain on f32 copies) callables on the same random inputs,
@@ -336,6 +490,8 @@ def _case(kernel: str, key, gen):
 
     if kernel in W8A8_KERNELS:
         return _w8a8_case(kernel, key, gen)
+    if kernel in SWITCHED_KERNELS:
+        return _switched_case(kernel, key, gen)
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
@@ -396,8 +552,9 @@ def _case(kernel: str, key, gen):
 
         def library():
             return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in args))
+        # the plain version materializes B*H*Sq*Sk f32 scores: one call at s = 9216
         work = dict(flops=4 * b * h * sq * sk * d, bytes=2 * b * h * d * (2 * sq + 2 * sk),
-                    rate=BF16_TC_FLOPS)
+                    rate=BF16_TC_FLOPS, plain_once=sq * sk > 4096 * 4096)
     elif kernel == "K4":
         m, c = key
         args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
@@ -468,6 +625,11 @@ def check_kernels(shapes, kernels, label: str):
             err = (got - ref).abs().max().item()
             rel = err / max(ref.abs().max().item(), 1e-30)
             good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+            bar_msg = ""
+            if case.get("bar") is not None:
+                bar_ok, bar_msg = case["bar"](got)
+                good &= bar_ok
+                bar_msg += " "
             ok &= good
             del got, ref
             n = shapes[kernel][key]
@@ -490,7 +652,7 @@ def check_kernels(shapes, kernels, label: str):
             del case
             shown = tuple(str(s).replace("torch.", "") for s in key)
             say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} calls={n} "
-                f"max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"max_abs_err={err:.3e} rel={rel:.3e} {bar_msg}kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
                 + f"bound_ms={b_ms:.4f} ({b_by})")
@@ -530,13 +692,14 @@ def attention_bwd_pair(shapes, gen):
     return pair_bound, pair_lib
 
 
-def record_main_path_shapes(pipe, counters, batch: int = 1):
+def record_main_path_shapes(pipe, counters, batch: int = 1, img_size=(512, 512)):
     """Run the main path once (1 DDIM step: every step gives the kernels the
     same shapes) with per-shape launch counting on."""
     for c in counters.values():
         c.record()
     cond, uncond = request_ids(99, batch)
-    pipe.generate(cond, uncond, inference_steps=1, seed=99, output_dtype="uint8")
+    pipe.generate(cond, uncond, img_size=img_size, inference_steps=1, seed=99,
+                  output_dtype="uint8")
     torch.cuda.synchronize()
     return {k: c.stop_recording() for k, c in counters.items()}
 
@@ -546,23 +709,32 @@ def record_main_path_shapes(pipe, counters, batch: int = 1):
 # ---------------------------------------------------------------------------
 
 
-def phase_golden():
+def phase_golden(version="1.5", variants=(("bf16 kernels", False),)):
+    """The full UNet of ``version`` against its CPU-made JAX golden: plain
+    f32 (TF32 off), then each variant (the kernels in bf16, with the
+    switches off or on) against that f32 result.  SD1.5:
+    tests/golden/full_sd15_ddim2.npz, 64^2 latents, epsilon; SD2.1:
+    tests/golden/full_sd21_ddim2.npz, 96^2 latents, v-prediction."""
     from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from stable_diffusion_tpu_torch.pipeline import scheduler_config_for
     from stable_diffusion_tpu_torch.schedulers import schedule as S
     from stable_diffusion_tpu_torch.utils import weights as W
 
+    v1 = version.startswith("1")
+    cfg, name, hw, ctx_dim = ((UNetConfig.sd15(), "full_sd15_ddim2.npz", 64, 768) if v1
+                              else (UNetConfig.sd21(), "full_sd21_ddim2.npz", 96, 1024))
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    want = np.load(os.path.join(REPO, "tests", "golden", "full_sd15_ddim2.npz"))["latents"]
-    unet = W.build(UNet, UNetConfig.sd15(), device="cuda", dtype=torch.float32)
+    want = np.load(os.path.join(REPO, "tests", "golden", name))["latents"]
+    unet = W.build(UNet, cfg, device="cuda", dtype=torch.float32)
     params = W.philox_jax_params(unet, seed=7)
     unet.load_state_dict(W.from_jax_params(W.unflatten(params)), strict=True)
     del params
     rng = np.random.Generator(np.random.Philox(11))
-    lat0 = rng.standard_normal((1, 64, 64, 4), dtype=np.float32)
-    ctx = rng.standard_normal((1, 77, 768), dtype=np.float32) * 0.1
-    sched = S.make_schedule()
+    lat0 = rng.standard_normal((1, hw, hw, 4), dtype=np.float32)
+    ctx = rng.standard_normal((1, 77, ctx_dim), dtype=np.float32) * 0.1
+    sched = S.make_schedule(prediction_type=scheduler_config_for(version)["prediction_type"])
     ts = S.inference_timesteps(sched, 2, kind="ddim")
     prev = ts - sched.num_train_timesteps // 2
     table = torch.as_tensor(sched.alphas_hat, device="cuda")
@@ -572,23 +744,28 @@ def phase_golden():
         c = torch.tensor(ctx, device="cuda", dtype=dtype)
         with torch.no_grad():
             for t, pt in zip(ts.tolist(), prev.tolist()):
-                eps = model(lat, torch.full((1,), t, device="cuda"), c, impl=impl)
-                lat = S.ddim_step(table, lat, t, pt, eps)
+                out = model(lat, torch.full((1,), t, device="cuda"), c, impl=impl)
+                lat = S.ddim_step(table, lat, t, pt, out, prediction_type=sched.prediction_type)
         return lat.float().cpu().numpy()
 
     got = denoise(unet, torch.float32, "torch")
     err = float(np.abs(got - want).max())
-    say(f"  golden f32 plain: max_abs_err={err:.3e} (tol {GOLDEN_ATOL}) "
+    say(f"  golden SD{version} f32 plain: max_abs_err={err:.3e} (tol {GOLDEN_ATOL}) "
         f"latent std={float(want.std()):.4f}")
     unet = unet.to(torch.bfloat16)
-    got16 = denoise(unet, torch.bfloat16, "cuda")
-    rel = float(np.linalg.norm(got16 - got) / np.linalg.norm(got))
-    say(f"  golden bf16 kernels vs f32 plain: rel_l2={rel:.3e} (tol {GOLDEN_BF16_REL_L2}) "
-        f"max_abs_err={float(np.abs(got16 - got).max()):.3e}")
+    ok, rels = err <= GOLDEN_ATOL, {}
+    for label, on in variants:
+        with switches(on):
+            got16 = denoise(unet, torch.bfloat16, "cuda")
+        rel = float(np.linalg.norm(got16 - got) / np.linalg.norm(got))
+        rels[label] = rel
+        ok &= rel <= GOLDEN_BF16_REL_L2 and bool(np.isfinite(got16).all())
+        say(f"  golden SD{version} {label} vs f32 plain: rel_l2={rel:.3e} "
+            f"(tol {GOLDEN_BF16_REL_L2}) max_abs_err={float(np.abs(got16 - got).max()):.3e}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     del unet
     torch.cuda.empty_cache()
-    return (err <= GOLDEN_ATOL and rel <= GOLDEN_BF16_REL_L2 and np.isfinite(got16).all()), err, rel
+    return ok, err, rels
 
 
 # ---------------------------------------------------------------------------
@@ -901,6 +1078,74 @@ def phase_training(unet, counters):
                     pair_library_ms=pair_lib)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: SD2.1 768^2, the kernel switches off and on
+# ---------------------------------------------------------------------------
+
+
+def _serve_sd21(pipe, counters, on: bool, requests: int):
+    """``requests`` 768^2 b1 DDIM-50 CFG-7.5 requests (ids and seeds of
+    requests 0, 1, ...) with the switches ``on``: seconds, images, launches."""
+    for c in counters.values():
+        c.reset()
+    secs, imgs, ok = [], [], True
+    with switches(on):
+        for r in range(requests):
+            cond, uncond = request_ids(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = pipe.generate(cond, uncond, img_size=SD21_SIZE, cfg_scale=7.5,
+                                inference_steps=SERVE_STEPS, seed=3000 + r, output_dtype="uint8")
+            secs.append(time.perf_counter() - t0)
+            good = (img.shape == (1, *SD21_SIZE, 3) and img.dtype == np.uint8
+                    and int(img.max()) > int(img.min()))
+            ok &= good
+            imgs.append(img)
+            say(f"  sd21 request {r} switches {'on' if on else 'off'}: {secs[-1]:.3f} s "
+                f"shape={img.shape} min={int(img.min())} max={int(img.max())} "
+                f"mean={float(img.mean()):.2f} {'ok' if good else 'BAD'}")
+    return ok, secs, imgs, {k: c.launches for k, c in counters.items()}
+
+
+def phase_sd21(counters):
+    pipe = build_pipeline(torch.bfloat16, "cuda", seed=10, version="2.1")
+    # (a) the shapes of one b1 CFG DDIM step, switches off and on
+    with switches(False):
+        off = record_main_path_shapes(pipe, counters, img_size=SD21_SIZE)
+    with switches(True):
+        on = record_main_path_shapes(pipe, counters, img_size=SD21_SIZE)
+    for label, shapes in (("off", off), ("on", on)):
+        say(f"  sd21 step shapes, switches {label}: " + ", ".join(
+            f"{k} {len(v)} shapes {sum(v.values())} calls" for k, v in shapes.items() if v))
+    # (b) K1-K4 at SD2.1's shapes; K10-K12 at every shape of the switched step
+    ok_k, summary = check_kernels(off, SERVING_KERNELS, "sd21")
+    with switches(True):
+        ok_s, switched = check_kernels(on, SWITCHED_KERNELS, "sd21-switched")
+    # (c) the SD2.1 golden
+    ok_g, g_err, g_rels = phase_golden("2.1", (("bf16 kernels, switches off", False),
+                                               ("bf16 kernels, switches on", True)))
+    # (d) serving: two requests switches off, one on with request 0's ids and seed
+    torch.cuda.reset_peak_memory_stats()
+    ok_off, secs_off, imgs_off, launches_off = _serve_sd21(pipe, counters, False, SERVE_REQUESTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok_on, secs_on, imgs_on, launches_on = _serve_sd21(pipe, counters, True, 1)
+    ok_off &= (all(launches_off[k] > 0 for k in SERVING_KERNELS)
+               and all(launches_off[k] == 0 for k in SWITCHED_KERNELS))
+    # switched on, K2 keeps the 12^2 stage (W < 16) and K1, K3, K4 run as before
+    ok_on &= all(launches_on[k] > 0 for k in (*SERVING_KERNELS, *SWITCHED_KERNELS))
+    drift = np.abs(imgs_on[0].astype(np.float32) - imgs_off[0].astype(np.float32)) / 255.0
+    say(f"  sd21 launches switches off {launches_off}; on {launches_on}; switched vs unswitched "
+        f"image drift |d| on [0, 1]: p50 {np.percentile(drift, 50):.4f} p99 "
+        f"{np.percentile(drift, 99):.4f} max {drift.max():.4f}; peak_mem {peak:.2f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+    ok = ok_k and ok_s and ok_g and ok_off and ok_on
+    return ok, dict(summary=summary, switched=switched, golden_err=g_err, golden_rels=g_rels,
+                    secs_off=secs_off, secs_on=secs_on, launches_off=launches_off,
+                    launches_on=launches_on, drift_p99=float(np.percentile(drift, 99)),
+                    peak_gib=peak)
+
+
 def profile_train_step(unet):
     """One-off torch.profiler trace of two steady train steps: device busy
     per step (sum of CUDA kernel times) and the kernels that take it."""
@@ -946,6 +1191,19 @@ def profile_train_step(unet):
         say(f"  {ms:8.2f} ms/step {n:6.0f} calls  {key[:110]}")
 
 
+def sd21_line(sd) -> str:
+    return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
+            f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
+            f"drift p99={sd['drift_p99']:.4f}; golden f32 max_abs_err={sd['golden_err']:.3e}, "
+            + ", ".join(f"{k} rel_l2={v:.3e}" for k, v in sd["golden_rels"].items()) + "; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, replaced route {v.get('bf16_ms', float('nan')):.2f}, "
+                        f"library {'-' if v['library_ms'] is None else format(v['library_ms'], '.2f')}"
+                        f", bound {v['bound_ms']:.2f}"
+                        for k, v in {**sd["summary"], **sd["switched"]}.items())
+            + f" per pass; peak_mem {sd['peak_gib']:.2f} GiB")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -958,9 +1216,12 @@ def main() -> int:
 
     from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm, linear
 
+    from stable_diffusion_tpu_torch.ops import winograd
+
     counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
                 "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
-                "K8": linear.K8, "K9": ffn.K9}
+                "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
+                "K12": winograd.K12}
 
     # 2. build
     t0 = time.perf_counter()
@@ -972,6 +1233,11 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"phase 2 build: ok, {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}, Triton JIT included)")
+
+    if "--only-sd21" in sys.argv[1:]:
+        ok8, sd = phase_sd21(counters)
+        say(f"phase 8 sd21: {'ok' if ok8 else 'FAIL'}, " + sd21_line(sd))
+        return 0 if ok8 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--profile-train" in sys.argv[1:]:
@@ -993,7 +1259,8 @@ def main() -> int:
         return 1
 
     # 4. golden
-    ok4, g_err, g_rel = phase_golden()
+    ok4, g_err, g_rels = phase_golden()
+    g_rel = g_rels["bf16 kernels"]
     say(f"phase 4 golden: {'ok' if ok4 else 'FAIL'}, f32 max_abs_err={g_err:.3e}, "
         f"bf16 rel_l2={g_rel:.3e}")
     if not ok4:
@@ -1048,21 +1315,35 @@ def main() -> int:
     if not ok7:
         return 1
 
+    # 8. SD2.1 768^2, the kernel switches off and on
+    del unet
+    torch.cuda.empty_cache()
+    ok8, sd = phase_sd21(counters)
+    say(f"phase 8 sd21: {'ok' if ok8 else 'FAIL'}, " + sd21_line(sd))
+    if not ok8:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
     # their W8A8 serving figures under w8a8_*; K5/K6: one train micro-step,
     # launches over phase 7's timed steps; K7-K9: the W8A8 b4 serving pass,
-    # launches over phase 6's requests.
+    # launches over phase 6's requests; K10-K12: the SD2.1 768^2 switched
+    # pass, launches over phase 8's switched request (bf16_ms: the route each
+    # replaces), with K1-K4's SD2.1 figures (switches off) under sd21_*.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
-              "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode"}
+              "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
+              "sd21": "SD2.1 768^2 b1 serving, switches on: text encode + CFG UNet step + VAE "
+                      "decode"}
     kernels = []
     for k in KERNELS:
         serving = k in SERVING_KERNELS
-        which = "serve" if serving else "w8a8" if k in W8A8_KERNELS else "train"
+        which = ("serve" if serving else "w8a8" if k in W8A8_KERNELS
+                 else "sd21" if k in SWITCHED_KERNELS else "train")
         s, n = {"serve": (summary.get(k), launches), "train": (tsum.get(k), train["launches"]),
-                "w8a8": (wsum.get(k), w8["launches"])}[which]
+                "w8a8": (wsum.get(k), w8["launches"]),
+                "sd21": (sd["switched"].get(k), sd["launches_on"])}[which]
         row = dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
                    replaces=KERNELS[k]["replaces"], launches=n[k],
                    max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
@@ -1074,7 +1355,8 @@ def main() -> int:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
             row["bf16_call"] = KERNELS[k]["bf16"]
-        for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"])):
+        for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"]),
+                               ("sd21", sd["summary"], sd["launches_off"])):
             if serving and k in other:
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],

@@ -23,7 +23,8 @@ from torch import nn
 
 from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.ops.attention import sdpa
-from stable_diffusion_tpu_torch.ops.linear import ln_matmul_w8a8, matmul_w8a8
+from stable_diffusion_tpu_torch.ops.linear import (ln_matmul, ln_matmul_w8a8, matmul_residual,
+                                                   matmul_w8a8)
 from stable_diffusion_tpu_torch.utils.device import cached
 
 
@@ -113,19 +114,28 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
     qp = mod.q_proj
     if isinstance(qp, layers.QLinear) and qp.w8a8 and not unfused:
         return _w8a8_attention(mod, x, kv_in, cond, num_heads, causal, impl, ln, residual, ln_eps)
-    if ln is not None:
-        x = layers.layer_norm(ln, x, eps=ln_eps)
-        if cond is None:
-            kv_in = x
-    if cond is None and isinstance(qp, nn.Linear) and not unfused:
+    dense = isinstance(qp, nn.Linear) and not unfused
+    if cond is None and dense:
         w, bias = mod.fused_qkv()
-        q, k, v = torch.nn.functional.linear(x, w, bias).split(e, dim=-1)
-        q, k, v = (t.reshape(b, sq, num_heads, d) for t in (q, k, v))
+        qkv = (torch.nn.functional.linear(x, w, bias) if ln is None
+               else ln_matmul(ln.weight, ln.bias, x, w, bias, eps=ln_eps, impl=impl))
+        q, k, v = (t.reshape(b, sq, num_heads, d) for t in qkv.split(e, dim=-1))
     else:
         sk = kv_in.shape[1]
-        q = layers.linear(qp, x, impl=impl).reshape(b, sq, num_heads, d)
+        if ln is not None and dense:
+            q = ln_matmul(ln.weight, ln.bias, x, qp.weight, qp.bias, eps=ln_eps, impl=impl)
+        else:
+            if ln is not None:
+                x = layers.layer_norm(ln, x, eps=ln_eps)
+                if cond is None:
+                    kv_in = x
+            q = layers.linear(qp, x, impl=impl)
+        q = q.reshape(b, sq, num_heads, d)
         k = layers.linear(mod.k_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
         v = layers.linear(mod.v_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
     out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, e)
-    out = layers.linear(mod.out_proj, out, impl=impl)
+    o = mod.out_proj
+    if residual is not None and isinstance(o, nn.Linear) and not unfused:
+        return matmul_residual(out, o.weight, o.bias, residual, impl=impl)
+    out = layers.linear(o, out, impl=impl)
     return out if residual is None else out + residual

@@ -1,6 +1,9 @@
-"""CLIP text tower (port of stable_diffusion_tpu/models/clip.py
-``text_model_apply``; SD1.5 uses ViT-L).  Pre-LN causal transformer, final
-LayerNorm.  Its causal attention stays plain on the card, as in JAX."""
+"""CLIP text towers (port of stable_diffusion_tpu/models/clip.py
+``text_model_apply`` and ``openclip_apply``): SD1.5's CLIP ViT-L
+(QuickGELU) and SD2.1's OpenCLIP ViT-H (GELU), one pre-LN causal
+transformer with a final LayerNorm.  Its causal attention stays plain on the
+card, as in JAX.  :class:`OpenCLIP` is the OpenCLIP checkpoint's form: the
+same tower with its parameters rooted at ``text_model``."""
 
 from __future__ import annotations
 
@@ -23,6 +26,17 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     hidden_act: str = "gelu"  # "gelu" (ViT-H) | "quick_gelu" (ViT-L)
     layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "CLIPTextConfig":
+        """A text_encoder config.json; keys the tower does not use are dropped."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in known})
+
+    @classmethod
+    def vit_h(cls) -> "CLIPTextConfig":
+        """SD 2.1 OpenCLIP ViT-H text tower (the defaults)."""
+        return cls()
 
     @classmethod
     def vit_l(cls) -> "CLIPTextConfig":
@@ -91,3 +105,16 @@ class CLIPTextModel(nn.Module):
             h = layers.linear(layer.mlp.fc2, act(layers.linear(layer.mlp.fc1, h)))
             x = h + res
         return layers.layer_norm(self.final_layer_norm, x, eps=cfg.layer_norm_eps)
+
+
+class OpenCLIP(nn.Module):
+    """OpenCLIP.encode_text's parameter tree: the tower under ``text_model``."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.text_model = CLIPTextModel(cfg)
+
+
+def openclip_apply(model: OpenCLIP, input_ids: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """JAX ``openclip_apply``: the tower rooted at ``text_model``."""
+    return model.text_model(input_ids, impl=impl)

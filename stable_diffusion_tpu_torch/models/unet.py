@@ -7,7 +7,12 @@ NHWC activations; submodule names follow the JAX key paths
 conv runs as K1 stats + K2, every non-causal attention as K3, every
 feed-forward block as K4; the 1x1 convs, projections, stride-2 convs,
 conv_in/conv_out and the time embedding are plain matmuls and convs, as
-JAX leaves them to XLA.  The DeepCache split is not ported yet.
+JAX leaves them to XLA.  The switches of the JAX package reach the same
+sites: with SD_TPU_FUSED_MM on, the resblock 1x1 shortcut + residual, the
+transformer's ``conv_output`` + residual and the attention pre-LN
+projections run K10, the transformer's GroupNorm -> ``conv_input`` K11;
+with SD_TPU_WINOGRAD=1 the routed 3x3 convs run K12 (ops/winograd.py).
+The DeepCache split is not ported yet.
 
 Quantized (utils/quantize_model.py): the call sites hand the int8 holders
 to the layers, so a calibrated UNet runs every W8A8 linear (attention
@@ -56,8 +61,20 @@ class UNetConfig:
     t_embed_dim: int = 320
 
     @classmethod
+    def from_dict(cls, data: dict) -> "UNetConfig":
+        """A unet config.json (lists become tuples; unknown keys dropped)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: (tuple(v) if isinstance(v, list) else v) for k, v in data.items()
+                      if k in known})
+
+    @classmethod
     def sd15(cls) -> "UNetConfig":
         return cls(attention_head_dim=8, cross_attention_dim=768)
+
+    @classmethod
+    def sd21(cls) -> "UNetConfig":
+        """SD2.1: heads (5, 10, 20, 20) of d=64, cross dim 1024 (the defaults)."""
+        return cls()
 
     @property
     def num_stages(self) -> int:
@@ -176,7 +193,7 @@ def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
         b, hh, ww, ci = x.shape
         co = h.shape[-1]
         y = matmul_residual(x.reshape(b, hh * ww, ci), p.proj_input.weight[:, :, 0, 0],
-                            p.proj_input.bias, h.reshape(b, hh * ww, co))
+                            p.proj_input.bias, h.reshape(b, hh * ww, co), impl=impl)
         return y.reshape(h.shape)
     return h + x
 
@@ -209,7 +226,7 @@ def transformer_apply(p: Transformer, x, cond, *, num_heads: int, impl: str):
                             ln=tb.layernorm_2, residual=x)
     x = ffn_apply(tb.layernorm_3, tb.ffn, x, impl=impl)
     x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
-                        res.reshape(b, hh * ww, c))
+                        res.reshape(b, hh * ww, c), impl=impl)
     return x.reshape(b, hh, ww, c)
 
 

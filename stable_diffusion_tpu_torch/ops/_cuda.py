@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu", "conv3x3_q.cu",
-            "linear_q.cu", "ffn_q.cu")
+            "linear_q.cu", "ffn_q.cu", "linear.cu", "winograd.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
@@ -102,11 +102,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_ffn_q_rows.argtypes = []
     lib.sdtk_ffn_q_plan.argtypes = [I, I, I, IP, IP]
     lib.sdtk_ffn_q.argtypes = [P] * 14 + [I] * 5 + [F, P]
+    lib.sdtk_linear.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, F, P]
+    lib.sdtk_winograd.argtypes = [P] * 5 + [I] * 5 + [P]
     for fn in (lib.sdtk_conv3x3_ksplit, lib.sdtk_conv3x3, lib.sdtk_attention,
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
                lib.sdtk_attention_bwd_attrs, lib.sdtk_ffn_plan, lib.sdtk_ffn,
                lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
-               lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q):
+               lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q, lib.sdtk_linear,
+               lib.sdtk_winograd):
         fn.restype = ctypes.c_int
     return lib
 

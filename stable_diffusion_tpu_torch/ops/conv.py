@@ -5,7 +5,9 @@ K2 (csrc/conv3x3.cu) replaces stable_diffusion_tpu/ops/conv.py
 and how it is built.  :func:`gn_silu_conv3x3` takes the GroupNorm statistics
 from K1 and hands the folded (B, 2, C) scale/shift to K2's prologue, so the
 normalised activation never reaches device memory; :func:`conv3x3` runs K2
-without a prologue (the upsamplers).
+without a prologue (the upsamplers).  Under SD_TPU_WINOGRAD=1 both send the
+shapes ``winograd.route`` admits to K12 (ops/winograd.py) instead, as JAX's
+``_conv3x3`` does; the W8A8 form (K7) is not affected.
 
 Weights arrive in PyTorch's OIHW layout; the kernel reads HWIO, re-laid once
 per weight and cached on the weight tensor.
@@ -30,16 +32,18 @@ NotImplementedError when an input wants a gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from stable_diffusion_tpu_torch.ops import _cuda
+from stable_diffusion_tpu_torch.ops import _cuda, winograd
+from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, gn_scale_shift_plain,
-                                                      group_norm_plain)
+                                                      gn_silu_prologue, group_norm_plain)
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, quantize_act
-from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, cached, require,
+from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, cached, require,
                                                      require_inference, require_no_grad, use_kernel,
                                                      wants_grad)
 
@@ -56,13 +60,6 @@ def conv3x3_plain(x, weight, bias=None):
     """NHWC x, OIHW weight -> NHWC, zero padding 1 (F.conv2d)."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1)
     return y.permute(0, 2, 3, 1).contiguous()
-
-
-def gn_silu_prologue(x, scale_shift):
-    """``silu(x * scale + shift)`` in f32, cast to x's dtype: the activation
-    K2 and K7 convolve, from a (B, 2, Cin) f32 ``scale_shift``."""
-    xf = at_least_f32(x) * scale_shift[:, None, None, 0] + scale_shift[:, None, None, 1]
-    return F.silu(xf).to(x.dtype)
 
 
 def conv3x3_scale_shift_plain(x, weight, bias=None, scale_shift=None):
@@ -295,7 +292,14 @@ class GnSiluConv3x3Fn(torch.autograd.Function):
 
 
 def conv3x3(x, weight, bias=None, *, impl: str = "auto"):
-    """3x3 SAME stride-1 conv (the upsamplers' conv)."""
+    """3x3 SAME stride-1 conv (the upsamplers' conv); K12 where
+    SD_TPU_WINOGRAD=1 routes the shape (JAX ``_conv3x3``)."""
+    if winograd.route(x, weight):
+        if not use_kernel(impl, x):
+            return winograd.conv3x3_winograd_plain(x, weight, bias)
+        if wants_grad(x, weight, bias):
+            return Recompute.apply(winograd.conv3x3_winograd_kernel, conv3x3_plain, x, weight, bias)
+        return winograd.conv3x3_winograd_kernel(x, weight, bias)
     if not use_kernel(impl, x):
         return conv3x3_plain(x, weight, bias)
     if wants_grad(x, weight, bias):
@@ -306,7 +310,10 @@ def conv3x3(x, weight, bias=None, *, impl: str = "auto"):
 def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int = 32,
                     eps: float = 1e-5, impl: str = "auto"):
     """GroupNorm -> SiLU -> conv3x3, the resblock pattern: K1 stats, then K2
-    with the normalize+SiLU folded into its input reads."""
+    (K12 where SD_TPU_WINOGRAD=1 routes the shape) with the normalize+SiLU
+    folded into its input reads."""
+    if winograd.route(x, weight):
+        return _gn_silu_winograd(x, gn_weight, gn_bias, weight, bias, num_groups, eps, impl)
     if not use_kernel(impl, x):
         return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias,
                                      num_groups=num_groups, eps=eps)
@@ -315,6 +322,25 @@ def gn_silu_conv3x3(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int
                                      num_groups, eps)
     ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps)
     return conv3x3_kernel(x, weight, bias, ss)
+
+
+def _gn_silu_winograd(x, gn_weight, gn_bias, weight, bias, num_groups, eps, impl):
+    """A routed GroupNorm -> SiLU -> conv3x3 (JAX ``_gn_silu_conv`` under
+    SD_TPU_WINOGRAD=1): K1 stats, then K12 with the normalize+SiLU in its
+    prologue; on the CPU the plain stats and the plain Winograd form."""
+    if not use_kernel(impl, x):
+        ss = gn_scale_shift_plain(x, gn_weight, gn_bias, num_groups, eps)
+        return winograd.conv3x3_winograd_plain(x, weight, bias, ss)
+
+    def fwd(x, gn_weight, gn_bias, weight, bias):
+        ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps)
+        return winograd.conv3x3_winograd_kernel(x, weight, bias, ss)
+
+    args = (x, gn_weight, gn_bias, weight, bias)
+    if wants_grad(*args):
+        plain = functools.partial(gn_silu_conv3x3_plain, num_groups=num_groups, eps=eps)
+        return Recompute.apply(fwd, plain, *args)
+    return fwd(*args)
 
 
 def gn_silu_conv3x3_w8a8(x, gn_weight, gn_bias, weight_q, weight_scale, act_scale, bias=None, *,

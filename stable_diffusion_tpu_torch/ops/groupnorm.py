@@ -81,6 +81,14 @@ def group_norm_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5, s
     return torch.nn.functional.silu(y) if silu else y
 
 
+def gn_silu_prologue(x, scale_shift):
+    """``silu(x * scale + shift)`` in f32, cast to x's dtype: the activation
+    the convs K2, K7 and K12 take in their prologue, from a (B, 2, C) f32
+    ``scale_shift``."""
+    xf = at_least_f32(x) * scale_shift[:, None, None, 0] + scale_shift[:, None, None, 1]
+    return torch.nn.functional.silu(xf).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The Triton kernels, defined on first launch
 # ---------------------------------------------------------------------------

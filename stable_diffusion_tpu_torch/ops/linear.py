@@ -1,6 +1,28 @@
 """The matmuls of stable_diffusion_tpu/ops/linear.py that the UNet calls:
-the static-W8A8 matmul, kernel K8 (CUDA), beside its plain version, and the
-plain forms of the bf16 fused matmuls.
+the bf16 fused matmuls, kernels K10 and K11 (CUDA), and the static-W8A8
+matmul, kernel K8 (CUDA), each beside its plain version.
+
+K10 (csrc/linear.cu) replaces ``_make_kernel`` (``_mm_call``, entries
+``ln_matmul`` / ``matmul_residual``): (LayerNorm, f32 statistics ->) x @ W^T
++ b (+ residual), f32 accumulation, one bf16 rounding.  K11 (the same
+source) replaces ``_gn_mm_kernel`` (``_gn_mm_call``, entry ``gn_matmul``):
+the GroupNorm normalize, from K1's folded (B, 2, K) scale/shift, applied as
+the A tile is staged, then the same product and bias.  The JAX package keeps
+both behind ``SD_TPU_FUSED_MM`` (read at call time): "0" (the default) runs
+every site unfused, "envelope" only the sites ``site_wins`` names (its
+thresholds were measured on a TPU, not here), "all"/"1" every site.  As in
+JAX the site rule applies under ``impl="auto"`` only; an explicit kernel
+``impl`` takes every site.  Unfused, ``ln_matmul`` is the LayerNorm then
+``F.linear``, ``matmul_residual`` ``F.linear`` + residual, and
+``gn_matmul`` K1's normalize then ``F.linear``.  JAX's TPU geometry gates
+(M % 128, the VMEM plan, row blocks inside one image) do not apply: K10 and
+K11 take any M, K % 8 == 0 and N % 8 == 0.  The plain versions follow JAX
+``_mm_xla`` / ``_gn_mm_xla`` (the normalized activation cast to the input
+dtype, the product rounded, then bias and residual); the kernels follow the
+TPU kernels (bias and residual added to the f32 sum, one rounding); in f32
+the two are one function.  Under autograd the kernels run inside
+``Recompute``, whose backward is the VJP of the plain version (JAX
+``_ln_mm_bwd``, ``_mm_res_bwd``, ``_gn_mm_bwd``).
 
 K8 (csrc/linear_q.cu) replaces ``_make_q_kernel`` (``_q_mm_call``, entries
 ``ln_matmul_w8a8`` / ``matmul_w8a8``): (LayerNorm ->) quantize the
@@ -12,49 +34,73 @@ M; the note at the top of the source says what bounds it.  Inference only:
 every W8A8 entry point raises NotImplementedError when an input wants a
 gradient (JAX ``_q_raise_bwd``).
 
-Weights are in PyTorch's (out, in) layout: ``weight_q`` (N, K) int8,
-``weight_scale`` (N,).  The plain version follows JAX ``_q_mm_xla``: the
-LayerNorm output cast to the input dtype, then divided by s_x, rounded and
-clipped.  K8 follows the TPU kernel: the f32 LN output goes to the
-quantizer unrounded, and the dequantize, bias and residual run in f32 with
-one rounding.  In f32 the two are one function; both divide by s_x (not
-multiply by its inverse), so the same f32 input gives the same codes.
-
-With its default ``SD_TPU_FUSED_MM=0`` the JAX package runs
-``matmul_residual`` and ``gn_matmul`` as XLA; here they are matmuls, and
-``gn_matmul`` takes its GroupNorm from K1.  The bf16 fused-matmul Pallas
-kernels behind that switch are still to be ported.
+Weights are in PyTorch's (out, in) layout: ``weight`` (N, K), ``weight_q``
+(N, K) int8, ``weight_scale`` (N,).  The W8A8 plain version follows JAX
+``_q_mm_xla``: the LayerNorm output cast to the input dtype, then divided
+by s_x, rounded and clipped.  K8 follows the TPU kernel: the f32 LN output
+goes to the quantizer unrounded, and the dequantize, bias and residual run
+in f32 with one rounding.  In f32 the two are one function; both divide by
+s_x (not multiply by its inverse), so the same f32 input gives the same
+codes.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 
 from stable_diffusion_tpu_torch.ops import _cuda
-from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
+from stable_diffusion_tpu_torch.ops._autograd import Recompute
+from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, group_norm_plain,
+                                                      group_norm_silu)
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, int_matmul, quantize_act
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
-                                                     require_inference, require_no_grad, use_kernel)
+                                                     require_inference, require_no_grad, use_kernel,
+                                                     wants_grad)
 
 K8 = LaunchCounter()
-
-
-def matmul_residual(x, weight, bias, res):
-    """x @ W^T + b + res; weight in PyTorch's (out, in) layout."""
-    return F.linear(x, weight, bias) + res
-
-
-def gn_matmul(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int = 32,
-              eps: float = 1e-5, impl: str = "auto"):
-    """GroupNorm(x) @ W^T + b over NHWC x (the 1x1-conv-as-matmul case)."""
-    xn = group_norm_silu(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps,
-                         silu=False, impl=impl)
-    return F.linear(xn, weight, bias)
+K10 = LaunchCounter()
+K11 = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
-# Static W8A8: plain version, kernel wrapper, entry points
+# The SD_TPU_FUSED_MM switch (JAX fused_mm_enabled / _site_wins)
+# ---------------------------------------------------------------------------
+
+
+def fused_mm_enabled() -> bool:
+    """SD_TPU_FUSED_MM is not "0" (its default): the bf16 fused-matmul sites
+    may run K10/K11."""
+    return os.environ.get("SD_TPU_FUSED_MM", "0") != "0"
+
+
+def site_wins(site: str, m: int, k: int, n: int) -> bool:
+    """JAX ``_site_wins``: the sites SD_TPU_FUSED_MM=envelope fuses ("ln",
+    "res", "gn" at (M, K, N)); "all"/"1" fuse every site.  The thresholds
+    are the JAX package's, measured on a TPU v5e."""
+    mode = os.environ.get("SD_TPU_FUSED_MM", "0")
+    if mode in ("all", "1"):
+        return True
+    if site == "ln":
+        return False
+    if site == "res":
+        return n <= 384 or (m <= 512 and k >= 2048)
+    if site == "gn":
+        return k >= 1280
+    return True
+
+
+def fused_site(site: str, m: int, k: int, n: int, impl: str) -> bool:
+    """Whether a site on the card runs its fused kernel: the switch is on
+    and, under ``impl="auto"``, the site rule says so (JAX ``supported`` and
+    ``impl != "auto" or _site_wins``, without the TPU geometry gates)."""
+    return fused_mm_enabled() and (impl != "auto" or site_wins(site, m, k, n))
+
+
+# ---------------------------------------------------------------------------
+# bf16 fused matmuls: plain versions, kernel wrapper, entry points
 # ---------------------------------------------------------------------------
 
 
@@ -65,6 +111,124 @@ def layer_norm_plain(x, weight, bias, eps: float = 1e-5):
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * at_least_f32(weight) + at_least_f32(bias)).to(x.dtype)
+
+
+def linear_plain(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=None, *,
+                 eps: float = 1e-5):
+    """(LN ->) x @ W^T (+b) (+res): JAX ``_mm_xla``, the function K10 computes."""
+    h = x if ln_weight is None else layer_norm_plain(x, ln_weight, ln_bias, eps)
+    y = F.linear(h, weight.to(h.dtype))
+    if bias is not None:
+        y = y + bias.to(h.dtype)
+    return y if residual is None else y + residual
+
+
+def gn_matmul_plain(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int = 32,
+                    eps: float = 1e-5):
+    """GroupNorm(x) @ W^T (+b) over NHWC x: JAX ``_gn_mm_xla``, the function
+    K11 computes (with K1's scale/shift)."""
+    xn = group_norm_plain(x, gn_weight, gn_bias, num_groups, eps)
+    y = F.linear(xn, weight.to(xn.dtype))
+    return y if bias is None else y + bias.to(xn.dtype)
+
+
+def linear_kernel(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=None,
+                  scale_shift=None, *, eps: float = 1e-5):
+    """Launch K10, or K11 when ``scale_shift`` is given.  x (..., K) bf16
+    contiguous on CUDA; weight (N, K), bias (N,), residual (..., N) and the
+    LN affine (K,) bf16; scale_shift (B, 2, K) f32 from K1, x then NHWC
+    (B, H, W, K) or (B, S, K), the GroupNorm normalize applied to x first."""
+    name = "K10" if scale_shift is None else "K11"
+    require_no_grad(name, x, weight, bias, residual, ln_weight, ln_bias, scale_shift)
+    require(x.is_cuda, f"{name} needs a CUDA tensor, got {x.device}")
+    k = x.shape[-1]
+    m = x.numel() // k
+    n = weight.shape[0]
+    require(k % 8 == 0 and n % 8 == 0, f"{name} takes K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
+    require(weight.shape == (n, k), f"{name}: weight {tuple(weight.shape)} for K={k}")
+    bf = [x, weight] + [t for t in (bias, residual, ln_weight, ln_bias) if t is not None]
+    require(all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf),
+            f"{name} takes contiguous bf16 activations, weight, bias, residual and LN affine")
+    require(all(t.data_ptr() % 16 == 0 for t in bf), f"{name} needs 16-byte alignment")
+    require(bias is None or bias.shape == (n,), f"{name}: bias must be (N,)")
+    require(residual is None or residual.shape == (*x.shape[:-1], n), f"{name}: residual shape")
+    require((ln_weight is None) == (ln_bias is None)
+            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,)),
+            f"{name}: LN weight and bias must both be (K,) or both None")
+    rows = 1
+    if scale_shift is not None:
+        require(ln_weight is None, "K11 takes no LayerNorm")
+        b = x.shape[0]
+        rows = m // b
+        require(scale_shift.shape == (b, 2, k) and scale_shift.dtype == torch.float32
+                and scale_shift.is_contiguous(), "K11: scale_shift must be contiguous f32 (B, 2, K)")
+    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    code = _cuda.library().sdtk_linear(
+        x.data_ptr(), ptr(ln_weight), ptr(ln_bias), ptr(scale_shift), rows, weight.data_ptr(),
+        ptr(bias), ptr(residual), out.data_ptr(), m, n, k, float(eps), _cuda.stream_handle(x))
+    _cuda.check(code, f"{name} linear")
+    if scale_shift is None:
+        K10.launched((m, k, n, ln_weight is not None, residual is not None))
+    else:
+        K11.launched((x.shape[0], rows, k, n))
+    return out
+
+
+def _k10(x, weight, bias, residual, ln_weight, ln_bias, eps):
+    """K10 on the card, in its autograd Function when a gradient is wanted."""
+    args = (x, weight, bias, residual, ln_weight, ln_bias)
+    if wants_grad(*args):
+        return Recompute.apply(lambda *a: linear_kernel(*a, eps=eps),
+                               lambda *a: linear_plain(*a, eps=eps), *args)
+    return linear_kernel(*args, eps=eps)
+
+
+def _rows(x) -> int:
+    return x.numel() // x.shape[-1]
+
+
+def ln_matmul(ln_weight, ln_bias, x, weight, bias=None, *, eps: float = 1e-5,
+              impl: str = "auto"):
+    """LayerNorm(x) @ W^T (+b): K10 with its LN prologue where the switch
+    takes the site, else the LayerNorm then ``F.linear``."""
+    if use_kernel(impl, x) and fused_site("ln", _rows(x), x.shape[-1], weight.shape[0], impl):
+        return _k10(x, weight, bias, None, ln_weight, ln_bias, eps)
+    return F.linear(layer_norm_plain(x, ln_weight, ln_bias, eps), weight, bias)
+
+
+def matmul_residual(x, weight, bias, res, *, impl: str = "auto"):
+    """x @ W^T (+b) + res; weight in PyTorch's (out, in) layout: K10 with the
+    residual in its epilogue where the switch takes the site."""
+    if use_kernel(impl, x) and fused_site("res", _rows(x), x.shape[-1], weight.shape[0], impl):
+        return _k10(x, weight, bias, res, None, None, 1e-5)
+    return F.linear(x, weight, bias) + res
+
+
+def gn_matmul(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int = 32,
+              eps: float = 1e-5, impl: str = "auto"):
+    """GroupNorm(x) @ W^T + b over NHWC x (the 1x1-conv-as-matmul case): K1
+    stats then K11 where the switch takes the site, else K1's normalize then
+    ``F.linear``."""
+    if use_kernel(impl, x) and fused_site("gn", _rows(x), x.shape[-1], weight.shape[0], impl):
+        args = (x, gn_weight, gn_bias, weight, bias)
+        kw = dict(num_groups=num_groups, eps=eps)
+
+        def fwd(x, gn_weight, gn_bias, weight, bias):
+            ss = gn_scale_shift_kernel(x, gn_weight, gn_bias, **kw)
+            return linear_kernel(x, weight, bias, scale_shift=ss)
+
+        if wants_grad(*args):
+            return Recompute.apply(fwd, lambda *a: gn_matmul_plain(*a, **kw), *args)
+        return fwd(*args)
+    xn = group_norm_silu(x, gn_weight, gn_bias, num_groups=num_groups, eps=eps,
+                         silu=False, impl=impl)
+    return F.linear(xn, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# Static W8A8: plain version, kernel wrapper, entry points
+# ---------------------------------------------------------------------------
 
 
 def matmul_w8a8_plain(x, weight_q, weight_scale, act_scale, bias=None, residual=None,

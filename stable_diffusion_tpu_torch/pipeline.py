@@ -13,12 +13,18 @@ The pipeline never moves work to the CPU: it runs on ``device``, and with
 ``impl="cuda"`` it refuses a device that is not CUDA.  The tokenizer,
 checkpoint loading and the CLI wait until their files are in the repository;
 ``generate`` takes token ids.
+
+The pipeline carries its scheduler config, as JAX's does
+(``scheduler_config``, ``make_schedule``), and denoises with that config's
+``prediction_type``: :meth:`StableDiffusion.for_version` builds SD1.5
+(ViT-L, epsilon) or SD2.1 (OpenCLIP ViT-H, v-prediction), mirroring the JAX
+package's ``sd_version`` choice.  Without a config the schedule is SD1.5's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +35,13 @@ from stable_diffusion_tpu_torch.models.vae import VAEConfig, VAEDecoder
 from stable_diffusion_tpu_torch.schedulers import schedule as S
 
 
+def scheduler_config_for(sd_version: str) -> dict:
+    """The scheduler config JAX's ``from_pretrained`` gives a single-file
+    checkpoint of ``sd_version``: 1.x epsilon, 2.x v-prediction."""
+    return {"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+            "prediction_type": "epsilon" if sd_version.startswith("1") else "v_prediction"}
+
+
 def cfg_combine(pred: torch.Tensor, cfg_scale: float) -> torch.Tensor:
     """(uncond, cond) halves of the batch -> uncond + s * (cond - uncond)."""
     uncond, cond = pred.chunk(2, dim=0)
@@ -37,17 +50,19 @@ def cfg_combine(pred: torch.Tensor, cfg_scale: float) -> torch.Tensor:
 
 @dataclasses.dataclass
 class StableDiffusion:
-    """The three models on one device, in one dtype, and the ``impl`` switch."""
+    """The three models on one device, in one dtype, the ``impl`` switch and
+    the scheduler config (None: SD1.5's)."""
 
     unet: UNet
     text_encoder: CLIPTextModel
     vae: VAEDecoder
     impl: str = "auto"
+    scheduler_config: Optional[dict] = None
 
     @classmethod
     def build(cls, unet_config: UNetConfig, text_config: CLIPTextConfig,
               vae_config: VAEConfig = VAEConfig(), *, device="cuda", dtype=torch.float32,
-              impl: str = "auto") -> "StableDiffusion":
+              impl: str = "auto", scheduler_config: Optional[dict] = None) -> "StableDiffusion":
         """Uninitialised models on ``device`` (the card unless the caller asks
         for the CPU): load a state_dict into each
         (``utils.weights.from_jax_params``) or initialise them
@@ -59,7 +74,29 @@ class StableDiffusion:
 
         return cls(unet=build(UNet, unet_config, device=device, dtype=dtype),
                    text_encoder=build(CLIPTextModel, text_config, device=device, dtype=dtype),
-                   vae=build(VAEDecoder, vae_config, device=device, dtype=dtype), impl=impl)
+                   vae=build(VAEDecoder, vae_config, device=device, dtype=dtype), impl=impl,
+                   scheduler_config=scheduler_config)
+
+    @classmethod
+    def for_version(cls, sd_version: str = "1.5", *, device="cuda", dtype=torch.float32,
+                    impl: str = "auto") -> "StableDiffusion":
+        """The full-width models of ``sd_version`` (JAX ``from_pretrained``'s
+        single-file choice): 1.x is SD1.5 (``UNetConfig.sd15()``, CLIP
+        ViT-L, epsilon), 2.x SD2.1 (``UNetConfig.sd21()``, OpenCLIP ViT-H,
+        v-prediction).  Uninitialised, as :meth:`build`."""
+        v1 = sd_version.startswith("1")
+        return cls.build(UNetConfig.sd15() if v1 else UNetConfig.sd21(),
+                         CLIPTextConfig.vit_l() if v1 else CLIPTextConfig.vit_h(), VAEConfig(),
+                         device=device, dtype=dtype, impl=impl,
+                         scheduler_config=scheduler_config_for(sd_version))
+
+    def make_schedule(self) -> S.DiffusionSchedule:
+        """The schedule of ``scheduler_config`` (JAX ``make_schedule``, linear)."""
+        cfg = self.scheduler_config or {}
+        return S.make_schedule(num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+                               beta_start=cfg.get("beta_start", 0.00085),
+                               beta_end=cfg.get("beta_end", 0.012),
+                               prediction_type=cfg.get("prediction_type", "epsilon"))
 
     @property
     def device(self) -> torch.device:
@@ -73,7 +110,8 @@ class StableDiffusion:
     def generate(self, cond_ids, uncond_ids=None, *, img_size: Tuple[int, int] = (512, 512),
                  do_cfg: bool = True, cfg_scale: float = 7.5, inference_steps: int = 50,
                  seed: int = 0, initial_latents=None, output_dtype: str = "float32") -> np.ndarray:
-        """txt2img with DDIM (eta = 0).
+        """txt2img with DDIM (eta = 0), epsilon or v-prediction as the
+        scheduler config says.
 
         cond_ids / uncond_ids: (B, 77) token ids (uncond needed with CFG).
         initial_latents: (B, H/8, W/8, 4) starting noise; drawn from
@@ -108,7 +146,7 @@ class StableDiffusion:
             if tuple(latents.shape) != lat_shape:
                 raise ValueError(f"initial_latents {tuple(latents.shape)}, expected {lat_shape}")
 
-        sched = S.make_schedule()  # SD1.5's: linear 0.00085..0.012, epsilon
+        sched = self.make_schedule()
         ts = S.inference_timesteps(sched, inference_steps, kind="ddim")
         prev_ts = ts - sched.num_train_timesteps // inference_steps
         table = torch.as_tensor(sched.alphas_hat, device=dev)

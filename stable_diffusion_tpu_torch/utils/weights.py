@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -100,10 +100,14 @@ def jax_key(torch_key: str, ndim: int) -> str:
     return ".".join(parts[:-1] + [_jax_leaf(parts, ndim)])
 
 
-def from_jax_params(tree, *, dtype=None, device=None) -> "OrderedDict[str, torch.Tensor]":
+def from_jax_params(tree, *, dtype=None, device=None,
+                    root: Optional[str] = None) -> "OrderedDict[str, torch.Tensor]":
     """A JAX parameter tree (nested dicts of arrays) -> a torch ``state_dict``.
     ``dtype`` casts the weights and biases; int8 kernels and the quantization
-    scales keep theirs."""
+    scales keep theirs.  With ``root`` the tree's parameters are those under
+    ``tree[root]``."""
+    if root is not None:
+        tree = tree[root]
     out = OrderedDict()
     for key, value in flatten_tree(tree).items():
         parts = key.split(".")
@@ -116,16 +120,17 @@ def from_jax_params(tree, *, dtype=None, device=None) -> "OrderedDict[str, torch
     return out
 
 
-def to_jax_params(module: nn.Module) -> Dict:
+def to_jax_params(module: nn.Module, *, root: Optional[str] = None) -> Dict:
     """The module's parameters as a JAX-layout tree of numpy arrays: f32,
-    and int8 for the quantized kernels."""
+    and int8 for the quantized kernels; under ``{root: ...}`` when given."""
     flat = {}
     for key, t in module.state_dict().items():
         leaf = _jax_leaf(key.split("."), t.dim())
         t = t.detach().cpu()
         value = (t if t.dtype == torch.int8 else t.float()).numpy()
         flat[jax_key(key, t.dim())] = _to_jax_layout(leaf, value)
-    return unflatten(flat)
+    tree = unflatten(flat)
+    return tree if root is None else {root: tree}
 
 
 def jax_param_shapes(module: nn.Module) -> Dict[str, tuple]:

@@ -1,4 +1,4 @@
-"""The port's kernels K1-K9 against their plain versions, on a CUDA card.
+"""The port's kernels K1-K12 against their plain versions, on a CUDA card.
 
 Every test here needs the card and skips without one.  This file imports no
 JAX, so it also runs where JAX is not installed; run it there with the
@@ -21,7 +21,7 @@ the quantizer and the f32 reference's lie on two sides of a half step.
 import pytest
 import torch
 
-from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear
+from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear, winograd
 from stable_diffusion_tpu_torch.ops.quantize import folded_scales, quantize_tensor
 
 pytestmark = pytest.mark.gpu
@@ -305,3 +305,141 @@ def test_w8a8_kernels_raise_on_shapes_they_do_not_take(gen):
     with pytest.raises(NotImplementedError, match="inference-only"):
         linear.matmul_w8a8(_rn(gen, 4, 64).requires_grad_(), *_q8(gen, 64, 64),
                            torch.tensor(1.0, device="cuda"), impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# K10-K12: the bf16 fused matmuls and the Winograd conv, behind the switches
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(18432, 320, 960), (4608, 640, 640), (1152, 1280, 1280),
+                                   (288, 2560, 1280), (77, 64, 40), (1, 320, 1280)])
+@pytest.mark.parametrize("ln,res", [(True, False), (False, True), (False, False)])
+def test_k10_linear(gen, monkeypatch, shape, ln, res):
+    monkeypatch.setenv("SD_TPU_FUSED_MM", "all")
+    m, k, n = shape
+    x, w = _rn(gen, m, k, scale=2.0), _rn(gen, n, k, scale=k ** -0.5)
+    bias, r = _rn(gen, n, scale=0.1), _rn(gen, m, n)
+    lw, lb = 1 + _rn(gen, k, scale=0.1), _rn(gen, k, scale=0.1)
+    before = linear.K10.launches
+    if ln:
+        got = linear.ln_matmul(lw, lb, x, w, bias, impl="cuda")
+        ref = linear.linear_plain(x.float(), w.float(), bias.float(), None, lw.float(), lb.float())
+    elif res:
+        got = linear.matmul_residual(x, w, bias, r, impl="cuda")
+        ref = linear.linear_plain(x.float(), w.float(), bias.float(), r.float())
+    else:
+        got = linear.linear_kernel(x, w, bias)
+        ref = linear.linear_plain(x.float(), w.float(), bias.float())
+    assert linear.K10.launches == before + 1
+    _check(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 96, 320, 320), (2, 24, 24, 1280, 1280), (1, 5, 7, 64, 40),
+                                   (3, 10, 10, 96, 32)])
+def test_k11_gn_matmul(gen, monkeypatch, shape):
+    """Row blocks of 64 straddle images where H * W % 64 != 0."""
+    monkeypatch.setenv("SD_TPU_FUSED_MM", "all")
+    b, h, w_, c, n = shape
+    x = _rn(gen, b, h, w_, c, scale=2.0) + 0.5
+    gw, gb = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
+    w, bias = _rn(gen, n, c, scale=c ** -0.5), _rn(gen, n, scale=0.1)
+    before = (linear.K11.launches, linear.K10.launches)
+    got = linear.gn_matmul(x, gw, gb, w, bias, eps=1e-6, impl="cuda")
+    assert (linear.K11.launches, linear.K10.launches) == (before[0] + 1, before[1])
+    _check(got, linear.gn_matmul_plain(x.float(), gw.float(), gb.float(), w.float(), bias.float(),
+                                       eps=1e-6))
+
+
+def test_fused_switch_off_launches_no_k10_k11(gen, monkeypatch):
+    monkeypatch.setenv("SD_TPU_FUSED_MM", "0")
+    x, w = _rn(gen, 64, 64), _rn(gen, 32, 64, scale=0.125)
+    before = (linear.K10.launches, linear.K11.launches)
+    linear.matmul_residual(x, w, None, _rn(gen, 64, 32), impl="cuda")
+    linear.ln_matmul(torch.ones(64, device="cuda").bfloat16(), torch.zeros(64, device="cuda")
+                     .bfloat16(), x, w, impl="cuda")
+    linear.gn_matmul(x.reshape(1, 8, 8, 64), torch.ones(64, device="cuda").bfloat16(),
+                     torch.zeros(64, device="cuda").bfloat16(), w, impl="cuda")
+    assert (linear.K10.launches, linear.K11.launches) == before
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 96, 320, 320), (2, 48, 48, 640, 640), (2, 24, 24, 1280, 1280),
+                                   (2, 48, 48, 1920, 640), (1, 96, 96, 512, 512), (1, 16, 18, 40, 24),
+                                   (1, 16, 16, 128, 8)])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k12_winograd(gen, monkeypatch, shape, prologue):
+    """K12 against its plain f32 version, and against the f32 direct conv
+    (TF32 off) within 2.5x of K2's own error (tests/test_winograd.py's bar)."""
+    monkeypatch.setenv("SD_TPU_WINOGRAD", "1")
+    b, h, w, cin, cout = shape
+    x = _rn(gen, b, h, w, cin)
+    wt, bias = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5), _rn(gen, cout, scale=0.1)
+    gw, gb = 1 + _rn(gen, cin, scale=0.1), _rn(gen, cin, scale=0.1)
+    groups = 32 if cin % 32 == 0 else 8
+    k12, k2 = winograd.K12.launches, conv.K2.launches
+    if prologue:
+        got = conv.gn_silu_conv3x3(x, gw, gb, wt, bias, num_groups=groups, impl="cuda")
+        ss = groupnorm.gn_scale_shift_plain(x.float(), gw.float(), gb.float(), groups)
+    else:
+        got = conv.conv3x3(x, wt, bias, impl="cuda")
+        ss = None
+    assert winograd.K12.launches == k12 + 1 and conv.K2.launches == k2
+    _check(got, winograd.conv3x3_winograd_plain(x.float(), wt.float(), bias.float(), ss))
+    monkeypatch.setenv("SD_TPU_WINOGRAD", "0")
+    direct = (conv.gn_silu_conv3x3(x, gw, gb, wt, bias, num_groups=groups, impl="cuda") if prologue
+              else conv.conv3x3(x, wt, bias, impl="cuda"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xin = conv.gn_silu_prologue(x.float(), ss) if prologue else x.float()
+        truth = conv.conv3x3_plain(xin, wt.float(), bias.float())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = truth.abs().max()
+    e12 = ((got.float() - truth).abs().max() / scale).item()
+    e2 = ((direct.float() - truth).abs().max() / scale).item()
+    assert e12 <= 2.5 * max(e2, 1e-4), (e12, e2)
+
+
+def test_k10_k12_raise_on_shapes_they_do_not_take(gen):
+    with pytest.raises(ValueError, match="K10"):
+        linear.linear_kernel(_rn(gen, 4, 20), _rn(gen, 8, 20))  # K % 8 != 0
+    with pytest.raises(ValueError, match="K12"):
+        winograd.conv3x3_winograd_kernel(_rn(gen, 1, 16, 16, 20), _rn(gen, 32, 20, 3, 3))
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        winograd.conv3x3_winograd_kernel(_rn(gen, 1, 16, 16, 32).requires_grad_(),
+                                         _rn(gen, 32, 32, 3, 3))
+
+
+@pytest.mark.parametrize("case", ["ln_matmul", "matmul_residual", "gn_matmul", "conv3x3_winograd",
+                                  "gn_silu_conv3x3_winograd"])
+def test_k10_k12_function_grads_cuda_vs_torch(gen, monkeypatch, case):
+    """One gradient through each K10-K12 autograd Function (the recompute
+    VJP of the plain version) against autograd through the plain version."""
+    monkeypatch.setenv("SD_TPU_FUSED_MM", "all")
+    monkeypatch.setenv("SD_TPU_WINOGRAD", "1")
+    x = _rn(gen, 2, 16, 16, 64) + 0.5
+    gw, gb = 1 + _rn(gen, 64, scale=0.1), _rn(gen, 64, scale=0.1)
+    wt, cb = _rn(gen, 96, 64, 3, 3, scale=(9 * 64) ** -0.5), _rn(gen, 96, scale=0.1)
+    w, bias, r = _rn(gen, 96, 64, scale=0.125), _rn(gen, 96, scale=0.1), _rn(gen, 2, 256, 96)
+    xs = x.reshape(2, 256, 64)
+    fn, args = {
+        "ln_matmul": (lambda x, g, b, w, bb, impl: linear.ln_matmul(g, b, x, w, bb, impl=impl),
+                      [xs, gw, gb, w, bias]),
+        "matmul_residual": (lambda x, w, b, r, impl: linear.matmul_residual(x, w, b, r, impl=impl),
+                            [xs, w, bias, r]),
+        "gn_matmul": (lambda x, g, b, w, bb, impl: linear.gn_matmul(x, g, b, w, bb, impl=impl),
+                      [x, gw, gb, w, bias]),
+        "conv3x3_winograd": (lambda x, w, b, impl: conv.conv3x3(x, w, b, impl=impl), [x, wt, cb]),
+        "gn_silu_conv3x3_winograd": (lambda x, g, b, w, bb, impl: conv.gn_silu_conv3x3(
+            x, g, b, w, bb, impl=impl), [x, gw, gb, wt, cb]),
+    }[case]
+    before = linear.K10.launches + linear.K11.launches + winograd.K12.launches
+    got = _grads(fn, args, "cuda")
+    assert linear.K10.launches + linear.K11.launches + winograd.K12.launches == before + 1
+    want = _grads(fn, [a.float() for a in args], "torch")
+    for g, wnt in zip(got, want):
+        torch.cuda.synchronize()
+        assert torch.isfinite(g).all()
+        rel = ((g.float() - wnt).abs().max() / wnt.abs().max()).item()
+        assert rel <= 5e-2, (case, rel)
