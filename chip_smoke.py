@@ -3,19 +3,23 @@
     python3 chip_smoke.py                  # the eight phases below
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
+    python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
+                                           # time at the serving pass's shapes
 
 Eight phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit.
   2. build    -- compiles the CUDA kernels (nvcc, sm_90a) and the Triton
-                 kernel from this checkout's sources; prints the seconds.
+                 kernel from this checkout's sources; prints the seconds and
+                 each K2 variant's registers, spills and blocks per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
                  version in f32 on the same inputs, and times kernel, plain
                  (bf16) and the library call computing the same function
-                 with CUDA events, beside the bound from bytes and FLOPs.
+                 with CUDA events, beside the bound from bytes and FLOPs
+                 (K2's lines name each shape's tile plan).
   4. golden   -- rebuilds tests/golden/full_sd15_ddim2.npz's inputs with
                  numpy alone and runs the full SD1.5 UNet for DDIM-2: plain
                  f32 (TF32 off) against the golden, then the kernels in bf16
@@ -540,9 +544,12 @@ def _case(kernel: str, key, gen):
         def library():
             return F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1)
         px = b * h * w_
+        plan = conv.conv3x3_plan(b, h, w_, cin, cout,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
         work = dict(flops=2 * px * cin * cout * 9,
                     bytes=2 * (px * (cin + cout) + 9 * cin * cout + cout)
-                    + (b * 2 * cin * 4 if prologue else 0), rate=BF16_TC_FLOPS)
+                    + (b * 2 * cin * 4 if prologue else 0), rate=BF16_TC_FLOPS,
+                    note=f"plan={plan.th}x{plan.tw} bn={plan.bn} ksplit={plan.ksplit}")
     elif kernel == "K3":
         b, sq, sk, h, d = key
         args = [rn(b, sq, h, d), rn(b, sk, h, d), rn(b, sk, h, d)]
@@ -632,6 +639,7 @@ def check_kernels(shapes, kernels, label: str):
                 bar_msg += " "
             ok &= good
             del got, ref
+            note = f"{case['note']} " if case.get("note") else ""
             n = shapes[kernel][key]
             k_ms = cuda_ms(case["kernel"])
             p_ms = cuda_ms(case["plain"], **(dict(reps=1, rounds=1, warmup=1)
@@ -651,7 +659,7 @@ def check_kernels(shapes, kernels, label: str):
             tot["bf16_ms"] += n * (bf_ms or 0.0)
             del case
             shown = tuple(str(s).replace("torch.", "") for s in key)
-            say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} calls={n} "
+            say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} {note}calls={n} "
                 f"max_abs_err={err:.3e} rel={rel:.3e} {bar_msg}kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
@@ -1191,6 +1199,47 @@ def profile_train_step(unet):
         say(f"  {ms:8.2f} ms/step {n:6.0f} calls  {key[:110]}")
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in a CUDA graph
+    and replayed, so no host launch cost is timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay) / reps
+
+
+def k2_device(pipe, counters):
+    """K2 at every shape of the serving pass, host and device apart: the
+    entry point as phase 3 times it (K1's statistics launches, both
+    wrappers' host work and the kernel), the raw kernel launched eagerly,
+    the raw kernel and F.conv2d replayed from CUDA graphs (device time),
+    and the plain version; per shape and per pass."""
+    from stable_diffusion_tpu_torch.ops import conv
+
+    shapes = record_main_path_shapes(pipe, counters)["K2"]
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    tot = dict(entry=0.0, raw=0.0, device=0.0, library_device=0.0, plain=0.0)
+    for key, n in sorted(shapes.items(), key=str):
+        b, h, w, cin, cout, prologue = key
+        case = _case("K2", key, gen)
+        x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5).bfloat16()
+        ss = torch.randn((b, 2, cin), generator=gen, device="cuda") if prologue else None
+
+        def raw():
+            return conv.conv3x3_kernel(x, wt, None, ss)
+        row = dict(entry=cuda_ms(case["kernel"]), raw=cuda_ms(raw), device=graph_ms(raw),
+                   library_device=graph_ms(case["library"]), plain=cuda_ms(case["plain"]))
+        for k, v in row.items():
+            tot[k] += n * v
+        say(f"  k2 shape={key[:5]} prologue={prologue} {case['note']} calls={n} "
+            + " ".join(f"{k}_ms={v:.4f}" for k, v in row.items()))
+    say("k2 per serving pass (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
+
+
 def sd21_line(sd) -> str:
     return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
             f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
@@ -1233,6 +1282,9 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"phase 2 build: ok, {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}, Triton JIT included)")
+    say("  K2 variants (bm, bn) at their largest tile: " + "; ".join(
+        f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
+        f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in conv.conv3x3_occupancy().items()))
 
     if "--only-sd21" in sys.argv[1:]:
         ok8, sd = phase_sd21(counters)
@@ -1240,6 +1292,9 @@ def main() -> int:
         return 0 if ok8 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
+    if "--k2-device" in sys.argv[1:]:
+        k2_device(pipe, counters)
+        return 0
     if "--profile-train" in sys.argv[1:]:
         del pipe.vae, pipe.text_encoder
         profile_train_step(pipe.unet)

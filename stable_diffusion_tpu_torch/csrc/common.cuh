@@ -30,6 +30,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The shared-space address of a pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 16-byte asynchronous copy from global to shared memory (cp.async.cg:
+// through L2 only).  With ok false nothing is read and the 16 bytes are
+// zero-filled (source size 0); src must still be a valid address.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Round a byte count up so every shared-memory region starts 128-byte aligned
 // (WMMA needs 32-byte aligned fragment pointers).
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) & ~127; }

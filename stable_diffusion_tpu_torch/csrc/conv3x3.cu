@@ -1,232 +1,404 @@
 // K2: 3x3 SAME stride-1 convolution over NHWC bf16, with an optional
-// GroupNorm scale/shift + SiLU prologue applied to the input as it is read.
+// GroupNorm scale/shift + SiLU prologue applied to its input.
 //
-// Replaces: stable_diffusion_tpu/ops/conv.py `_conv3x3_kernel` (launched by
-// `_conv3x3_call`, reached through `conv3x3` and `gn_silu_conv3x3`).
+// Replaces: stable_diffusion_tpu/ops/conv.py:36 `_conv3x3_kernel` (launched by
+// `_conv3x3_call`, reached through `_conv3x3`, `_gn_silu_conv` and
+// `_dx_conv`).
 //
-// What bounds it on Hopper: the tensor-core work.  A UNet resblock conv has
-// 2*9*Cin*Cout FLOPs per output pixel against 2*Cin+2*Cout bytes, far above
-// the H100's ~295 FLOP/byte ridge, so the kernel must keep the tensor cores
-// fed; the input halo re-read by the nine taps comes from L1/L2.
+// What bounds it on Hopper: the tensor-core work.  A resblock conv does
+// 2*9*Cin*Cout FLOPs per output pixel against 2*Cin + 2*Cout bytes, far
+// above the H100's ~295 FLOP/byte ridge.  So the kernel has to keep the
+// tensor cores fed: each input value should cross the memory system and the
+// prologue about once, not once per tap, and the copies must not take issue
+// slots from the products.
 //
-// Design: an implicit GEMM.  M = output pixels (B*H*W), N = Cout,
-// K = 9*Cin ordered (tap, channel) to match the HWIO weight.  A block
-// computes 128 pixels x 128 output channels (64 where Cout is not a
-// multiple of 128), so each gathered and activated input tile serves as
-// many outputs as the registers allow.  The TPU kernel
-// built a width-im2col slab x3 (B, H+2, W, 3C) in HBM (3x the input bytes);
-// here each K step gathers a (128 pixel x 64 channel) tile of one tap
-// straight from NHWC with 16-byte loads, so nothing extra reaches device
-// memory.  The GroupNorm+SiLU prologue is applied to those registers before
-// they are staged to shared memory, and an out-of-image tap writes 0: the
-// zero halo comes after the activation, as in the JAX path, which
-// normalises and SiLUs first and pads with zeros afterwards.  Products run on
-// the tensor cores through WMMA (bf16 in, f32 accumulate); the next K tile is
-// fetched into registers while the current one is multiplied, through a
-// two-stage shared-memory ring.  Bias is added
-// in the f32 epilogue.  Where the output tiles alone would leave SMs idle
-// (the UNet's 8^2 and 16^2 stages: 128 and 512 pixels at batch 2, with K up
-// to 9*2560), the K steps are split over blocks that write f32 partial sums
-// and a second kernel adds them in a fixed order with the bias.  Simple
-// first: no TMA/wgmma pipeline yet.
-#include "common.cuh"
-
-using namespace nvcuda;
+// Design: an implicit GEMM (M = output pixels, N = Cout, K = 9 taps x Cin)
+// over a halo tile.
+// * Tiles.  A block computes a TH x TW rectangle of one image's output
+//   pixels (TH*TW <= BM rows, BM = 128 or 64) by BN output channels (128
+//   where Cout allows, 160 for Cout = 320 and 960, else 64: a wide product
+//   amortizes a step's barrier and A fragments).  `conv3x3_plan` in
+//   ops/conv.py picks TH, TW, BM, BN, the ring depth and the K split from
+//   the shape and passes them in; small images get a narrower tile, never
+//   one that straddles images.  Ragged edges are masked at the store.
+// * The halo tile.  For each 64-channel chunk of Cin, the (TH+2) x (TW+2)
+//   input pixels around the output rectangle are copied into shared memory
+//   with 16-byte cp.async requests; pixels outside the image and channels
+//   past Cin use the zero-fill form.  Each pixel's 128 bytes are
+//   XOR-swizzled by (pixel & 7) in 16-byte pieces, so eight neighbouring
+//   pixels read by one ldmatrix hit eight distinct bank groups.  Two halo
+//   buffers: chunk c+1's copy is in flight while chunk c's taps multiply.
+// * The prologue once per input value.  When a chunk's halo lands, one pass
+//   over it in shared memory replaces every in-image value with
+//   silu(x * scale + shift), in f32, rounded to bf16 in place; each thread
+//   reads its 8 channels' scale and shift once per chunk.  Out-of-image
+//   positions stay 0, so the zero padding comes after the activation, as in
+//   the JAX path.  A value is transformed (TH+2)(TW+2)/(TH*TW) ~ 1.4 times
+//   (the halo overlap between tiles), where a per-tap gather did it 9 times.
+// * The nine taps are addresses.  For tap (ky, kx) each lane hands
+//   `ldmatrix.x4` the halo row of its output pixel shifted by (ky, kx): the
+//   im2col gather is an address computation, the fragments land in
+//   registers in the layout `wgmma` takes for A, and one halo chunk serves
+//   9 taps x 4 k16 steps.
+// * Weights.  Re-laid once (by the wrapper, cached) as (3, 3, Cout, Cin):
+//   each (tap, chunk) slab of BN rows x 64 channels is K-contiguous, copied
+//   with cp.async through a STAGES-deep ring (one commit group and one
+//   barrier per slab), swizzled as the halo.  That swizzle is Hopper's
+//   128-byte one (16-byte piece j of 128-byte row r at j ^ (r & 7), slabs
+//   1024-byte aligned), so `wgmma` reads B straight from the slab through a
+//   shared-memory descriptor.
+// * Products: `wgmma.mma_async` m64nNk16, bf16 in, f32 accumulate, A from
+//   registers, B from shared memory.  8 warps = 2 warpgroups: at BM = 128
+//   each takes 64 rows x BN, at BM = 64 each the 64 rows x BN / 2.  A step
+//   (one tap of one chunk) is four k16 products, committed as one group and
+//   waited for before the step's slab may be overwritten; the other
+//   warpgroups on the SM keep the tensor cores busy meanwhile.
+// * Epilogue: bias added in f32 from registers, the result packed to bf16
+//   through a per-warp staging tile (which reuses the ring) into 16-byte
+//   stores.  Where the output tiles alone would give the SMs fewer than two
+//   blocks each (the UNet's 8^2 to 32^2 stages), the chunks are split over
+//   `ksplit` blocks that write f32 partial sums, and conv3x3_reduce adds
+//   them in a fixed order with the bias, so the result is deterministic.
+// Not yet: TMA for the weight slabs and warp specialisation (every thread
+// issues cp.async), and A through a descriptor (the halo gather's rows are
+// not one strided layout).  Keeping one step's products in flight across
+// the next step's barrier (A double-buffered, the ring refilled a step
+// later) measured no faster on the H100 and took 127 registers, so a step
+// waits for its own products.
+#include "mma.cuh"
 
 namespace sdtk {
 namespace {
 
-constexpr int BM = 128;  // output pixels per block
-constexpr int BK = 64;   // input channels per K step (one tap)
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;
-constexpr int SMEM_A = BM * LDA * 2;
-constexpr int A_VECS = BM * BK / 8 / THREADS;  // 8-channel vectors per thread
-
-// Tile shape for BN output channels per block (64, or 128 where Cout allows):
-// 8 warps, each a (BM / WM) x 32 tile of 16x16 WMMA accumulators.
-template <int BN>
-struct Tile {
-  static constexpr int WM = BN == 64 ? 4 : 2;      // warps along M
-  static constexpr int FM = BM / WM / 16;          // accumulators along M per warp
-  static constexpr int LDB = BN + 8;
-  static constexpr int LDC = BN + 4;
-  static constexpr int SMEM_B = BK * LDB * 2;
-  static constexpr int STAGE = SMEM_A + SMEM_B;    // one of two ring stages
-  static constexpr int SMEM_C = BM * LDC * 4;
-  static constexpr int SMEM = SMEM_C > 2 * STAGE ? SMEM_C : 2 * STAGE;
-  static constexpr int BROW = BN / 8;              // 8-channel vectors per B row
-  static constexpr int B_VECS = BK * BN / 8 / THREADS;
-};
+constexpr int CH = 64;         // input channels per chunk (one halo tile)
+constexpr int ROW = CH * 2;    // bytes of a pixel's chunk, and of a weight row's
+constexpr int THREADS = 256;   // 8 warps
 
 struct ConvArgs {
   const bf16* x;     // (B, H, W, Cin)
-  const bf16* w;     // (3, 3, Cin, Cout) = HWIO
+  const bf16* w;     // (3, 3, Cout, Cin): each tap's (Cout, Cin), K-contiguous
   const bf16* bias;  // (Cout) or null
   const float* ss;   // (B, 2, Cin) GroupNorm scale/shift, or null
   bf16* y;           // (B, H, W, Cout)
   float* ws;         // (ksplit, B*H*W, Cout) f32 partial sums when ksplit > 1
-  int B, H, W, Cin, Cout, ksplit;
+  int B, H, W, Cin, Cout, TH, TW, ksplit;
 };
 
-// Fast-math SiLU (the prologue runs once per tap, 9x per input element).
-// For v << 0, __expf(-v) overflows to inf and __fdividef gives -0, as silu does.
+// Byte offset of 16-byte piece j of row r in a tile of 128-byte rows,
+// XOR-swizzled by the row.
+__device__ __forceinline__ uint32_t swz(int r, int j) {
+  return (uint32_t)(r * ROW + ((j ^ (r & 7)) << 4));
+}
+
+// Fast-math SiLU.  For v << 0, __expf(-v) overflows to inf and __fdividef
+// gives -0, as silu does.
 __device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.f + __expf(-v)); }
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS) conv3x3_kernel(ConvArgs a) {
-  using T = Tile<BN>;
-  constexpr int LDB = T::LDB, LDC = T::LDC, STAGE = T::STAGE, FM = T::FM, B_VECS = T::B_VECS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Cs = reinterpret_cast<float*>(smem);  // epilogue staging, reuses the ring
+// A compiled variant: BM x BN block tile, a ring of STAGES weight slabs.
+template <int BM, int BN, int STAGES>
+struct Cfg {
+  static constexpr int NWG = BM == 128 ? BN : BN / 2;  // columns of a warpgroup's product
+  static constexpr int NI = NWG / 8;                   // n8 column tiles of a warp's rows
+  static constexpr int SLAB = BN * ROW;                // one (tap, chunk) weight slab
+  static constexpr int RING = STAGES * SLAB;
+  static constexpr int LDS = NWG + 8;                  // epilogue staging row (bf16)
+  static_assert(BM == 128 || BM == 64, "a warpgroup product has 64 rows");
+  static_assert(SLAB % 1024 == 0 && (BN / 2 * ROW) % 1024 == 0, "128-byte swizzle atoms");
+  static_assert(8 * 16 * LDS * 2 <= RING, "the epilogue staging fits in the ring");
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp % T::WM;  // warp's rows: wm * FM * 16 ...
-  const int wn = warp / T::WM;  // ... and columns: wn * 32
-  const long m0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int HW = a.H * a.W;
-  const long M = (long)a.B * HW;
+// wgmma m64nNk16, bf16 A from registers (the m16n8k16 A fragment of the
+// warp's 16 rows), B through a descriptor, f32 accumulators d[N / 2] in the
+// m16n8 accumulator layout per 8-column tile.
+template <int N>
+struct Wgmma;
 
-  // Each thread gathers A_VECS 8-channel vectors of the A tile per K step,
-  // one per pixel row (tid >> 3) + 32 i.
-  const int a_vec = tid & 7;
-  int a_b[A_VECS], a_y[A_VECS], a_x[A_VECS];
-  bool a_ok[A_VECS];
-#pragma unroll
-  for (int i = 0; i < A_VECS; ++i) {
-    const long p = m0 + (tid >> 3) + 32 * i;
-    a_ok[i] = p < M;
-    const long pp = a_ok[i] ? p : 0;
-    a_b[i] = (int)(pp / HW);
-    const int rem = (int)(pp - (long)a_b[i] * HW);
-    a_y[i] = rem / a.W;
-    a_x[i] = rem - a_y[i] * a.W;
+template <>
+struct Wgmma<160> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
-  // ... and B_VECS 8-channel vectors of the B (weight) tile, rows
-  // tid / BROW + (THREADS / BROW) i, column vector tid % BROW.
-  const int b_col = n0 + (tid % T::BROW) * 8;
-  const bool b_ok = b_col < a.Cout;
+};
 
-  const int kchunks = (a.Cin + BK - 1) / BK;  // channels past Cin read as 0
-  const int nk = 9 * kchunks;
-  // Split-K: block z of ksplit takes K steps [k_begin, k_end).
-  const int k_begin = (int)((long)blockIdx.z * nk / a.ksplit);
-  const int k_end = (int)((long)(blockIdx.z + 1) * nk / a.ksplit);
-  Pack8 ra[A_VECS], rb[B_VECS];
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
-  auto fetch = [&](int kt) {
-    const int tap = kt / kchunks;
-    const int ci0 = (kt - tap * kchunks) * BK;
-    const int ky = tap / 3, kx = tap - ky * 3;
-    const int c = ci0 + a_vec * 8;
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int yy = a_y[i] + ky - 1, xx = a_x[i] + kx - 1;
-      ra[i].u = make_uint4(0, 0, 0, 0);
-      if (a_ok[i] && c < a.Cin && yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
-        ra[i].u = *reinterpret_cast<const uint4*>(
-            a.x + (((long)a_b[i] * a.H + yy) * a.W + xx) * a.Cin + c);
-        if (a.ss != nullptr) {
-          // 32-byte aligned: Cin % 8 == 0 and c % 8 == 0
-          const float4* sc = reinterpret_cast<const float4*>(a.ss + (long)a_b[i] * 2 * a.Cin + c);
-          const float4* sh = reinterpret_cast<const float4*>(a.ss + (long)a_b[i] * 2 * a.Cin +
-                                                             a.Cin + c);
-          const float4 s0 = sc[0], s1 = sc[1], h0 = sh[0], h1 = sh[1];
-          const float scale[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          const float shift[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            ra[i].h[j] = to_bf(silu(to_f(ra[i].h[j]) * scale[j] + shift[j]));
-        }
-      }
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// The descriptor of a K-major B tile of 128-byte rows in the 128-byte
+// swizzle, from a 1024-byte aligned shared address: 8-row atoms 1024 bytes
+// apart (SBO), the leading offset unused (1).  Adding 2 moves it 32 bytes,
+// one k16 step, along K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Makes this thread's landed cp.async writes visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared memory of a launch: 1024 bytes to align the ring, the weight ring,
+// then two halo buffers.
+__host__ __device__ inline int halo_bytes(int TH, int TW) { return (TH + 2) * (TW + 2) * ROW; }
+
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs a) {
+  using C = Cfg<BM, BN, STAGES>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle atoms are absolute
+  unsigned char* smem = smem_raw + (ring - raw);
+  const int HW2 = a.TW + 2;
+  const int hpix = (a.TH + 2) * HW2;
+  const int hbytes = halo_bytes(a.TH, a.TW);
+  const uint32_t halo = ring + C::RING;  // buffer h at halo + h * hbytes
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  // The warpgroup's rows and columns of the block tile; the warp's 16 rows.
+  const int wg_m = BM == 128 ? wg * 64 : 0, wg_n = BM == 128 ? 0 : wg * C::NWG;
+  const int m_w = wg_m + (warp & 3) * 16;
+
+  // The block's output rectangle: image b, rows ty0.., columns tx0..
+  const int tiles_x = (a.W + a.TW - 1) / a.TW, tiles_y = (a.H + a.TH - 1) / a.TH;
+  int t = blockIdx.x;
+  const int tx0 = (t % tiles_x) * a.TW;
+  t /= tiles_x;
+  const int ty0 = (t % tiles_y) * a.TH;
+  const int b = t / tiles_y;
+  const int n0 = blockIdx.y * BN;
+  const int npix = a.TH * a.TW;
+
+  // Split-K over chunks: block z of ksplit takes chunks [c_begin, c_end).
+  const int nchunks = (a.Cin + CH - 1) / CH;
+  const int c_begin = blockIdx.z * nchunks / a.ksplit;
+  const int c_end = (blockIdx.z + 1) * nchunks / a.ksplit;
+  const int nsteps = 9 * (c_end - c_begin);  // one step per (chunk, tap)
+
+  const bf16* xb = a.x + (long)b * a.H * a.W * a.Cin;
+  const int j8 = tid & 7;  // every copy and the prologue: this thread's 16-byte piece
+
+  // Chunk c's halo into buffer (c - c_begin) & 1.
+  auto load_halo = [&](int c) {
+    const uint32_t dst = halo + ((c - c_begin) & 1) * hbytes;
+    const int ch = c * CH + j8 * 8;
+    for (int p = tid >> 3; p < hpix; p += THREADS / 8) {
+      const int hy = p / HW2, hx = p - hy * HW2;
+      const int gy = ty0 + hy - 1, gx = tx0 + hx - 1;
+      const bool ok = ch < a.Cin && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+      cp_async16(dst + swz(p, j8), ok ? xb + ((long)gy * a.W + gx) * a.Cin + ch : a.x, ok);
     }
+  };
+  // Step s's weight slab (chunk c_begin + s / 9, tap s % 9) into ring stage s % STAGES.
+  auto load_slab = [&](int s) {
+    const int c = c_begin + s / 9, tap = s % 9;
+    const uint32_t dst = ring + (s % STAGES) * C::SLAB;
+    const int ch = c * CH + j8 * 8;
 #pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int ci = ci0 + tid / T::BROW + (THREADS / T::BROW) * i;
-      rb[i].u = make_uint4(0, 0, 0, 0);
-      if (b_ok && ci < a.Cin)
-        rb[i].u = *reinterpret_cast<const uint4*>(a.w + (long)(tap * a.Cin + ci) * a.Cout + b_col);
+    for (int i = 0; i < BN * 8 / THREADS; ++i) {
+      const int r = (tid >> 3) + i * (THREADS / 8), n = n0 + r;
+      const bool ok = ch < a.Cin && n < a.Cout;
+      cp_async16(dst + swz(r, j8), ok ? a.w + ((long)tap * a.Cout + n) * a.Cin + ch : a.w, ok);
+    }
+  };
+  // The GroupNorm+SiLU prologue over chunk c's landed halo, in place.
+  auto activate = [&](int c) {
+    unsigned char* buf = smem + C::RING + ((c - c_begin) & 1) * hbytes;
+    const int ch = c * CH + j8 * 8;
+    if (ch >= a.Cin) return;  // zero-filled channels stay 0
+    // 32-byte aligned: Cin % 8 == 0 and ch % 8 == 0
+    const float4* sc = reinterpret_cast<const float4*>(a.ss + (long)b * 2 * a.Cin + ch);
+    const float4* sh = reinterpret_cast<const float4*>(a.ss + (long)b * 2 * a.Cin + a.Cin + ch);
+    const float4 s0 = sc[0], s1 = sc[1], h0 = sh[0], h1 = sh[1];
+    const float scale[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float shift[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    for (int p = tid >> 3; p < hpix; p += THREADS / 8) {
+      const int hy = p / HW2, hx = p - hy * HW2;
+      const int gy = ty0 + hy - 1, gx = tx0 + hx - 1;
+      if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) continue;  // the zero halo stays 0
+      Pack8* v = reinterpret_cast<Pack8*>(buf + swz(p, j8));
+      Pack8 u = *v;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u.h[k] = to_bf(silu(to_f(u.h[k]) * scale[k] + shift[k]));
+      *v = u;
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][2];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  // Each lane's A row: output row m = m_w + (lane & 15) sits at halo pixel
+  // hp0 + (ky * HW2 + kx) for tap (ky, kx).  Rows past the rectangle read
+  // pixel 0 and are never stored.
+  const int m_a = m_w + (lane & 15);
+  const int hp0 = m_a < npix ? (m_a / a.TW) * HW2 + m_a % a.TW : 0;
+  const uint64_t desc0 = sw128_desc(ring + wg_n * ROW);
 
-  // Two-stage ring: the tile for step kt goes to stage kt & 1, so one barrier
-  // per step suffices (stage s is rewritten only after every warp has passed
-  // the barrier of the step that followed its last use).
-  fetch(k_begin);
-  for (int kt = k_begin; kt < k_end; ++kt) {
-    bf16* As = reinterpret_cast<bf16*>(smem + (kt & 1) * STAGE);
-    bf16* Bs = reinterpret_cast<bf16*>(smem + (kt & 1) * STAGE + SMEM_A);
+  float acc[C::NWG / 2];
 #pragma unroll
-    for (int i = 0; i < A_VECS; ++i)
-      *reinterpret_cast<uint4*>(As + ((tid >> 3) + 32 * i) * LDA + a_vec * 8) = ra[i].u;
+  for (int k = 0; k < C::NWG / 2; ++k) acc[k] = 0.f;
+
+  // The ring: step s's slab is in commit group s; chunk c's halo rides in
+  // the group issued at the first step of chunk c - 1 (the first chunk's
+  // in group 0), so it has landed by chunk c's first step (STAGES <= 10).
 #pragma unroll
-    for (int i = 0; i < B_VECS; ++i)
-      *reinterpret_cast<uint4*>(Bs + (tid / T::BROW + (THREADS / T::BROW) * i) * LDB +
-                                (tid % T::BROW) * 8) = rb[i].u;
-    __syncthreads();
-    if (kt + 1 < k_end) fetch(kt + 1);  // global loads in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * FM * 16 + i * 16) * LDA + kk * 16, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * 16 * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) {
+      if (s == 0) load_halo(c_begin);
+      load_slab(s);
     }
+    cp_async_commit();
   }
-  __syncthreads();  // the epilogue staging reuses the ring
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // Epilogue: +bias in f32, cast, 16-byte stores of 8 channels.
-#pragma unroll
-  for (int it = 0; it < (BM * BN / 8) / THREADS; ++it) {
-    const int idx = tid + it * THREADS;
-    const int r = idx / T::BROW;
-    const int cv = idx % T::BROW;
-    const int col = n0 + cv * 8;
-    const long p = m0 + r;
-    if (p >= M || col >= a.Cout) continue;
-    const float* src = Cs + r * LDC + cv * 8;
-    if (a.ksplit > 1) {  // partial sum; conv3x3_reduce adds the splits and the bias
-      float4* dst = reinterpret_cast<float4*>(a.ws + ((long)blockIdx.z * M + p) * a.Cout + col);
-      dst[0] = make_float4(src[0], src[1], src[2], src[3]);
-      dst[1] = make_float4(src[4], src[5], src[6], src[7]);
-      continue;
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_shared();
+    __syncthreads();  // step s's slab and halo have landed; step s - 1's reads are done
+    const int cc = s / 9, tap = s - cc * 9;
+    if (s + STAGES - 1 < nsteps) load_slab(s + STAGES - 1);
+    if (tap == 0 && c_begin + cc + 1 < c_end) load_halo(c_begin + cc + 1);
+    cp_async_commit();
+    if (tap == 0 && a.ss != nullptr) {
+      activate(c_begin + cc);
+      __syncthreads();
     }
-    Pack8 o;
+    const uint32_t hrow = halo + (cc & 1) * hbytes;
+    const int hp = hp0 + (tap / 3) * HW2 + tap % 3;
+    uint32_t af[CH / 16][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = src[j];
-      if (a.bias != nullptr) v += to_f(a.bias[col + j]);
-      o.h[j] = to_bf(v);
+    for (int kk = 0; kk < CH / 16; ++kk) ldmatrix_x4(af[kk], hrow + swz(hp, 2 * kk + (lane >> 4)));
+    const uint64_t desc = desc0 + (uint64_t)(((s % STAGES) * C::SLAB) >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CH / 16; ++kk) Wgmma<C::NWG>::mma(acc, af[kk], desc + 2 * kk);
+    wgmma_commit();
+    wgmma_wait0();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: the staging reuses it
+
+  // Epilogue.  acc[4 ni ..]: the warp's rows g and g + 8, columns
+  // ni*8 + 2t, 2t+1 of the warpgroup's (lane = 4g + t).
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_w = n0 + wg_n;
+  auto pixel = [&](int m, long& p) {  // block row m -> output pixel p, false if masked
+    if (m >= npix) return false;
+    const int gy = ty0 + m / a.TW, gx = tx0 + m % a.TW;
+    if (gy >= a.H || gx >= a.W) return false;
+    p = ((long)b * a.H + gy) * a.W + gx;
+    return true;
+  };
+  if (a.ksplit > 1) {  // f32 partial sums; conv3x3_reduce adds the splits and the bias
+    const long M = (long)a.B * a.H * a.W;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      long p;
+      if (!pixel(m_w + g + 8 * h, p)) continue;
+      float* row = a.ws + ((long)blockIdx.z * M + p) * a.Cout;
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni) {
+        const int n = n_w + ni * 8 + 2 * tq;
+        if (n < a.Cout)
+          *reinterpret_cast<float2*>(row + n) = make_float2(acc[4 * ni + 2 * h], acc[4 * ni + 2 * h + 1]);
+      }
     }
-    *reinterpret_cast<uint4*>(a.y + p * a.Cout + col) = o.u;
+    return;
+  }
+  bf16* stg = reinterpret_cast<bf16*>(smem) + warp * 16 * C::LDS;
+#pragma unroll
+  for (int ni = 0; ni < C::NI; ++ni) {
+    const int n = n_w + ni * 8 + 2 * tq;
+    float b0 = 0.f, b1 = 0.f;
+    if (a.bias != nullptr && n < a.Cout) b0 = to_f(a.bias[n]), b1 = to_f(a.bias[n + 1]);
+    bf16* o = stg + g * C::LDS + ni * 8 + 2 * tq;
+    *reinterpret_cast<uint32_t*>(o) = pack_bf16(acc[4 * ni] + b0, acc[4 * ni + 1] + b1);
+    *reinterpret_cast<uint32_t*>(o + 8 * C::LDS) = pack_bf16(acc[4 * ni + 2] + b0, acc[4 * ni + 3] + b1);
+  }
+  __syncwarp();
+  constexpr int VPR = C::NWG / 8;  // 16-byte vectors a row of the warp's
+  for (int i = lane; i < 16 * VPR; i += 32) {
+    const int r = i / VPR, v = i - r * VPR;
+    const int n = n_w + v * 8;
+    long p;
+    if (n >= a.Cout || !pixel(m_w + r, p)) continue;
+    *reinterpret_cast<uint4*>(a.y + p * a.Cout + n) =
+        *reinterpret_cast<const uint4*>(stg + r * C::LDS + v * 8);
   }
 }
 
-// y = sum over splits of ws + bias, cast to bf16.
+// y = sum over splits of ws (in split order) + bias, cast to bf16.
 __global__ void conv3x3_reduce(const float* ws, const bf16* bias, bf16* y, long M, int Cout,
                                int ksplit) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -236,62 +408,84 @@ __global__ void conv3x3_reduce(const float* ws, const bf16* bias, bf16* y, long 
   y[i] = to_bf(s);
 }
 
-// Output channels per block: 128 where Cout is a multiple of it (the prologue
-// and the A tile are then shared by twice the outputs), else 64.
-inline int tile_n(int Cout) { return Cout % 128 == 0 ? 128 : 64; }
-
-template <int BN>
-cudaError_t launch(const ConvArgs& a, long M, cudaStream_t st) {
-  using T = Tile<BN>;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+template <int BM, int BN, int STAGES>
+cudaError_t launch(const ConvArgs& a, cudaStream_t st) {
+  const int smem = 1024 + Cfg<BM, BN, STAGES>::RING + 2 * halo_bytes(a.TH, a.TW);
+  auto fn = conv3x3_kernel<BM, BN, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(a.Cout / BN + (a.Cout % BN != 0)),
-            (unsigned)a.ksplit);
-  conv3x3_kernel<BN><<<grid, THREADS, T::SMEM, st>>>(a);
+  const int tiles = a.B * ((a.H + a.TH - 1) / a.TH) * ((a.W + a.TW - 1) / a.TW);
+  dim3 grid((unsigned)tiles, (unsigned)((a.Cout + BN - 1) / BN), (unsigned)a.ksplit);
+  fn<<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int BM, int BN, int STAGES>
+int attrs(int smem, int* out) {
+  auto fn = conv3x3_kernel<BM, BN, STAGES>;
+  cudaFuncAttributes fa;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = smem + (int)fa.sharedSizeBytes;
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace
 }  // namespace sdtk
 
-// Number of K splits the launch below uses: enough blocks for two per SM
-// when the output tile grid alone is small (the UNet's 8^2 and 16^2 stages),
-// keeping at least 8 K steps per split.  The wrapper sizes the f32 workspace
-// (ksplit, B*H*W, Cout) from it.
-extern "C" int sdtk_conv3x3_ksplit(int B, int H, int W, int Cin, int Cout) {
-  using namespace sdtk;
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long M = (long)B * H * W;
-  const int bn = tile_n(Cout);
-  const long tiles = ((M + BM - 1) / BM) * ((Cout + bn - 1) / bn);
-  const int nk = 9 * ((Cin + BK - 1) / BK);
-  long ks = (2 * sms + tiles - 1) / tiles;
-  if (ks > nk / 8) ks = nk / 8;
-  if (ks > 16) ks = 16;
-  return ks < 1 ? 1 : (int)ks;
-}
+// The compiled variants (BM, BN, stages); conv3x3_plan (ops/conv.py)
+// chooses among them.
+#define SDTK_CONV3X3_VARIANTS(X) \
+  X(128, 128, 4)                 \
+  X(128, 160, 3)                 \
+  X(128, 64, 6)                  \
+  X(64, 128, 4)                  \
+  X(64, 64, 6)
 
 // Shape rules (checked by the Python wrapper): Cin % 8 == 0, Cout % 8 == 0,
-// all pointers 16-byte aligned, tensors contiguous, ws sized as
-// sdtk_conv3x3_ksplit says (null when it says 1).
+// x and w 16-byte aligned, tensors contiguous, TH * TW <= BM, 1 <= ksplit
+// <= ceil(Cin / 64), ws (ksplit, B*H*W, Cout) f32 when ksplit > 1 (else
+// null); bias and ss may be null.  An unknown (BM, BN, stages) returns
+// cudaErrorInvalidValue.
 extern "C" int sdtk_conv3x3(const void* x, const void* w, const void* bias, const void* ss,
-                            void* y, void* ws, int B, int H, int W, int Cin, int Cout, int ksplit,
-                            void* stream) {
+                            void* y, void* ws, int B, int H, int W, int Cin, int Cout, int TH,
+                            int TW, int BM, int BN, int stages, int ksplit, void* stream) {
   using namespace sdtk;
+  if (TH < 1 || TW < 1 || TH * TW > BM || ksplit < 1 || ksplit > (Cin + CH - 1) / CH ||
+      (ksplit > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   ConvArgs a{static_cast<const bf16*>(x),    static_cast<const bf16*>(w),
              static_cast<const bf16*>(bias), static_cast<const float*>(ss),
              static_cast<bf16*>(y),          static_cast<float*>(ws),
-             B, H, W, Cin, Cout, ksplit};
-  const long M = (long)B * H * W;
+             B, H, W, Cin, Cout, TH, TW, ksplit};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = tile_n(Cout) == 128 ? launch<128>(a, M, st) : launch<64>(a, M, st);
+  cudaError_t err = cudaErrorInvalidValue;
+#define SDTK_LAUNCH(bm, bn, stg) \
+  if (BM == bm && BN == bn && stages == stg) err = launch<bm, bn, stg>(a, st);
+  SDTK_CONV3X3_VARIANTS(SDTK_LAUNCH)
+#undef SDTK_LAUNCH
   if (err != cudaSuccess || ksplit == 1) return (int)err;
-  const long n = M * Cout;
+  const long M = (long)B * H * W, n = M * Cout;
   conv3x3_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const bf16*>(bias), static_cast<bf16*>(y), M,
       Cout, ksplit);
   return (int)cudaGetLastError();
+}
+
+// The compiled variant (BM, BN, stages) launched with `smem` bytes of
+// dynamic shared memory (1024 of them for the ring's alignment), from the runtime: out = {registers a thread, local
+// (spill) bytes a thread, shared bytes a block, resident blocks an SM}.
+extern "C" int sdtk_conv3x3_attrs(int BM, int BN, int stages, int smem, int* out) {
+  using namespace sdtk;
+#define SDTK_ATTRS(bm, bn, stg) \
+  if (BM == bm && BN == bn && stages == stg) return attrs<bm, bn, stg>(smem, out);
+  SDTK_CONV3X3_VARIANTS(SDTK_ATTRS)
+#undef SDTK_ATTRS
+  return (int)cudaErrorInvalidValue;
 }

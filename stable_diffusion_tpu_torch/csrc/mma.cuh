@@ -86,6 +86,18 @@ __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
          ((uint32_t)(d & 0xff) << 24);
 }
 
+// Four 8x8 bf16 matrices from shared memory: lanes 8i .. 8i+7 give the
+// shared-space addresses of matrix i's eight 16-byte rows, and r[i] holds
+// matrix i in the fragment layout above (lane 4g + t: row g, elements 2t,
+// 2t+1).  So rows of 16 A rows x 8 k (matrices 0, 1 at k 0-7, then 2, 3 at
+// k 8-15) give the m16n8k16 A fragment, and rows of 8 n x 8 k of a
+// K-contiguous B give its b0, b1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Four 8x8 bf16 matrices, transposed, from shared memory.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));

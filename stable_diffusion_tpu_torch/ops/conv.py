@@ -9,8 +9,10 @@ without a prologue (the upsamplers).  Under SD_TPU_WINOGRAD=1 both send the
 shapes ``winograd.route`` admits to K12 (ops/winograd.py) instead, as JAX's
 ``_conv3x3`` does; the W8A8 form (K7) is not affected.
 
-Weights arrive in PyTorch's OIHW layout; the kernel reads HWIO, re-laid once
-per weight and cached on the weight tensor.
+Weights arrive in PyTorch's OIHW layout; K2 reads them as (3, 3, Cout, Cin),
+re-laid once per weight and cached on the weight tensor (:func:`k2_taps`).
+:func:`conv3x3_plan` picks K2's tiles, ring depth and K split from the
+shape; the CPU tests hold it and an emulation of the kernel's schedule.
 
 Gradients follow the JAX package's ``jax.custom_vjp`` rules (``_conv_bwd``,
 ``_gn_split_bwd``): the input gradient of a SAME 3x3 stride-1 conv is such a
@@ -32,6 +34,7 @@ NotImplementedError when an input wants a gradient.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Callable, NamedTuple
 
@@ -105,17 +108,89 @@ def gn_silu_conv3x3_plain(x, gn_weight, gn_bias, weight, bias=None, *,
 # ---------------------------------------------------------------------------
 
 
-def hwio(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
-    """The weight in HWIO layout, contiguous, cached on the weight tensor;
+# The compiled variants of K2, (BM, BN) -> ring stages (csrc/conv3x3.cu
+# SDTK_CONV3X3_VARIANTS): a 64-row tile for small images, 160 or 64
+# columns where Cout % 128 != 0; the ring is as deep as two blocks an SM
+# leave room for.
+K2_VARIANTS = {(128, 128): 4, (128, 160): 3, (128, 64): 6, (64, 128): 4, (64, 64): 6}
+K2_CHUNK = 64  # input channels per halo tile and weight slab
+K2_MAX_KSPLIT = 16
+
+
+class Conv3x3Plan(NamedTuple):
+    """K2's launch: each block computes a ``th`` x ``tw`` rectangle of one
+    image (th * tw <= ``bm`` GEMM rows) by ``bn`` output channels, with a
+    ring of ``stages`` weight slabs, its input channels split over
+    ``ksplit`` blocks."""
+    th: int
+    tw: int
+    bm: int
+    bn: int
+    stages: int
+    ksplit: int
+
+    def grid(self, b: int, h: int, w: int, cout: int):
+        """(output tiles, column blocks, splits): the launch grid."""
+        return b * -(-h // self.th) * -(-w // self.tw), -(-cout // self.bn), self.ksplit
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block takes: 1024 bytes to align the
+        weight ring to the 128-byte swizzle's atoms, the ring, and two halo
+        buffers of (th + 2) x (tw + 2) pixels x 64 channels, bf16."""
+        return 1024 + (self.stages * self.bn + 2 * (self.th + 2) * (self.tw + 2)) * K2_CHUNK * 2
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132) -> Conv3x3Plan:
+    """K2's tiles for a (b, h, w, cin) -> cout conv on a card of ``sms`` SMs.
+
+    For each ``bm`` the output rectangle is the one that computes the fewest
+    GEMM rows over the image (rows past it are masked), then loads the
+    fewest halo pixels, then is the wider: 8 x 16 at most shapes, 5 x 24 at
+    24^2.  A 64-row tile streams the same weight slabs for half the
+    products, so it is taken only where it computes at most 3/4 of the
+    128-row tile's rows: small images (8 x 8 at 8^2, 5 x 12 at 12^2).  No
+    tile straddles images.  ``bn`` is 128 where Cout is a multiple of it,
+    else 160 where Cout is a multiple of that (320, 960) and the tile has
+    128 rows, else 64.  ``ksplit``: enough blocks for two per SM when the
+    output tiles alone are fewer, whole 64-channel chunks per split, at
+    most 16."""
+    best = {}
+    for bm in (128, 64):
+        for tw in sorted({min(t, w, bm) for t in (8, 16, 24, 32, w)}):
+            th = min(bm // tw, h)
+            tiles = -(-h // th) * -(-w // tw)
+            score = (tiles * bm, tiles * (th + 2) * (tw + 2), -tw)
+            if bm not in best or score < best[bm][0]:
+                best[bm] = (score, th, tw)
+    bm = 64 if 4 * best[64][0][0] <= 3 * best[128][0][0] else 128
+    _, th, tw = best[bm]
+    bn = 128 if cout % 128 == 0 else 160 if cout % 160 == 0 and bm == 128 else 64
+    plan = Conv3x3Plan(th, tw, bm, bn, K2_VARIANTS[(bm, bn)], 1)
+    tiles, cols, _ = plan.grid(b, h, w, cout)
+    nchunks = -(-cin // K2_CHUNK)
+    ksplit = max(1, min(-(-2 * sms // (tiles * cols)), nchunks, K2_MAX_KSPLIT))
+    return plan._replace(ksplit=ksplit)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k2_taps(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
+    """The OIHW weight as K2 reads it, (3, 3, Cout, Cin) contiguous: each
+    tap's (Cout, Cin) slab K-contiguous; cached on the weight tensor.
     ``transposed`` gives that of :func:`flip_io` (weight)."""
     def relay():
         # a detached copy: the raw kernel refuses tensors that want a gradient,
         # so this copy never stands in for a weight in a recorded graph
         w = weight.detach()
-        return (w.flip(2, 3).permute(2, 3, 0, 1) if transposed
-                else w.permute(2, 3, 1, 0)).contiguous()
+        return (w.flip(2, 3).permute(2, 3, 1, 0) if transposed
+                else w.permute(2, 3, 0, 1)).contiguous()
 
-    return cached(weight, "_sdtk_hwio_t" if transposed else "_sdtk_hwio", [weight], relay)
+    return cached(weight, "_sdtk_k2_taps_t" if transposed else "_sdtk_k2_taps", [weight], relay)
 
 
 def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool = False):
@@ -133,7 +208,7 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool =
     require(tuple(weight.shape) == want, f"K2: weight {tuple(weight.shape)} for Cin={cin}")
     require(weight.dtype == torch.bfloat16, f"K2: weight dtype {weight.dtype}")
     require(cin % 8 == 0 and cout % 8 == 0, f"K2 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
-    wk = hwio(weight, transposed=transposed)
+    wk = k2_taps(weight, transposed=transposed)
     if bias is not None:
         require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
                 "K2: bias must be contiguous bf16 (Cout,)")
@@ -142,18 +217,34 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool =
                 and scale_shift.is_contiguous(), "K2: scale_shift must be contiguous f32 (B, 2, Cin)")
     require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0, "K2 needs 16-byte aligned tensors")
     lib = _cuda.library()
-    ksplit = lib.sdtk_conv3x3_ksplit(b, h, w, cin, cout)
-    ws = (torch.empty((ksplit, b * h * w, cout), device=x.device, dtype=torch.float32)
-          if ksplit > 1 else None)
+    plan = conv3x3_plan(b, h, w, cin, cout, _sm_count(x.device.index or 0))
+    ws = (torch.empty((plan.ksplit, b * h * w, cout), device=x.device, dtype=torch.float32)
+          if plan.ksplit > 1 else None)
     y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
     code = lib.sdtk_conv3x3(
         x.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
         None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, h, w, cin, cout, ksplit,
-        _cuda.stream_handle(x))
+        None if ws is None else ws.data_ptr(), b, h, w, cin, cout, plan.th, plan.tw, plan.bm,
+        plan.bn, plan.stages, plan.ksplit, _cuda.stream_handle(x))
     _cuda.check(code, "K2 conv3x3")
     K2.launched((b, h, w, cin, cout, scale_shift is not None))
     return y
+
+
+def conv3x3_occupancy() -> dict:
+    """Each compiled K2 variant on the current card, at the largest tile
+    its plans take (8 x 16 for 128 rows, 8 x 8 for 64): ``{(bm, bn):
+    {...}}`` with registers a thread, spill (local) bytes a thread, shared
+    bytes a block and resident blocks an SM, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    out = {}
+    for (bm, bn), stages in K2_VARIANTS.items():
+        plan = Conv3x3Plan(8, 16 if bm == 128 else 8, bm, bn, stages, 1)
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_conv3x3_attrs(bm, bn, stages, plan.smem, got),
+                    "K2 attributes")
+        out[(bm, bn)] = dict(zip(keys, got))
+    return out
 
 
 def taps_q(weight_q: torch.Tensor) -> torch.Tensor:

@@ -37,8 +37,9 @@ def make_schedule(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
     return DiffusionSchedule(betas, alphas, alphas_hat, T, prediction_type)
 
 
-def inference_timesteps(schedule: DiffusionSchedule, steps: int, *, kind: str = "ddim") -> np.ndarray:
-    """Descending int64 timesteps; DDIM carries the +1 offset."""
+def inference_timesteps(schedule: DiffusionSchedule, steps: int, *, kind: str = "ddpm") -> np.ndarray:
+    """Descending int64 timesteps; DDIM carries the +1 offset.  The default
+    ``kind`` is the JAX package's ("ddpm")."""
     ts = np.arange(0, steps) * (schedule.num_train_timesteps // steps)
     if kind == "ddim":
         ts = ts + 1

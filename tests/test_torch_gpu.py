@@ -63,9 +63,15 @@ def test_k1_groupnorm(gen, shape, silu):
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 4, 32, 32), (2, 32, 32, 960, 320), (1, 64, 64, 512, 256),
-                                   (2, 8, 8, 2560, 1280), (1, 5, 7, 64, 40), (2, 6, 6, 96, 32)])
+                                   (2, 8, 8, 2560, 1280), (1, 5, 7, 64, 40), (2, 6, 6, 96, 32),
+                                   (2, 12, 12, 2560, 1280), (2, 16, 16, 1280, 1280),
+                                   (2, 24, 24, 1280, 1280), (1, 10, 20, 128, 136),
+                                   (1, 512, 512, 128, 128)])
 @pytest.mark.parametrize("prologue", [True, False])
 def test_k2_conv3x3(gen, shape, prologue):
+    """Every tile variant of conv3x3_plan: 8 x 16 (bn 64, 128 and 160), 8 x 8
+    and 5 x 12 (64 rows) at W < 16, 5 x 24, ragged rectangles and Cout,
+    split-K (8^2 to 32^2), and the VAE's 512^2 x 128 channels."""
     b, h, w, cin, cout = shape
     x = _rn(gen, b, h, w, cin)
     wt, bias = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5), _rn(gen, cout, scale=0.1)
@@ -79,6 +85,24 @@ def test_k2_conv3x3(gen, shape, prologue):
         ref = conv.conv3x3_plain(x.float(), wt.float(), bias.float())
     assert conv.K2.launches == before + 1
     _check(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 16, 640, 1280), (4, 64, 64, 320, 320)])
+def test_k2_transposed(gen, shape):
+    """The train step's input gradient: K2 on the flipped, I/O-swapped weight."""
+    b, h, w, cin, cout = shape
+    g = _rn(gen, b, h, w, cout)
+    wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cout) ** -0.5)
+    before = conv.K2.launches
+    got = conv.conv3x3_kernel(g, wt, transposed=True)
+    assert conv.K2.launches == before + 1 and got.shape == (b, h, w, cin)
+    _check(got, conv.conv3x3_plain(g.float(), conv.flip_io(wt).float()))
+
+
+def test_k2_occupancy(gen):
+    """Every compiled K2 variant: no spills, two blocks an SM."""
+    for variant, occ in conv.conv3x3_occupancy().items():
+        assert occ["spill_bytes"] == 0 and occ["blocks_per_sm"] >= 2, (variant, occ)
 
 
 def test_k2_zero_halo_after_activation(gen):

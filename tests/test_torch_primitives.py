@@ -104,6 +104,15 @@ def test_schedule_tables():
                                       JS.inference_timesteps(js, steps, kind="ddim"))
 
 
+@pytest.mark.parametrize("steps", [1, 2, 4, 50, 999])
+def test_inference_timesteps_default_kind(steps):
+    """Called without ``kind``, both packages give the same timesteps (the
+    port's default was "ddim", every step one above the JAX default's)."""
+    js, ts_ = JS.make_schedule(), TS.make_schedule()
+    np.testing.assert_array_equal(TS.inference_timesteps(ts_, steps),
+                                  JS.inference_timesteps(js, steps))
+
+
 @pytest.mark.parametrize("pred,eta,t,pt", [("epsilon", 0.0, 981, 961), ("epsilon", 0.0, 1, -19),
                                             ("v_prediction", 0.0, 501, 1),
                                             ("epsilon", 0.7, 501, 481)])

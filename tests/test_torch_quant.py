@@ -122,7 +122,7 @@ def test_derived_tensor_cache_follows_and_frees_its_tensors():
     alive = weakref.ref(w)
     gc.disable()
     try:
-        tconv.hwio(w)
+        tconv.k2_taps(w)
         del w
         assert alive() is None
     finally:
