@@ -5,21 +5,28 @@
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
                                            # time at the serving pass's shapes
+    python3 chip_smoke.py --k3-sweep       # phases 1-2, then every K3 body and tile
+                                           # variant at the UNet's self-attention shapes
 
 Eight phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
-  1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit.
+  1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
+                 the SM count and the maximum SM clock.
   2. build    -- compiles the CUDA kernels (nvcc, sm_90a) and the Triton
                  kernel from this checkout's sources; prints the seconds and
-                 each K2 variant's registers, spills and blocks per SM.
+                 each K2 and K3 variant's registers, spills, shared bytes
+                 and blocks per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
                  version in f32 on the same inputs, and times kernel, plain
                  (bf16) and the library call computing the same function
-                 with CUDA events, beside the bound from bytes and FLOPs
-                 (K2's lines name each shape's tile plan).
+                 with CUDA events, beside the bound from bytes, FLOPs and
+                 (K3) exponentials (K2's lines name each shape's tile plan;
+                 K3's its body and tile, q/k/v of a self-attention are
+                 views of one fused QKV, and a ring-body shape also times
+                 the general body as general_ms).
   4. golden   -- rebuilds tests/golden/full_sd15_ddim2.npz's inputs with
                  numpy alone and runs the full SD1.5 UNet for DDIM-2: plain
                  f32 (TF32 off) against the golden, then the kernels in bf16
@@ -143,6 +150,12 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 INT8_TC_OPS = 1979e12
 F32_FLOPS = 67e12
+# K3 computes one exponential per logit on the special-function units: 16
+# ex2 a clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0).  Phase 1 sets the rate from the
+# card's SM count and its maximum SM clock (nvidia-smi clocks.max.sm).
+EX2_PER_CLOCK_PER_SM = 16
+EXP_RATE = None  # exponentials a second
 
 KERNELS = {
     "K1": dict(route="triton", source="stable_diffusion_tpu_torch/ops/groupnorm.py",
@@ -243,9 +256,18 @@ def cuda_ms(fn, reps: int = 10, rounds: int = 3, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float, flop_rate: float):
-    """(ms, "bytes" | "operations"): the least time for the work."""
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def bound_ms(flops: float, nbytes: float, flop_rate: float, exps: float = 0.0):
+    """(ms, "bytes" | "operations"): the least time for the work: the larger
+    of its bytes over HBM bandwidth, its FLOPs over the peak of their type
+    and its exponentials over the SFUs' rate."""
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / flop_rate, exps / EXP_RATE if exps else 0.0)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -552,16 +574,30 @@ def _case(kernel: str, key, gen):
                     note=f"plan={plan.th}x{plan.tw} bn={plan.bn} ksplit={plan.ksplit}")
     elif kernel == "K3":
         b, sq, sk, h, d = key
-        args = [rn(b, sq, h, d), rn(b, sk, h, d), rn(b, sk, h, d)]
+        if sq == sk:  # the self-attention layout: q, k, v views of one fused QKV projection
+            qkv = rn(b, sq, 3 * h * d)
+            args = [t.reshape(b, sq, h, d) for t in qkv.split(h * d, dim=-1)]
+        else:
+            args = [rn(b, sq, h, d), rn(b, sk, h, d), rn(b, sk, h, d)]
+        plan = fa.attention_plan(b, sq, sk, h, d, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
 
         def run(q, k, v, impl):
             return fa.attention(q, k, v, impl=impl)
 
         def library():
             return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in args))
+        # the general body (the first design) at a ring-body shape, timed beside it
+        also = {}
+        if plan.body == "ring":
+            first = fa.AttentionPlan("general", plan.dp, 64)
+            also["general"] = lambda: fa.attention_kernel(*args, _plan=first)
+        group = "self" if plan.body == "ring" else "cross" if sq != sk else f"general d={d}"
         # the plain version materializes B*H*Sq*Sk f32 scores: one call at s = 9216
         work = dict(flops=4 * b * h * sq * sk * d, bytes=2 * b * h * d * (2 * sq + 2 * sk),
-                    rate=BF16_TC_FLOPS, plain_once=sq * sk > 4096 * 4096)
+                    exps=b * h * sq * sk, rate=BF16_TC_FLOPS, plain_once=sq * sk > 4096 * 4096,
+                    also=also, group=group,
+                    note=f"body={plan.body} bq={plan.bq} exps={b * h * sq * sk}")
     elif kernel == "K4":
         m, c = key
         args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
@@ -624,6 +660,7 @@ def check_kernels(shapes, kernels, label: str):
                    bf16_ms=0.0, ms_at_library_shapes=0.0)
         lib_shapes = 0
         by = {"bytes": 0.0, "operations": 0.0}
+        tot_also, groups = {}, {}
         for key in keys:
             case = _case(kernel, key, gen)
             got = case["kernel"]().float()
@@ -646,7 +683,8 @@ def check_kernels(shapes, kernels, label: str):
                                              if case.get("plain_once") else {}))
             lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
             bf_ms = cuda_ms(case["bf16"]) if case.get("bf16") is not None else None
-            b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"])
+            also = {name: cuda_ms(fn) for name, fn in case.get("also", {}).items()}
+            b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"], case.get("exps", 0))
             tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
             tot["ms"] += n * k_ms
             tot["plain_ms"] += n * p_ms
@@ -657,12 +695,25 @@ def check_kernels(shapes, kernels, label: str):
                 tot["ms_at_library_shapes"] += n * k_ms
                 lib_shapes += 1
             tot["bf16_ms"] += n * (bf_ms or 0.0)
+            for name, ms in also.items():
+                tot_also[name] = tot_also.get(name, 0.0) + n * ms
+            if case.get("group"):
+                grp = groups.setdefault(case["group"], dict(shapes=0, calls=0, ms=0.0,
+                                                            library_ms=0.0, bound_ms=0.0))
+                grp["shapes"] += 1
+                grp["calls"] += n
+                grp["ms"] += n * k_ms
+                grp["library_ms"] += n * (lib_ms or 0.0)
+                grp["bound_ms"] += n * b_ms
+                for name, ms in also.items():
+                    grp[f"{name}_ms"] = grp.get(f"{name}_ms", 0.0) + n * ms
             del case
             shown = tuple(str(s).replace("torch.", "") for s in key)
             say(f"  {label} {kernel} {'ok ' if good else 'BAD'} shape={shown} {note}calls={n} "
                 f"max_abs_err={err:.3e} rel={rel:.3e} {bar_msg}kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
+                + "".join(f"{name}_ms={ms:.4f} " for name, ms in also.items())
                 + f"bound_ms={b_ms:.4f} ({b_by})")
         summary[kernel] = dict(
             shapes=len(keys), max_abs_err=tot["err"], max_rel_err=tot["rel"], ms=tot["ms"],
@@ -671,6 +722,10 @@ def check_kernels(shapes, kernels, label: str):
             library_ms=tot["library_ms"] if KERNELS[kernel]["library"] else None)
         if KERNELS[kernel].get("bf16"):
             summary[kernel]["bf16_ms"] = tot["bf16_ms"]
+        if tot_also:
+            summary[kernel]["also_ms"] = tot_also
+        if groups:
+            summary[kernel]["groups"] = groups
         if KERNELS[kernel]["library"] and lib_shapes < len(keys):
             summary[kernel].update(library_shapes=lib_shapes,
                                    ms_at_library_shapes=tot["ms_at_library_shapes"])
@@ -1240,6 +1295,54 @@ def k2_device(pipe, counters):
     say("k2 per serving pass (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
 
 
+# The UNet's self-attention shapes (b, s, h, d) on the four paths: SD1.5
+# serving (CFG batch 2) at 64^2 and 32^2 latents, SD2.1 at 96^2, 48^2 and
+# 24^2, W8A8 serving (UNet batch 8) and training (batch 4).
+K3_SWEEP_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 9216, 5, 64), (2, 2304, 10, 64),
+                   (2, 576, 20, 64), (8, 4096, 8, 40), (8, 1024, 8, 80), (4, 4096, 8, 40),
+                   (4, 1024, 8, 80)]
+
+
+def k3_sweep() -> bool:
+    """K3 at each UNet self-attention shape, q/k/v as the fused QKV's views:
+    every compiled ring-body variant and the general body through the raw
+    kernel, beside SDPA and the bound, with each one's error against the
+    plain f32 version; marks the planner's choice."""
+    from stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok = True
+    for b, s, h, d in K3_SWEEP_SHAPES:
+        qkv = (torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")).bfloat16()
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        ref = fa.attention_plain(q.float(), k.float(), v.float())
+        refmax = ref.abs().max().item()
+        chosen = fa.attention_plan(b, s, s, h, d, sms)
+        dp = chosen.dp
+        plans = [fa.AttentionPlan("general", dp, 64)] + [
+            fa.AttentionPlan("ring", dp, bq) for vdp, bq in fa.K3_RING if vdp == dp]
+        b_ms, _ = bound_ms(4 * b * h * s * s * d, 8 * b * h * s * d, BF16_TC_FLOPS)
+        e_ms = b * h * s * s / EXP_RATE * 1e3
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                             v.transpose(1, 2)))
+        say(f"  k3 shape={(b, s, h, d)} sdpa_ms={lib:.4f} bound_ms={max(b_ms, e_ms):.4f} "
+            f"(bytes/products {b_ms:.4f}, exponentials {e_ms:.4f})")
+        for plan in plans:
+            def run(plan=plan):
+                return fa.attention_kernel(q, k, v, _plan=plan)
+            got = run().float()
+            torch.cuda.synchronize()
+            rel = (got - ref).abs().max().item() / refmax
+            good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+            ok &= good
+            say(f"    {plan.body:7s} bq={plan.bq:3d} "
+                f"{'ok ' if good else 'BAD'} rel={rel:.3e} ms={cuda_ms(run, reps=30, rounds=5):.4f}"
+                + (" <- plan" if plan == chosen else ""))
+        del q, k, v, qkv, ref
+    return ok
+
+
 def sd21_line(sd) -> str:
     return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
             f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
@@ -1260,8 +1363,13 @@ def main() -> int:
         return 2
     card = card_line()
     say(card)
+    global EXP_RATE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_mhz()
+    EXP_RATE = EX2_PER_CLOCK_PER_SM * sms * clock * 1e6
     say(f"phase 1 device: ok, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"torch {torch.__version__} cuda {torch.version.cuda}, {sms} SMs, max SM clock {clock:.0f} "
+        f"MHz (exponential bound: {EXP_RATE:.3e} a second)")
 
     from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm, linear
 
@@ -1285,6 +1393,12 @@ def main() -> int:
     say("  K2 variants (bm, bn) at their largest tile: " + "; ".join(
         f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in conv.conv3x3_occupancy().items()))
+
+    say("  K3 variants (body, padded d, bq): " + "; ".join(
+        f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
+        f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in flash_attention.attention_occupancy().items()))
+    if "--k3-sweep" in sys.argv[1:]:
+        return 0 if k3_sweep() else 1
 
     if "--only-sd21" in sys.argv[1:]:
         ok8, sd = phase_sd21(counters)
@@ -1405,7 +1519,7 @@ def main() -> int:
                    bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"],
                    max_rel_err=s["max_rel_err"], shapes=s["shapes"], pass_=passes[which],
                    library_call=KERNELS[k]["library"], replaces_all=KERNELS[k]["replaces_all"])
-        for extra in ("bf16_ms", "library_shapes", "ms_at_library_shapes"):
+        for extra in ("bf16_ms", "library_shapes", "ms_at_library_shapes", "also_ms", "groups"):
             if extra in s:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
@@ -1418,6 +1532,8 @@ def main() -> int:
                             f"{tag}_max_rel_err": t["max_rel_err"], f"{tag}_ms": t["ms"],
                             f"{tag}_plain_ms": t["plain_ms"], f"{tag}_bound_ms": t["bound_ms"],
                             f"{tag}_library_ms": t["library_ms"]})
+                row.update({f"{tag}_{extra}": t[extra] for extra in ("also_ms", "groups")
+                            if extra in t})
         row["pass"] = row.pop("pass_")
         kernels.append(row)
     # K5 + K6 as the one function they compute, per train micro-step

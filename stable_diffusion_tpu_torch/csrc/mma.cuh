@@ -99,11 +99,22 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
 }
 
 // Four 8x8 bf16 matrices, transposed, from shared memory.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  ldmatrix_x4_trans(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
+}
+
+// 2^x on the special-function unit (one MUFU.EX2): relative error ~2^-22,
+// subnormal results flushed to 0; 2^-inf = 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace sdtk

@@ -11,6 +11,7 @@ sources, so an edited source is rebuilt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -88,12 +89,13 @@ def _compile(out: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.sdtk_conv3x3.argtypes = [P] * 6 + [I] * 11 + [P]
-    lib.sdtk_attention.argtypes = [P, P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F, P]
+    lib.sdtk_attention.argtypes = [P, P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F, I, I, P]
     lib.sdtk_attention_bwd_dq.argtypes = [P] * 8 + [L] * 10 + [I] * 4 + [F, P]
     lib.sdtk_attention_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + [I] * 4 + [F, P]
     IP = ctypes.POINTER(ctypes.c_int)
     lib.sdtk_conv3x3_attrs.argtypes = [I, I, I, I, IP]
     lib.sdtk_attention_bwd_attrs.argtypes = [I, IP]
+    lib.sdtk_attention_attrs.argtypes = [I, I, I, IP]
     lib.sdtk_ffn_plan.argtypes = [I, I, IP, IP, IP]
     lib.sdtk_ffn.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
     lib.sdtk_conv3x3_q_ksplit.argtypes = [I, I, I, I, I]
@@ -106,7 +108,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_winograd.argtypes = [P] * 5 + [I] * 5 + [P]
     for fn in (lib.sdtk_conv3x3, lib.sdtk_conv3x3_attrs, lib.sdtk_attention,
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
-               lib.sdtk_attention_bwd_attrs, lib.sdtk_ffn_plan, lib.sdtk_ffn,
+               lib.sdtk_attention_bwd_attrs, lib.sdtk_attention_attrs, lib.sdtk_ffn_plan,
+               lib.sdtk_ffn,
                lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
                lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q, lib.sdtk_linear,
                lib.sdtk_winograd):
@@ -131,6 +134,15 @@ def check(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the kernels' planners size their
+    grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(x) -> int:

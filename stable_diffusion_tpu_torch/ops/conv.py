@@ -174,11 +174,6 @@ def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132) ->
     return plan._replace(ksplit=ksplit)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def k2_taps(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
     """The OIHW weight as K2 reads it, (3, 3, Cout, Cin) contiguous: each
     tap's (Cout, Cin) slab K-contiguous; cached on the weight tensor.
@@ -217,7 +212,7 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool =
                 and scale_shift.is_contiguous(), "K2: scale_shift must be contiguous f32 (B, 2, Cin)")
     require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0, "K2 needs 16-byte aligned tensors")
     lib = _cuda.library()
-    plan = conv3x3_plan(b, h, w, cin, cout, _sm_count(x.device.index or 0))
+    plan = conv3x3_plan(b, h, w, cin, cout, _cuda.sm_count(x.device.index or 0))
     ws = (torch.empty((plan.ksplit, b * h * w, cout), device=x.device, dtype=torch.float32)
           if plan.ksplit > 1 else None)
     y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)

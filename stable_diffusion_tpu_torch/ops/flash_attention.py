@@ -6,6 +6,9 @@ K3 (csrc/attention.cu) replaces three TPU kernels of
 stable_diffusion_tpu/ops/flash_attention.py with one blockwise online
 softmax: ``_single_pass_kernel`` and ``_flash_kernel`` (self-attention) and
 ``_cross_kernel`` (the 77-token text cross-attention, masked by ``kv_len``).
+:func:`attention_plan` picks its body and tile: the UNet's self-attention
+(head dims 40, 64, 80) runs a body with a cp.async K/V ring and Q held in
+registers, everything else the general body.
 K5 and K6 (csrc/attention_bwd.cu) replace the two passes of
 ``_premerged_flash_bwd``: ``_bwd_dq_kernel`` (dQ and delta = rowsum(dO*O))
 and ``_bwd_dkv_kernel`` (dK, dV).  The notes at the top of the sources say
@@ -40,6 +43,76 @@ K5 = LaunchCounter()
 K6 = LaunchCounter()
 
 BWD_MAX_D = 160  # widest head dim K5/K6 take (the SD1.5 UNet's deepest stages)
+
+# K3's bodies (csrc/attention.cu), as sdtk_attention numbers them.
+K3_BODIES = {"general": 0, "ring": 1}
+K3_BKV = 64          # keys a tile, both bodies
+K3_RING_STAGES = 3   # K/V tiles in the ring body's ring
+# The compiled ring variants (SDTK_ATTN_RING_VARIANTS): (padded head dim, query rows a block).
+K3_RING = ((48, 128), (64, 64), (64, 192), (64, 256), (80, 128))
+SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared bytes a block can use, and an SM has (H100)
+
+
+class AttentionPlan(NamedTuple):
+    """K3's launch: ``body`` ("general" or "ring"), the head dim ``dp`` held
+    in shared memory (padded to a multiple of 16; the general body's heads
+    wider than 160 to a multiple of 128, run as ``passes`` 128-column
+    passes) and ``bq`` query rows a block (16 a warp)."""
+    body: str
+    dp: int
+    bq: int
+    passes: int = 1
+
+    @property
+    def threads(self) -> int:
+        return 2 * self.bq
+
+    def grid(self, b: int, sq: int, h: int):
+        """(query blocks, batch x heads, passes): the launch grid."""
+        return -(-sq // self.bq), b * h, self.passes
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block takes (csrc/attention.cu): rows of
+        dp + 8 bf16 (16 bytes of padding) for the Q tile and each K and V
+        tile of 64 keys; one K/V pair in the general body, the ring's three
+        in the ring body."""
+        kv = K3_RING_STAGES if self.body == "ring" else 1
+        return (self.bq + 2 * kv * K3_BKV) * (self.dp + 8) * 2
+
+    @property
+    def resident(self) -> int:
+        """Blocks an SM by shared memory (1 KB of it reserved a block) and
+        threads; registers can only lower it (attention_occupancy reads
+        the compiled kernel's on the card)."""
+        return min(2048 // self.threads, 32, SMEM_SM // (self.smem + 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = 132,
+                   kv_len: Optional[int] = None) -> AttentionPlan:
+    """K3's body and tile for q (b, sq, h, d), k/v (b, sk, h, d) on a card of
+    ``sms`` SMs, as csrc/attention.cu compiles them.
+
+    Self-attention (sq == sk, no shorter ``kv_len``) at a padded head dim of
+    48, 64 or 80 (d = 40, 64, 80) takes the ring body.  Its tile, from
+    ``chip_smoke.py --k3-sweep`` on an H100 (PERF.md, Findings): 128 query
+    rows at d = 40 and 80; at d = 64, 256 rows where that still gives two
+    blocks for every SM (SD2.1's s = 9216), else 192 where that gives one
+    (s = 2304), else 64 (s = 576, 144).  Every other shape (the 77-token
+    cross-attention, d = 160, the VAE's d = 512) takes the general body."""
+    dp = -(-d // 16) * 16
+    if sq == sk and kv_len in (None, sk) and dp in (48, 64, 80):
+        bq = 128
+        if dp == 64:
+            heads = b * h
+            bq = (256 if -(-sq // 256) * heads >= 2 * sms else
+                  192 if -(-sq // 192) * heads >= sms else 64)
+        return AttentionPlan("ring", dp, bq)
+    if dp <= 160:
+        return AttentionPlan("general", dp, 64)
+    dq = -(-dp // 128) * 128
+    return AttentionPlan("general", dq, 64, passes=dq // 128)
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +187,12 @@ def _strides_ok(t: torch.Tensor, d: int) -> bool:
 
 
 def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None,
-                     return_lse: bool = False):
+                     return_lse: bool = False, _plan: Optional[AttentionPlan] = None):
     """Launch K3.  q (B, Sq, H, D), k/v (B, Sk, H, D), bf16 on CUDA.  With
     ``return_lse`` also the f32 (B, H, Sq) row log-sum-exp in the log2
-    domain (log2 sum_k 2^(s_k scale log2 e)), which K5/K6 take."""
+    domain (log2 sum_k 2^(s_k scale log2 e)), which K5/K6 take.  ``_plan``
+    replaces :func:`attention_plan`'s choice (for measuring one body beside
+    another; not a switch of the model's path)."""
     require_no_grad("K3", q, k, v)
     require(q.is_cuda, f"K3 needs a CUDA tensor, got {q.device}")
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "K3 takes (B, S, H, D) tensors")
@@ -132,13 +207,14 @@ def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional
     kv_len = sk if kv_len is None else int(kv_len)
     require(0 < kv_len <= sk, f"K3: kv_len={kv_len} for Sk={sk}")
     scale = d ** -0.5 if scale is None else float(scale)
+    plan = _plan or attention_plan(b, sq, sk, h, d, _cuda.sm_count(q.device.index or 0), kv_len)
     o = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
     code = _cuda.library().sdtk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        b, h, sq, sk, d, kv_len, scale, _cuda.stream_handle(q))
+        b, h, sq, sk, d, kv_len, scale, K3_BODIES[plan.body], plan.bq, _cuda.stream_handle(q))
     _cuda.check(code, "K3 attention")
     K3.launched((b, sq, sk, h, d))
     return (o, lse) if return_lse else o
@@ -208,6 +284,25 @@ def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None):
     dq, delta = attention_bwd_dq_kernel(q, k, v, o, lse, do, scale=scale)
     dk, dv = attention_bwd_dkv_kernel(q, k, v, lse, delta, do, scale=scale)
     return dq, dk, dv
+
+
+def attention_occupancy() -> dict:
+    """Each compiled K3 variant on the current card: ``{(body, dp, bq):
+    {...}}`` with registers a thread, spill (local) bytes a thread, shared
+    bytes a block and resident blocks an SM, from the runtime: the ring
+    body's variants, and the general body at the padded head dims the paths
+    give it (48, 80 and 160 for the cross-attention, 512 for the VAE in
+    128-column passes)."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    variants = [*(("ring", dp, bq) for dp, bq in K3_RING),
+                *(("general", dp, 64) for dp in (48, 80, 160, 512))]
+    out = {}
+    for body, dp, bq in variants:
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_attention_attrs(K3_BODIES[body], dp, bq, got),
+                    "K3 attributes")
+        out[(body, dp, bq)] = dict(zip(keys, got))
+    return out
 
 
 def attention_bwd_occupancy(d: int) -> dict:

@@ -134,6 +134,72 @@ def test_k3_strided_qkv_and_kv_len(gen):
     _check(flash_attention.attention(q, k, v, kv_len=77, impl="cuda"), ref)
 
 
+def _qkv(gen, b, s, h, d):
+    """q, k, v as the UNet's self-attention hands them to K3: views of one
+    fused QKV projection (sequence stride 3 H D)."""
+    qkv = _rn(gen, b, s, 3 * h * d)
+    return [t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1)]
+
+
+def _ring_variants(d):
+    dp = (d + 15) // 16 * 16
+    return [flash_attention.AttentionPlan("ring", dp, bq) for vdp, bq in flash_attention.K3_RING
+            if vdp == dp]
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 3, 40), (2, 1000, 2, 64), (1, 333, 4, 80),
+                                   (2, 4096, 8, 40), (2, 1024, 8, 80), (1, 2304, 10, 64)])
+def test_k3_self_attention_bodies(gen, shape):
+    """The ring body at d = 40, 64, 80: ragged lengths (100, 333, 1000 are
+    no multiple of a tile), q/k/v strided as the fused QKV's split, the row
+    log-sum-exp; the planner's choice through the entry point, and every
+    compiled variant through the raw kernel."""
+    b, s, h, d = shape
+    q, k, v = _qkv(gen, b, s, h, d)
+    ref = flash_attention.attention_plain(q.float(), k.float(), v.float())
+    plan = flash_attention.attention_plan(b, s, s, h, d, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+    assert plan.body == "ring", plan
+    before = flash_attention.K3.launches
+    _check(flash_attention.attention(q, k, v, impl="cuda"), ref)
+    assert flash_attention.K3.launches == before + 1
+    for variant in _ring_variants(d):
+        o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True, _plan=variant)
+        _check(o, ref)
+        _check(lse, _lse2(q, k))
+
+
+def test_k3_general_body_at_self_shapes(gen):
+    """The general body still takes a self-attention shape when asked (the
+    chip run times it beside the ring body)."""
+    q, k, v = _qkv(gen, 1, 300, 2, 40)
+    plan = flash_attention.AttentionPlan("general", 48, 64)
+    o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True, _plan=plan)
+    _check(o, flash_attention.attention_plain(q.float(), k.float(), v.float()))
+    _check(lse, _lse2(q, k))
+
+
+def test_k3_passes_across_the_grid(gen):
+    """d = 512 in four 128-column passes, one per blockIdx.z; pass 0 writes
+    the log-sum-exp."""
+    q, k, v = (_rn(gen, 1, 1000, 1, 512) for _ in range(3))
+    assert flash_attention.attention_plan(1, 1000, 1000, 1, 512).passes == 4
+    o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True)
+    _check(o, flash_attention.attention_plain(q.float(), k.float(), v.float()))
+    _check(lse, _lse2(q, k))
+
+
+def test_k3_occupancy(gen):
+    """Every compiled K3 variant: no spills, at least one block an SM, and
+    the shared memory its plan computes."""
+    occ = flash_attention.attention_occupancy()
+    for key, o in occ.items():
+        assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (key, o)
+        plan = flash_attention.AttentionPlan(*key, passes=key[1] // 128 if key[1] > 160 else 1)
+        assert o["smem_bytes"] == plan.smem, (key, o)
+    assert all(("ring", dp, bq) in occ for dp, bq in flash_attention.K3_RING)
+
+
 @pytest.mark.parametrize("shape", [(16, 32), (8192, 320), (2048, 640), (512, 1280), (100, 64)])
 def test_k4_ffn(gen, shape):
     m, c = shape

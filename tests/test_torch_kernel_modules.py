@@ -3,8 +3,8 @@ JAX package's Pallas kernel run as the JAX tests run it on the CPU
 (``pltpu.force_tpu_interpret_mode()``): the same numpy inputs, f32.
 
 K1 groupnorm ``_run_kernels`` / ``_stats_call``, K2 conv ``_gn_silu_conv`` /
-``_conv3x3``, K3 flash_attention ``_flash`` / ``_flash_cross``, K4 ffn
-``_ln_ffn_res``.  Tolerances: 2e-5 absolute, as the JAX package's own
+``_conv3x3``, K3 flash_attention ``_flash`` (d = 40, 64, 80; 128 and 200
+rows) / ``_flash_cross``, K4 ffn ``_ln_ffn_res``.  Tolerances: 2e-5 absolute, as the JAX package's own
 interpret-mode tests (the TPU kernels sum in blocks, and the GN stats kernel
 takes the one-pass variance), 1e-4 for the stats."""
 
@@ -71,9 +71,19 @@ def test_gn_silu_conv_matches_pallas(rng):
     np.testing.assert_allclose(got_plain, want_plain, atol=2e-5)
 
 
-@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("d", [40, 64, 80])
 def test_self_attention_matches_pallas(rng, d):
     q, k, v = (rng.standard_normal((1, 128, 2, d), dtype=np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa._flash(q, k, v, d ** -0.5))
+    got = tfa.attention(_t(q), _t(k), _t(v), impl="torch").numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_self_attention_ragged_matches_pallas(rng, d):
+    """200 rows: no multiple of K3's 64-key tile or of its query blocks."""
+    q, k, v = (rng.standard_normal((1, 200, 2, d), dtype=np.float32) for _ in range(3))
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jfa._flash(q, k, v, d ** -0.5))
     got = tfa.attention(_t(q), _t(k), _t(v), impl="torch").numpy()
