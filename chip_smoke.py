@@ -7,6 +7,8 @@
                                            # time at the serving pass's shapes
     python3 chip_smoke.py --k3-sweep       # phases 1-2, then every K3 body and tile
                                            # variant at the UNet's self-attention shapes
+    python3 chip_smoke.py --k56-sweep      # phases 1-2, then K5 and K6's ring and first
+                                           # bodies at the train step's ring shapes
 
 Eight phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
@@ -55,8 +57,10 @@ and the final line is printed only when every phase passed:
                  alpha 128 on q/k/v/out_proj, EMA, gradient accumulation 2,
                  no remat.  Records the shapes of one step and checks and
                  times every kernel at them (K5/K6, the attention backward,
-                 included, with their occupancy and the pair's bound and
-                 library time); holds one micro-step's LoRA gradients on the
+                 included, with each shape's plan and occupancy, the first
+                 (general) body timed beside a ring-body shape, and the
+                 pair's bound and library time); holds one micro-step's
+                 LoRA gradients on the
                  same b4 batch against the plain f32 path; times TRAIN_STEPS
                  steps, which must launch every one of K1-K6.
   8. sd21     -- SD2.1 768^2 v-prediction txt2img (StableDiffusion.for_version
@@ -617,6 +621,9 @@ def _case(kernel: str, key, gen):
             o, lse2 = fa.attention_kernel(q, k, v, return_lse=True)
             _, lse, delta = fa.attention_bwd_dq_plain(q, k, v, o, do)
             _, delta_k = fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do)
+        plan = fa.attention_bwd_plan(b, s, h, d, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
+        first = fa.AttentionBwdPlan("general", plan.dp)  # the first design, timed beside
         nbhsd = b * h * s * d
         # The gradient's least work (five S x S x D products; q, k, v, o, dO
         # read and dq, dk, dv written once) split between the two kernels:
@@ -625,21 +632,26 @@ def _case(kernel: str, key, gen):
         if kernel == "K5":
             args = [q, k, v, o, do]
 
-            def kern():
-                return fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do)[0]
+            def kern(plan=None):
+                return fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do, _plan=plan)[0]
 
             def plain_fn(*a):
                 return fa.attention_bwd_dq_plain(*a)[0]
-            work = dict(flops=6 * nbhsd * s, bytes=2 * 6 * nbhsd, rate=BF16_TC_FLOPS)
+            work = dict(flops=6 * nbhsd * s, bytes=2 * 6 * nbhsd, rate=BF16_TC_FLOPS,
+                        note=f"body={plan.body} rows={plan.q_rows} tile={plan.k_tile}")
         else:
             args = [q, k, v, do, lse, delta]
 
-            def kern():
-                return torch.stack(fa.attention_bwd_dkv_kernel(q, k, v, lse2, delta_k, do))
+            def kern(plan=None):
+                return torch.stack(fa.attention_bwd_dkv_kernel(q, k, v, lse2, delta_k, do,
+                                                               _plan=plan))
 
             def plain_fn(*a):
                 return torch.stack(fa.attention_bwd_dkv_plain(*a))
-            work = dict(flops=4 * nbhsd * s, bytes=2 * 2 * nbhsd, rate=BF16_TC_FLOPS)
+            work = dict(flops=4 * nbhsd * s, bytes=2 * 2 * nbhsd, rate=BF16_TC_FLOPS,
+                        note=f"body={plan.body} rows={plan.k_rows} tile={plan.q_tile}")
+        if plan.body == "ring":
+            work["also"] = {"general": lambda: kern(first)}
         return dict(kernel=kern, plain=lambda: plain_fn(*args),
                     ref=lambda: plain_fn(*(t.float() for t in args)), library=None, **work)
     return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
@@ -1101,9 +1113,11 @@ def phase_training(unet, counters):
     say("  train step shapes: " + ", ".join(f"{k} {len(shapes[k])} shapes "
                                             f"{sum(shapes[k].values())} calls" for k in TRAIN_KERNELS))
     # 2-3. every kernel at the step's shapes; K5/K6's occupancy and the pair
-    for d in sorted({key[3] for key in shapes["K5"]}):
-        occ = fa.attention_bwd_occupancy(d)
-        say(f"  K5/K6 occupancy d={d}: " + "; ".join(
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key in sorted(shapes["K5"], key=str):
+        plan = fa.attention_bwd_plan(*key, sms)
+        occ = fa.attention_bwd_occupancy(plan)
+        say(f"  K5/K6 shape={key} plan={tuple(plan)} occupancy: " + "; ".join(
             f"{k} {o['registers']} registers, {o['spill_bytes']} spill bytes, "
             f"{o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM"
             for k, o in occ.items()))
@@ -1343,6 +1357,86 @@ def k3_sweep() -> bool:
     return ok
 
 
+# (b, s, h, d) of the train step's K5/K6 ring-body shapes (SD1.5 b4), and an
+# SD2.1 d = 64 self-attention shape for the planner's d = 64 tiles.
+K56_SWEEP_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (2, 2304, 10, 64)]
+
+
+def k56_sweep() -> bool:
+    """K5 and K6 at each ring-body shape of the train step, q/k/v as the
+    fused QKV's views: the planned ring body and the first (general) body
+    through ``_plan``, each kernel with its registers, spills and blocks an
+    SM and its error against the plain f32 backward (K5's dq and delta; K6
+    on the plain f32 delta), each pair also through the entry point, beside
+    SDPA's backward and the pair's bound (with its exponential term: one a
+    logit, two in the split design)."""
+    from stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok = True
+    for b, s, h, d in K56_SWEEP_SHAPES:
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        with torch.no_grad():
+            o, lse2 = fa.attention_kernel(q, k, v, return_lse=True)
+            f32 = [t.float() for t in (q, k, v, o, do)]
+            want_dq, lse, delta = fa.attention_bwd_dq_plain(*f32)
+            want_dk, want_dv = fa.attention_bwd_dkv_plain(f32[0], f32[1], f32[2], f32[4], lse, delta)
+            delta = delta.contiguous()
+            del lse, f32
+        chosen = fa.attention_bwd_plan(b, s, h, d, sms)
+        nbhsd = b * h * s * d
+        b_ms, _ = bound_ms(10 * nbhsd * s, 2 * 8 * nbhsd, BF16_TC_FLOPS)
+        e_ms = b * h * s * s / EXP_RATE * 1e3
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        g = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True),
+                      reps=20, rounds=5)
+        del out, qt, kt, vt, g
+        say(f"  k56 shape={(b, s, h, d)} plan={tuple(chosen)} sdpa_backward_ms={lib:.4f} "
+            f"bound_ms={max(b_ms, e_ms):.4f} (bytes/products {b_ms:.4f}, exponentials "
+            f"{e_ms:.4f}; split design {2 * e_ms:.4f})")
+        ms = {}  # (body, kernel) -> ms a call
+        for plan in fa.attention_bwd_variants(chosen.dp):  # the first (general) body, the ring
+            for kernel in ("K5", "K6"):
+                if kernel == "K5":
+                    def run(plan=plan):
+                        return fa.attention_bwd_dq_kernel(q, k, v, o, lse2, do, _plan=plan)
+                    pairs = list(zip(run(), (want_dq, delta)))
+                else:
+                    def run(plan=plan):
+                        return fa.attention_bwd_dkv_kernel(q, k, v, lse2, delta, do, _plan=plan)
+                    pairs = list(zip(run(), (want_dk, want_dv)))
+                torch.cuda.synchronize()
+                rel = max((x.float() - w).abs().max().item() / w.abs().max().item()
+                          for x, w in pairs)
+                good = all(bool(torch.isfinite(x).all().item()) for x, _ in pairs)
+                good &= rel <= KERNEL_REL_TOL
+                ok &= good
+                del pairs
+                ms[plan.body, kernel] = cuda_ms(run, reps=20, rounds=5)
+                occ = fa.attention_bwd_occupancy(plan)[kernel]
+                _, rows, tile = getattr(plan, kernel.lower())
+                say(f"    {kernel} {plan.body:7s} rows={rows:3d} tile={tile:2d} "
+                    f"{'ok ' if good else 'BAD'} rel={rel:.3e} ms={ms[plan.body, kernel]:.4f} "
+                    f"registers={occ['registers']} spill_bytes={occ['spill_bytes']} "
+                    f"blocks/SM={occ['blocks_per_sm']}" + (" <- plan" if plan == chosen else ""))
+        # each body's pair as the train step calls it (K5 then K6, one entry)
+        entry = {plan.body: cuda_ms(lambda plan=plan: fa.attention_bwd_kernel(
+            q, k, v, o, lse2, do, _plan=plan), reps=20, rounds=5)
+                 for plan in fa.attention_bwd_variants(chosen.dp)}
+        say(f"  k56 shape={(b, s, h, d)} pair, ms a call: " + "; ".join(
+            f"{body} K5 {ms[body, 'K5']:.4f} + K6 {ms[body, 'K6']:.4f}, through "
+            f"attention_bwd_kernel {entry[body]:.4f}" for body in entry)
+            + f"; sdpa backward {lib:.4f}")
+        del q, k, v, o, do, qkv, want_dq, want_dk, want_dv, delta, lse2
+        torch.cuda.empty_cache()
+    return ok
+
+
 def sd21_line(sd) -> str:
     return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
             f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
@@ -1399,6 +1493,8 @@ def main() -> int:
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in flash_attention.attention_occupancy().items()))
     if "--k3-sweep" in sys.argv[1:]:
         return 0 if k3_sweep() else 1
+    if "--k56-sweep" in sys.argv[1:]:
+        return 0 if k56_sweep() else 1
 
     if "--only-sd21" in sys.argv[1:]:
         ok8, sd = phase_sd21(counters)

@@ -238,24 +238,6 @@ int general_smem(int DQ) { return (BQ + 2 * BKV) * (DQ + 8) * 2; }
 constexpr int RING_BKV = 64;   // keys per tile
 constexpr int RING_STAGES = 3; // K/V tiles in the ring
 
-// Copy ROWS rows x DP columns of one head (row r at src + r * ss) into a
-// shared tile, 16 bytes a cp.async; row r's piece p lands at shared address
-// addr(r, p).  Rows at or past `rows` and columns at or past D are
-// zero-filled (src, a valid address, stands in as their source).
-template <int ROWS, int DP, int NTHREADS, class Addr>
-__device__ __forceinline__ void copy_rows(const bf16* src, long ss, int rows, int D, Addr addr) {
-  constexpr int VPR = DP / 8;
-#pragma unroll
-  for (int i = 0; i < (ROWS * VPR + NTHREADS - 1) / NTHREADS; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    if (ROWS * VPR % NTHREADS == 0 || idx < ROWS * VPR) {
-      const int r = idx / VPR, p = idx - r * VPR;
-      const bool ok = r < rows && 8 * p < D;
-      cp_async16(addr(r, p), ok ? src + r * ss + 8 * p : src, ok);
-    }
-  }
-}
-
 // One warp's online softmax over its 16 x 64 raw logits s (Q K^T, unscaled;
 // the m16n8 accumulator layout per 8-key tile: rows g and g + 8 of lane
 // 4 g + t), then O += P V over the tile.  Keys at or past `valid` are

@@ -6,65 +6,61 @@
 // dV = sum P^T dO with P = exp(S - LSE)).  dS = P * (dP - delta) * scale,
 // dP = dO V^T.
 //
-// What bounds it on Hopper: the tensor cores.  The gradient needs five
-// S x S x D products per head (S, dP, dV, dQ, dK); at S = 4096 that is
-// 10 B H S^2 D FLOP against ~84 MB of q, k, v, o, dO, dq, dk and dv.  So the
-// aim, as in the forward, is to keep every S x S tile in registers.
+// What bounds it on Hopper: the tensor cores and the exponentials.  The
+// gradient needs five S x S x D products per head (S, dP, dV, dQ, dK); at
+// S = 4096 that is 10 B H S^2 D FLOP against ~84 MB of q, k, v, o, dO, dq,
+// dk and dv, and one exponential per logit on the SFUs (at d = 40 about
+// as long as the products).  So the aim is to keep every S x S tile in
+// registers and the tensor cores fed from registers and `ldmatrix`.
 //
-// Design: FlashAttention-2's backward on `mma.sync` (mma.cuh), in two
-// kernels like the TPU's, and no atomics.
-//  * The row statistics come from the forward: K3 writes each row's
-//    log-sum-exp (log2 domain) when asked, so P = exp2(S log2e scale - lse)
-//    is exact at the first visit and the TPU's pass-A recompute of the row
-//    max and sum is gone.  The two kernels do seven products per head, not
-//    the five the function needs: S and dP are computed in both, since a
-//    block that owns query rows cannot also own the key rows' sums without
-//    atomics.  One kernel with f32 atomic dQ is later work.
-//  * K5: a block owns 64 query rows of one (batch, head), 16 per warp, with
-//    its Q and dO tiles in shared memory, and walks K/V in 64-key tiles.
-//    Each warp computes S = Q K^T and dP = dO V^T (16 x 64 each) into
-//    registers, forms dS there, and feeds it, packed to bf16, as the A
-//    operand of dQ += dS K, K's B fragments taken with `ldmatrix.trans`.
-//    delta is computed from dO and O at the start and written for K6.
-//  * K6: a block owns 64 key rows, 16 per warp, with its K and V tiles in
-//    shared memory, and walks the queries in 64-row tiles.  Each warp
-//    computes the transposed products S^T = K Q^T and dP^T = V dO^T, so P^T
-//    and dS^T come out in the accumulator layout and feed dV += P^T dO and
-//    dK += dS^T Q straight from registers.  Its dK and dV accumulators hold
-//    at most 80 columns (80 f32 registers a lane for the two); a wider head
-//    (D = 160 at S = 256 and 64) runs two passes over the queries that
-//    recompute S^T and dP^T.
-//  * Head dims are zero-padded to a multiple of 16 in shared memory, as in
-//    K3; rows past S are zero and their P is masked to 0.  bf16 operands,
-//    f32 accumulation; P and dS are rounded to bf16 before their products,
-//    as the TPU kernels do.
-//  * Occupancy (`sdtk_attention_bwd_attrs` below reads registers, spill
-//    bytes, shared memory and blocks per SM from the runtime; chip_smoke.py
-//    prints them): at D = 160 a block takes 86.5 KB of shared memory (four
-//    64 x 168 bf16 tiles) and ~200-230 registers a thread, so two blocks
-//    (8 warps) fit an SM, by both limits; at D = 40 (29 KB, 128-168
-//    registers) three to four, by registers.  Raising it needs the
-//    accumulators out of registers (wgmma) or smaller tiles: later work.
+// FlashAttention-2's backward on `mma.sync` (mma.cuh), in two kernels like
+// the TPU's, and no atomics.  The row statistics come from the forward: K3
+// writes each row's log-sum-exp (log2 domain), so P = 2^(S scale log2 e -
+// lse) is exact at the first visit and the TPU's pass-A recompute of the row
+// max and sum is gone.  The two kernels do seven products per head, not the
+// five the function needs, and two exponentials per logit: S and dP are
+// computed in both, since a block that owns query rows cannot also own the
+// key rows' sums without atomics.  K5 owns query rows and streams K/V; K6
+// owns key rows and streams Q/dO, computing the transposed products S^T =
+// K Q^T and dP^T = V dO^T so that P^T and dS^T come out in the accumulator
+// layout and feed dV += P^T dO and dK += dS^T Q from registers.  P and dS
+// are rounded to bf16 before their products, as the TPU kernels do.
+//
+// Measured on an H100 and not kept: the single-pass backward on K6's ring
+// body (each tile's dS^T kept in shared memory, two buffers deep; dQ's
+// partial over the block's 128 keys formed there and added by float4
+// atomics into an f32 accumulator; K5 cut to the delta pass).  Right at its
+// first build, it took 1.0517 ms through the entry point against the split's
+// 1.1752 at (4, 4096, 8, 40), but 0.1580 against 0.1575 at (4, 1024, 8, 80)
+// and more at d = 64 (PERF.md, Findings): the partials and their atomics
+// cost nearly what K5's recomputed S and dP do.
+//
+// Two bodies each; `attention_bwd_plan` (ops/flash_attention.py) picks one
+// and its tiles, and passes them in:
+// * The ring body (attention_bwd_ring.cuh, whose note gives its design and
+//   occupancy): padded head dims 48, 64 and 80 (every UNet self-attention)
+//   at S % 4 == 0.  The owned operands' fragments held in registers for the
+//   whole sweep, the streamed tiles through a cp.async ring, B fragments by
+//   `ldmatrix.x4`.
+// * The general body (the first design; d = 160 and other head dims): 64
+//   owned rows a block (4 warps), each streamed 64-row tile loaded
+//   synchronously into one buffer between two barriers, the A fragments
+//   re-read from shared memory at every tile.  K6's dK and dV accumulators
+//   hold at most 80 columns; a wider head (d = 160) runs two passes over
+//   the queries that recompute S^T and dP^T.  Head dims zero-padded to a
+//   multiple of 16; rows past S zero and their P masked to 0.  At d = 160 a
+//   block takes 86.5 KB of shared memory and ~200-230 registers a thread:
+//   two blocks an SM.
 #include <math.h>
 
-#include "mma.cuh"
+#include "attention_bwd_ring.cuh"
 
 namespace sdtk {
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BKV = 64;  // key rows per tile
+constexpr int BQ = 64;   // query rows per tile (general body)
+constexpr int BKV = 64;  // key rows per tile (general body)
 constexpr int THREADS = 128;
-
-struct BwdArgs {
-  const bf16 *q, *k, *v, *o, *dout;
-  const float* lse;  // (B, H, S), log2 domain, from K3
-  float* delta;      // (B, H, S): written by K5, read by K6
-  bf16 *dq, *dk, *dv;  // (B, S, H, D) contiguous
-  long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;  // in elements
-  int H, S, D, DQ;  // DQ: head dim padded to a multiple of 16
-  float scale, scale_log2;
-};
 
 // Rows r0 .. r0 + n - 1 of one head of a (B, S, H, D) view into shared
 // memory [n][LD], zero past S and in the padded columns.
@@ -121,24 +117,7 @@ __device__ __forceinline__ void mma_pb(float (&acc)[NT][4], float (&p)[8][4], co
   }
 }
 
-// Rows `row` and `row + 8` of a (B, S, H, D) output: columns d0 + 8j + 2t.
-template <int NT>
-__device__ __forceinline__ void store_rows(bf16* out, float (&acc)[NT][4], int b, int h,
-                                           int row, int d0, const BwdArgs& a, int t) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = d0 + 8 * j + 2 * t;
-    if (c >= a.D) continue;
-    if (row < a.S)
-      *reinterpret_cast<uint32_t*>(out + (((long)b * a.S + row) * a.H + h) * a.D + c) =
-          pack_bf16(acc[j][0], acc[j][1]);
-    if (row + 8 < a.S)
-      *reinterpret_cast<uint32_t*>(out + (((long)b * a.S + row + 8) * a.H + h) * a.D + c) =
-          pack_bf16(acc[j][2], acc[j][3]);
-  }
-}
-
-// K5: dQ and delta for 64 query rows.  NT = DQ / 8.
+// K5, general body: dQ and delta for 64 query rows.  NT = DQ / 8.
 template <int NT>
 __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -214,10 +193,10 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(BwdArgs a) {
     }
     mma_pb<NT>(acc, s, Ks, LD, lane);  // dQ += dS K
   }
-  store_rows<NT>(a.dq, acc, b, h, q0 + r0, 0, a, t);
+  store_rows<NT>(a.dq, acc, b, h, q0 + r0, 0, a, t, 1.f);
 }
 
-// K6: dK and dV for 64 key rows, NT * 8 output columns per pass.
+// K6, general body: dK and dV for 64 key rows, NT * 8 output columns per pass.
 template <int NT>
 __global__ void __launch_bounds__(THREADS) bwd_dkv_kernel(BwdArgs a, int passes) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -287,37 +266,16 @@ __global__ void __launch_bounds__(THREADS) bwd_dkv_kernel(BwdArgs a, int passes)
       mma_pb<NT>(dv, st, dOs + d0, LD, lane);  // dV += P^T dO
       mma_pb<NT>(dk, dpt, Qs + d0, LD, lane);  // dK += dS^T Q
     }
-    store_rows<NT>(a.dk, dk, b, h, k0 + warp * 16 + g, d0, a, t);
-    store_rows<NT>(a.dv, dv, b, h, k0 + warp * 16 + g, d0, a, t);
+    store_rows<NT>(a.dk, dk, b, h, k0 + warp * 16 + g, d0, a, t, 1.f);
+    store_rows<NT>(a.dv, dv, b, h, k0 + warp * 16 + g, d0, a, t, 1.f);
   }
 }
 
-int smem_bytes(int DQ) { return 4 * 64 * (DQ + 8) * 2 + 2 * BQ * 4; }
+int general_smem(int DQ) { return 4 * 64 * (DQ + 8) * 2 + 2 * BQ * 4; }
 
-template <int NT>
-int launch_dq(const BwdArgs& a, int B, cudaStream_t st) {
-  const int smem = smem_bytes(a.DQ);
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dq_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.S + BQ - 1) / BQ), (unsigned)(B * a.H));
-  bwd_dq_kernel<NT><<<grid, THREADS, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int NT>
-int launch_dkv(const BwdArgs& a, int B, int passes, cudaStream_t st) {
-  const int smem = smem_bytes(a.DQ);
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dkv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.S + BKV - 1) / BKV), (unsigned)(B * a.H));
-  bwd_dkv_kernel<NT><<<grid, THREADS, smem, st>>>(a, passes);
-  return (int)cudaGetLastError();
-}
-
-// K6's output chunk: the widest of at most 80 columns that divides the
-// padded head (its dK and dV accumulators hold one chunk); 0 if none.
+// K6's output chunk in the general body: the widest of at most 80 columns
+// that divides the padded head (its dK and dV accumulators hold one chunk);
+// 0 if none.
 int dkv_chunk(int DQ) {
   if (DQ > 160) return 0;
   if (DQ <= 80) return DQ;
@@ -326,22 +284,65 @@ int dkv_chunk(int DQ) {
   return 16;
 }
 
+template <class Fn, class... Args>
+int launch(Fn fn, int smem, int threads, dim3 grid, cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // out: registers a thread, local (spill) bytes a thread, shared bytes a
 // block, resident blocks an SM.
-template <typename... Args>
-int kernel_attrs(void (*fn)(Args...), int smem, int* out) {
+template <class Fn>
+int kernel_attrs(Fn fn, int smem, int threads, int* out) {
   cudaFuncAttributes fa;
   int blocks = 0;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fn);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   out[2] = smem + (int)fa.sharedSizeBytes;
   out[3] = blocks;
   return 0;
+}
+
+// The general body's K5 (dq) or K6 (dkv) for padded head dim DQ: the
+// launch, or with `out` the attributes.
+int general(bool dkv, const BwdArgs& a, int B, cudaStream_t st, int* out) {
+  const int smem = general_smem(a.DQ);
+  const dim3 grid((unsigned)((a.S + 63) / 64), (unsigned)(B * a.H));
+#define SDTK_RUN(fn, ...) \
+  return out ? kernel_attrs(fn, smem, THREADS, out) : launch(fn, smem, THREADS, grid, st, a, ##__VA_ARGS__)
+  if (!dkv) {
+    switch (a.DQ) {
+      case 16: SDTK_RUN(bwd_dq_kernel<2>);
+      case 32: SDTK_RUN(bwd_dq_kernel<4>);
+      case 48: SDTK_RUN(bwd_dq_kernel<6>);
+      case 64: SDTK_RUN(bwd_dq_kernel<8>);
+      case 80: SDTK_RUN(bwd_dq_kernel<10>);
+      case 96: SDTK_RUN(bwd_dq_kernel<12>);
+      case 112: SDTK_RUN(bwd_dq_kernel<14>);
+      case 128: SDTK_RUN(bwd_dq_kernel<16>);
+      case 144: SDTK_RUN(bwd_dq_kernel<18>);
+      case 160: SDTK_RUN(bwd_dq_kernel<20>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  const int dc = dkv_chunk(a.DQ);
+  const int passes = dc ? a.DQ / dc : 0;
+  switch (dc) {
+    case 16: SDTK_RUN(bwd_dkv_kernel<2>, passes);
+    case 32: SDTK_RUN(bwd_dkv_kernel<4>, passes);
+    case 48: SDTK_RUN(bwd_dkv_kernel<6>, passes);
+    case 64: SDTK_RUN(bwd_dkv_kernel<8>, passes);
+    case 80: SDTK_RUN(bwd_dkv_kernel<10>, passes);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SDTK_RUN
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -360,33 +361,75 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, co
 }  // namespace
 }  // namespace sdtk
 
+// The compiled ring variants (padded D, owned rows, streamed tile rows, the
+// blocks an SM promised to ptxas: each the most that compiles without
+// spills); attention_bwd_plan (ops/flash_attention.py) chooses among them.
+#define SDTK_BWD_DQ_RING(X) \
+  X(48, 128, 64, 2)         \
+  X(64, 128, 64, 2)         \
+  X(80, 128, 64, 1)
+#define SDTK_BWD_DKV_RING(X) \
+  X(48, 128, 64, 2)          \
+  X(64, 64, 64, 3)           \
+  X(80, 128, 64, 1)
+
+enum { SDTK_BWD_GENERAL = 0, SDTK_BWD_RING = 1 };
+
+namespace sdtk {
+namespace {
+
+// A ring variant of K5 (dkv false) or K6: the launch, or with `out` the
+// attributes; cudaErrorInvalidValue if (DP, rows, tile) is not compiled.
+int ring(bool dkv, const BwdArgs& a, int B, int rows, int tile, cudaStream_t st, int* out) {
+  const dim3 grid((unsigned)((a.S + rows - 1) / rows), (unsigned)(B * a.H));
+#define SDTK_RING(kern, smem, dp, rows_, tile_)                                          \
+  if (a.DQ == dp && rows == rows_ && tile == tile_)                                      \
+    return out ? kernel_attrs(kern, BwdRing<dp, rows_, tile_>::smem, 2 * rows_, out)     \
+               : launch(kern, BwdRing<dp, rows_, tile_>::smem, 2 * rows_, grid, st, a);
+#define SDTK_DQ(dp, r, t, minb) SDTK_RING((bwd_dq_ring<dp, r, t, minb>), SMEM_DQ, dp, r, t)
+#define SDTK_DKV(dp, r, t, minb) SDTK_RING((bwd_dkv_ring<dp, r, t, minb>), SMEM_DKV, dp, r, t)
+  if (dkv) {
+    SDTK_BWD_DKV_RING(SDTK_DKV)
+  } else {
+    SDTK_BWD_DQ_RING(SDTK_DQ)
+  }
+#undef SDTK_DQ
+#undef SDTK_DKV
+#undef SDTK_RING
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(bool dkv, const BwdArgs& a, int B, int body, int rows, int tile, cudaStream_t st,
+             int* out) {
+  if (body == SDTK_BWD_RING) {
+    if (a.S % 4 != 0) return (int)cudaErrorInvalidValue;
+    return ring(dkv, a, B, rows, tile, st, out);
+  }
+  if (body != SDTK_BWD_GENERAL || rows != 64 || tile != 64) return (int)cudaErrorInvalidValue;
+  return general(dkv, a, B, st, out);
+}
+
+}  // namespace
+}  // namespace sdtk
+
 // Shape rules (checked by the Python wrapper): D % 8 == 0, D <= 160, every
 // stride a multiple of 8, 16-byte aligned pointers; lse from K3 on the same
-// q, k, v; o and dO (B, S, H, D) views with packed (H, D) axes.
+// q, k, v; o and dO (B, S, H, D) views with packed (H, D) axes.  body 0:
+// the general body (rows = tile = 64); body 1: the ring body, for a
+// compiled (padded D, rows, tile) and S % 4 == 0.  An unknown variant
+// returns cudaErrorInvalidValue.
 
 // K5: dq and delta.
 extern "C" int sdtk_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                      const void* dout, const void* lse, void* delta, void* dq,
                                      long q_sb, long q_ss, long k_sb, long k_ss, long v_sb,
                                      long v_ss, long o_sb, long o_ss, long do_sb, long do_ss,
-                                     int B, int H, int S, int D, float scale, void* stream) {
+                                     int B, int H, int S, int D, float scale, int body, int rows,
+                                     int tile, void* stream) {
   using namespace sdtk;
   const BwdArgs a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, q_sb, q_ss, k_sb,
                               k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss, H, S, D, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a.DQ) {
-    case 16: return launch_dq<2>(a, B, st);
-    case 32: return launch_dq<4>(a, B, st);
-    case 48: return launch_dq<6>(a, B, st);
-    case 64: return launch_dq<8>(a, B, st);
-    case 80: return launch_dq<10>(a, B, st);
-    case 96: return launch_dq<12>(a, B, st);
-    case 112: return launch_dq<14>(a, B, st);
-    case 128: return launch_dq<16>(a, B, st);
-    case 144: return launch_dq<18>(a, B, st);
-    case 160: return launch_dq<20>(a, B, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(false, a, B, body, rows, tile, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // K6: dk and dv, from the delta that K5 wrote.
@@ -394,51 +437,25 @@ extern "C" int sdtk_attention_bwd_dkv(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, long q_sb, long q_ss, long k_sb,
                                       long k_ss, long v_sb, long v_ss, long do_sb, long do_ss,
-                                      int B, int H, int S, int D, float scale, void* stream) {
+                                      int B, int H, int S, int D, float scale, int body, int rows,
+                                      int tile, void* stream) {
   using namespace sdtk;
   const BwdArgs a =
       make_args(q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk, dv, q_sb, q_ss,
                 k_sb, k_ss, v_sb, v_ss, 0, 0, do_sb, do_ss, H, S, D, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dc = dkv_chunk(a.DQ);
-  if (dc == 0) return (int)cudaErrorInvalidValue;
-  const int passes = a.DQ / dc;
-  switch (dc) {
-    case 16: return launch_dkv<2>(a, B, passes, st);
-    case 32: return launch_dkv<4>(a, B, passes, st);
-    case 48: return launch_dkv<6>(a, B, passes, st);
-    case 64: return launch_dkv<8>(a, B, passes, st);
-    case 80: return launch_dkv<10>(a, B, passes, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(true, a, B, body, rows, tile, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The compiled K5 (out[0..3]) and K6 (out[4..7]) for head dim D, as
-// kernel_attrs reports them.
-extern "C" int sdtk_attention_bwd_attrs(int D, int* out) {
+// A compiled K5 (kernel 5) or K6 (kernel 6) variant on the current card,
+// from the runtime: out = {registers a thread, local (spill) bytes a
+// thread, shared bytes a block, resident blocks an SM}.  body, rows and
+// tile as above; dp the padded head dim.
+extern "C" int sdtk_attention_bwd_attrs(int kernel, int body, int dp, int rows, int tile,
+                                        int* out) {
   using namespace sdtk;
-  const int DQ = (D + 15) / 16 * 16, smem = smem_bytes(DQ);
-  int err;
-  switch (DQ) {
-    case 16: err = kernel_attrs(bwd_dq_kernel<2>, smem, out); break;
-    case 32: err = kernel_attrs(bwd_dq_kernel<4>, smem, out); break;
-    case 48: err = kernel_attrs(bwd_dq_kernel<6>, smem, out); break;
-    case 64: err = kernel_attrs(bwd_dq_kernel<8>, smem, out); break;
-    case 80: err = kernel_attrs(bwd_dq_kernel<10>, smem, out); break;
-    case 96: err = kernel_attrs(bwd_dq_kernel<12>, smem, out); break;
-    case 112: err = kernel_attrs(bwd_dq_kernel<14>, smem, out); break;
-    case 128: err = kernel_attrs(bwd_dq_kernel<16>, smem, out); break;
-    case 144: err = kernel_attrs(bwd_dq_kernel<18>, smem, out); break;
-    case 160: err = kernel_attrs(bwd_dq_kernel<20>, smem, out); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  switch (dkv_chunk(DQ)) {
-    case 16: return kernel_attrs(bwd_dkv_kernel<2>, smem, out + 4);
-    case 32: return kernel_attrs(bwd_dkv_kernel<4>, smem, out + 4);
-    case 48: return kernel_attrs(bwd_dkv_kernel<6>, smem, out + 4);
-    case 64: return kernel_attrs(bwd_dkv_kernel<8>, smem, out + 4);
-    case 80: return kernel_attrs(bwd_dkv_kernel<10>, smem, out + 4);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (kernel != 5 && kernel != 6) return (int)cudaErrorInvalidValue;
+  BwdArgs a{};
+  a.D = a.DQ = dp;
+  a.S = 4;
+  return dispatch(kernel == 6, a, 0, body, rows, tile, nullptr, out);
 }

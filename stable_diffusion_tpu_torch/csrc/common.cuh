@@ -54,6 +54,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Copy ROWS rows x DP columns of one head (row r at src + r * ss) into a
+// shared tile, 16 bytes a cp.async; row r's piece p lands at shared address
+// addr(r, p).  Rows at or past `rows` and columns at or past D are
+// zero-filled (src, a valid address, stands in as their source).
+template <int ROWS, int DP, int NTHREADS, class Addr>
+__device__ __forceinline__ void copy_rows(const bf16* src, long ss, int rows, int D, Addr addr) {
+  constexpr int VPR = DP / 8;
+#pragma unroll
+  for (int i = 0; i < (ROWS * VPR + NTHREADS - 1) / NTHREADS; ++i) {
+    const int idx = threadIdx.x + i * NTHREADS;
+    if (ROWS * VPR % NTHREADS == 0 || idx < ROWS * VPR) {
+      const int r = idx / VPR, p = idx - r * VPR;
+      const bool ok = r < rows && 8 * p < D;
+      cp_async16(addr(r, p), ok ? src + r * ss + 8 * p : src, ok);
+    }
+  }
+}
+
 // Round a byte count up so every shared-memory region starts 128-byte aligned
 // (WMMA needs 32-byte aligned fragment pointers).
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) & ~127; }

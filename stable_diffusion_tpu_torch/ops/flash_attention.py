@@ -11,8 +11,12 @@ softmax: ``_single_pass_kernel`` and ``_flash_kernel`` (self-attention) and
 registers, everything else the general body.
 K5 and K6 (csrc/attention_bwd.cu) replace the two passes of
 ``_premerged_flash_bwd``: ``_bwd_dq_kernel`` (dQ and delta = rowsum(dO*O))
-and ``_bwd_dkv_kernel`` (dK, dV).  The notes at the top of the sources say
-what bounds each and how it is built.
+and ``_bwd_dkv_kernel`` (dK, dV).  :func:`attention_bwd_plan` picks their
+body and tiles: the UNet's self-attention (head dims 40, 64, 80) runs the
+ring bodies (csrc/attention_bwd_ring.cuh: the owned operands' fragments in
+registers, the streamed tiles through a cp.async ring), everything else
+the general bodies.  The notes at the top of the sources say what bounds
+each and how it is built.
 
 q, k and v may be strided views (the split of a fused QKV projection): the
 kernels take each tensor's batch and sequence strides and need only the
@@ -51,6 +55,14 @@ K3_RING_STAGES = 3   # K/V tiles in the ring body's ring
 # The compiled ring variants (SDTK_ATTN_RING_VARIANTS): (padded head dim, query rows a block).
 K3_RING = ((48, 128), (64, 64), (64, 192), (64, 256), (80, 128))
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared bytes a block can use, and an SM has (H100)
+
+# K5/K6's bodies (csrc/attention_bwd.cu), as sdtk_attention_bwd_* number them.
+BWD_BODIES = {"general": 0, "ring": 1}
+BWD_RING_STAGES = 3  # streamed tiles in the ring bodies' ring
+# The compiled ring variants (SDTK_BWD_DQ_RING, SDTK_BWD_DKV_RING): (padded
+# head dim, rows a block owns, rows of each streamed tile).
+K5_RING = ((48, 128, 64), (64, 128, 64), (80, 128, 64))
+K6_RING = ((48, 128, 64), (64, 64, 64), (80, 128, 64))
 
 
 class AttentionPlan(NamedTuple):
@@ -113,6 +125,76 @@ def attention_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = 132,
         return AttentionPlan("general", dp, 64)
     dq = -(-dp // 128) * 128
     return AttentionPlan("general", dq, 64, passes=dq // 128)
+
+
+class AttentionBwdPlan(NamedTuple):
+    """K5's and K6's launch: ``body`` ("general" or "ring"), the head dim
+    ``dp`` held in shared memory (padded to a multiple of 16), K5's
+    ``q_rows`` owned query rows a block and ``k_tile`` keys a streamed
+    tile, K6's ``k_rows`` owned key rows a block and ``q_tile`` queries a
+    streamed tile (16 owned rows a warp), and the ring's ``stages``."""
+    body: str
+    dp: int
+    q_rows: int = 64
+    k_tile: int = 64
+    k_rows: int = 64
+    q_tile: int = 64
+    stages: int = 1
+
+    @property
+    def k5(self):
+        """K5's compiled variant: (dp, owned rows, tile rows)."""
+        return self.dp, self.q_rows, self.k_tile
+
+    @property
+    def k6(self):
+        """K6's compiled variant: (dp, owned rows, tile rows)."""
+        return self.dp, self.k_rows, self.q_tile
+
+    @property
+    def smem(self):
+        """(K5, K6) dynamic shared bytes a block (csrc/attention_bwd*.cu):
+        rows of dp + 8 bf16.  General: the two owned and two streamed
+        64-row tiles and 64 lse and delta values.  Ring: ``stages``
+        buffers of two streamed tiles (K6's with the tile's lse and delta),
+        the last of which first stages the two owned tiles (Q, dO; K, V)
+        and is as large as they are where they are larger."""
+        row = (self.dp + 8) * 2
+        if self.body == "general":
+            return (4 * 64 * row + 2 * 64 * 4,) * 2
+        out = []
+        for rows, stage in ((self.q_rows, 2 * self.k_tile * row),
+                            (self.k_rows, 2 * self.q_tile * (row + 4))):
+            out.append((self.stages - 1) * stage + max(stage, 2 * rows * row))
+        return tuple(out)
+
+    @property
+    def resident(self):
+        """(K5, K6) blocks an SM by shared memory (1 KB of it reserved a
+        block) and threads; registers can only lower it
+        (attention_bwd_occupancy reads the compiled kernels' on the card)."""
+        return tuple(min(2048 // (2 * rows), 32, SMEM_SM // (smem + 1024))
+                     for rows, smem in zip((self.q_rows, self.k_rows), self.smem))
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_plan(b: int, s: int, h: int, d: int, sms: int = 132) -> AttentionBwdPlan:
+    """K5's and K6's body and tiles for q, k, v (b, s, h, d) on a card of
+    ``sms`` SMs, as csrc/attention_bwd.cu compiles them.
+
+    A padded head dim of 48, 64 or 80 (d = 40, 64, 80) with s % 4 == 0 (so
+    that K6's lse and delta tiles are 16-byte copies) takes the ring
+    bodies with 64-row streamed tiles and, from ``chip_smoke.py
+    --k56-sweep`` on an H100 (PERF.md, Findings), 128 owned rows a block
+    (K6 at d = 64: 64).  Every other shape (d = 160, test shapes) takes
+    the general bodies.  ``b``, ``h`` and ``sms`` do not enter the choice
+    yet; they are the grid's, as in :func:`attention_plan`."""
+    dp = -(-d // 16) * 16
+    if dp in (48, 64, 80) and s % 4 == 0:
+        return AttentionBwdPlan("ring", dp, q_rows=128, k_tile=64,
+                                k_rows=64 if dp == 64 else 128, q_tile=64,
+                                stages=BWD_RING_STAGES)
+    return AttentionBwdPlan("general", dp)
 
 
 # ---------------------------------------------------------------------------
@@ -239,50 +321,63 @@ def _packed(t: torch.Tensor) -> torch.Tensor:
     return t if _strides_ok(t, t.shape[-1]) else t.contiguous()
 
 
-def attention_bwd_dq_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None):
-    """Launch K5: dq (B, S, H, D) bf16 and delta (B, H, S) f32."""
+def _bwd_plan(q, b, s, h, d, plan: Optional[AttentionBwdPlan]) -> AttentionBwdPlan:
+    return plan or attention_bwd_plan(b, s, h, d, _cuda.sm_count(q.device.index or 0))
+
+
+def attention_bwd_dq_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None,
+                            _plan: Optional[AttentionBwdPlan] = None):
+    """Launch K5: dq (B, S, H, D) bf16 and delta (B, H, S) f32.  ``_plan``
+    replaces :func:`attention_bwd_plan`'s choice (for measuring one body
+    beside another; not a switch of the model's path)."""
     require_no_grad("K5", q, k, v, o, do)
     do = _packed(do)
     b, s, h, d = _bwd_checks("K5", q, k, v, lse, o, do)
     scale = d ** -0.5 if scale is None else float(scale)
+    plan = _bwd_plan(q, b, s, h, d, _plan)
     delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     dq = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     code = _cuda.library().sdtk_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-        b, h, s, d, scale, _cuda.stream_handle(q))
+        b, h, s, d, scale, BWD_BODIES[plan.body], plan.q_rows, plan.k_tile,
+        _cuda.stream_handle(q))
     _cuda.check(code, "K5 attention backward (dq)")
     K5.launched((b, s, h, d))
     return dq, delta
 
 
-def attention_bwd_dkv_kernel(q, k, v, lse, delta, do, *, scale: Optional[float] = None):
-    """Launch K6: dk, dv (B, S, H, D) bf16 from K5's delta."""
+def attention_bwd_dkv_kernel(q, k, v, lse, delta, do, *, scale: Optional[float] = None,
+                             _plan: Optional[AttentionBwdPlan] = None):
+    """Launch K6: dk, dv (B, S, H, D) bf16 from K5's delta.  ``_plan`` as
+    in :func:`attention_bwd_dq_kernel`."""
     require_no_grad("K6", q, k, v, do)
     do = _packed(do)
     b, s, h, d = _bwd_checks("K6", q, k, v, lse, do)
     require(delta.shape == lse.shape and delta.dtype == torch.float32 and delta.is_contiguous(),
             "K6: delta must be contiguous f32 (B, H, S)")
     scale = d ** -0.5 if scale is None else float(scale)
+    plan = _bwd_plan(q, b, s, h, d, _plan)
     dk = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
     code = _cuda.library().sdtk_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), do.stride(0), do.stride(1), b, h, s, d, scale,
-        _cuda.stream_handle(q))
+        BWD_BODIES[plan.body], plan.k_rows, plan.q_tile, _cuda.stream_handle(q))
     _cuda.check(code, "K6 attention backward (dk, dv)")
     K6.launched((b, s, h, d))
     return dk, dv
 
 
-def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None):
+def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None,
+                         _plan: Optional[AttentionBwdPlan] = None):
     """K5 then K6: dq, dk, dv of the self-attention whose forward K3 ran
     (``lse`` from ``attention_kernel(..., return_lse=True)``)."""
     do = _packed(do)
-    dq, delta = attention_bwd_dq_kernel(q, k, v, o, lse, do, scale=scale)
-    dk, dv = attention_bwd_dkv_kernel(q, k, v, lse, delta, do, scale=scale)
+    dq, delta = attention_bwd_dq_kernel(q, k, v, o, lse, do, scale=scale, _plan=_plan)
+    dk, dv = attention_bwd_dkv_kernel(q, k, v, lse, delta, do, scale=scale, _plan=_plan)
     return dq, dk, dv
 
 
@@ -305,14 +400,25 @@ def attention_occupancy() -> dict:
     return out
 
 
-def attention_bwd_occupancy(d: int) -> dict:
-    """The compiled K5 and K6 for head dim ``d`` on the current card:
-    ``{"K5": {...}, "K6": {...}}``, each with its registers a thread, spill
-    (local) bytes a thread, shared bytes a block and resident blocks an SM."""
-    out = (ctypes.c_int * 8)()
-    _cuda.check(_cuda.library().sdtk_attention_bwd_attrs(d, out), "K5/K6 attributes")
+def attention_bwd_occupancy(plan: AttentionBwdPlan) -> dict:
+    """The compiled K5 and K6 of ``plan`` on the current card: ``{"K5":
+    {...}, "K6": {...}}``, each with its registers a thread, spill (local)
+    bytes a thread, shared bytes a block and resident blocks an SM."""
     keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
-    return {"K5": dict(zip(keys, out[:4])), "K6": dict(zip(keys, out[4:]))}
+    out = {}
+    for kernel, (dp, rows, tile) in (("K5", plan.k5), ("K6", plan.k6)):
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_attention_bwd_attrs(
+            int(kernel[1]), BWD_BODIES[plan.body], dp, rows, tile, got), f"{kernel} attributes")
+        out[kernel] = dict(zip(keys, got))
+    return out
+
+
+def attention_bwd_variants(dp: int):
+    """Every compiled K5/K6 body at padded head dim ``dp``: the general
+    body's plan and, where the ring is compiled (48, 64, 80), its plan."""
+    ring = attention_bwd_plan(1, 64, 1, dp)
+    return [AttentionBwdPlan("general", dp)] + ([ring] if ring.body == "ring" else [])
 
 
 # ---------------------------------------------------------------------------

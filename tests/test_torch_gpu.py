@@ -227,9 +227,22 @@ def _lse2(q, k):
     return torch.logsumexp(s, dim=-1) * 1.4426950408889634
 
 
-@pytest.mark.parametrize("shape", [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
-                                   (4, 64, 8, 160), (1, 100, 3, 24), (2, 192, 2, 128)])
-def test_k5_k6_attention_bwd(gen, shape):
+def _bwd_variant_plans():
+    """Every compiled K5/K6 body at d = 40, 64, 80 (the general body and each
+    ring variant of either kernel), for ``_plan=``."""
+    return [(d, plan) for d in (40, 64, 80)
+            for plan in flash_attention.attention_bwd_variants(-(-d // 16) * 16)]
+
+
+@pytest.mark.parametrize("shape,plan", [
+    *(((4, 4096, 8, 40), None), ((4, 1024, 8, 80), None), ((4, 256, 8, 160), None),
+      ((4, 64, 8, 160), None), ((1, 100, 3, 24), None), ((2, 192, 2, 128), None),
+      ((2, 130, 2, 40), None)),
+    *(((2, 300, 3, d), plan) for d, plan in _bwd_variant_plans())])
+def test_k5_k6_attention_bwd(gen, shape, plan):
+    """K5 then K6 at the train step's shapes and ragged ones, with the
+    planner's body and tiles (plan None), and every compiled variant at a
+    ragged length (300) through ``_plan``."""
     b, s, h, d = shape
     qkv = _rn(gen, b, s, 3 * h * d)  # strided q, k, v: the split of a fused projection
     q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
@@ -237,22 +250,26 @@ def test_k5_k6_attention_bwd(gen, shape):
     o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True)
     _check(lse, _lse2(q, k))
     before = (flash_attention.K5.launches, flash_attention.K6.launches)
-    got = flash_attention.attention_bwd_kernel(q, k, v, o, lse, do)
+    got = flash_attention.attention_bwd_kernel(q, k, v, o, lse, do, _plan=plan)
     assert (flash_attention.K5.launches, flash_attention.K6.launches) == (before[0] + 1, before[1] + 1)
     want = flash_attention.attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)))
     for g, w in zip(got, want):
         _check(g, w)
 
 
-@pytest.mark.parametrize("d", [24, 40, 80, 128, 160])
-def test_k5_k6_occupancy(gen, d):
+@pytest.mark.parametrize("plan", [
+    *(flash_attention.AttentionBwdPlan("general", dp) for dp in (32, 48, 80, 128, 160)),
+    *(plan for _, plan in _bwd_variant_plans() if plan.body == "ring")])
+def test_k5_k6_occupancy(gen, plan):
     """The runtime's view of the compiled K5/K6: at least one block an SM,
-    and the shared memory the launch asks for."""
-    occ = flash_attention.attention_bwd_occupancy(d)
-    dq = (d + 15) // 16 * 16
-    for k in ("K5", "K6"):
+    the shared memory the launch asks for, and no spills in a ring
+    variant."""
+    occ = flash_attention.attention_bwd_occupancy(plan)
+    for k, smem in zip(("K5", "K6"), plan.smem):
         assert occ[k]["blocks_per_sm"] >= 1 and 0 < occ[k]["registers"] <= 255, occ
-        assert occ[k]["smem_bytes"] >= 4 * 64 * (dq + 8) * 2, occ
+        assert occ[k]["smem_bytes"] >= smem, occ
+        if plan.body == "ring":
+            assert occ[k]["spill_bytes"] == 0, occ
 
 
 def _grads(fn, args, impl, seed=1):
