@@ -9,26 +9,41 @@
                                            # variant at the UNet's self-attention shapes
     python3 chip_smoke.py --k56-sweep      # phases 1-2, then K5 and K6's ring and first
                                            # bodies at the train step's ring shapes
+    python3 chip_smoke.py --k4-sweep       # phases 1-2, then every K4 G1 and G2 variant
+                                           # at the serve, SD2.1 and train shapes
+    python3 chip_smoke.py --k1-host [--root DIR]
+                                           # phase 1, then K1 by kind at the serving
+                                           # pass's shapes: device ms and host us a call
+    python3 chip_smoke.py --profile-serve [--root DIR]
+                                           # phase 1, then one SD1.5 request under
+                                           # torch.profiler: device busy, idle share
+    (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
+    the parent commit's, so two versions are measured by one script.)
 
 Eight phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
                  the SM count and the maximum SM clock.
-  2. build    -- compiles the CUDA kernels (nvcc, sm_90a) and the Triton
-                 kernel from this checkout's sources; prints the seconds and
-                 each K2 and K3 variant's registers, spills, shared bytes
-                 and blocks per SM.
+  2. build    -- compiles the CUDA kernels (nvcc, sm_90a) from this
+                 checkout's sources; prints the seconds and each K1, K2, K3
+                 and K4 variant's registers, spills, shared bytes and blocks
+                 per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
                  version in f32 on the same inputs, and times kernel, plain
                  (bf16) and the library call computing the same function
                  with CUDA events, beside the bound from bytes, FLOPs and
-                 (K3) exponentials (K2's lines name each shape's tile plan;
-                 K3's its body and tile, q/k/v of a self-attention are
-                 views of one fused QKV, and a ring-body shape also times
-                 the general body as general_ms).
+                 (K3) exponentials (K1's lines name each shape's plan and
+                 kind, statistics or normalize, and K1's summary groups
+                 them with the host us a call at each kind's smallest
+                 shape; K2's lines name each shape's tile plan; K3's its
+                 body and tile, q/k/v of a self-attention are views of one
+                 fused QKV, and a ring-body shape also times the general
+                 body as general_ms; K4's name its plan and time its two
+                 GEMMs apart as g1_ms and g2_ms, beside the bound of the
+                 design's own bytes).
   4. golden   -- rebuilds tests/golden/full_sd15_ddim2.npz's inputs with
                  numpy alone and runs the full SD1.5 UNet for DDIM-2: plain
                  f32 (TF32 off) against the golden, then the kernels in bf16
@@ -162,7 +177,7 @@ EX2_PER_CLOCK_PER_SM = 16
 EXP_RATE = None  # exponentials a second
 
 KERNELS = {
-    "K1": dict(route="triton", source="stable_diffusion_tpu_torch/ops/groupnorm.py",
+    "K1": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/groupnorm.cu",
                replaces="stable_diffusion_tpu/ops/groupnorm.py:30",
                replaces_all=["stable_diffusion_tpu/ops/groupnorm.py:30 _stats_kernel",
                              "stable_diffusion_tpu/ops/groupnorm.py:71 _norm_kernel"],
@@ -258,6 +273,21 @@ def cuda_ms(fn, reps: int = 10, rounds: int = 3, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call: ``calls`` back-to-back launches timed on
+    the host clock without a synchronize (at a shape whose device time is
+    below the launch's, so the queue never fills)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def max_sm_clock_mhz() -> float:
@@ -534,12 +564,17 @@ def _case(kernel: str, key, gen):
         x = rn(b, hw, 1, c, scale=2.0) + 0.5
         w, bias = 1 + rn(c, scale=0.1), rn(c, scale=0.1)
         nx = b * hw * c
+        plan = groupnorm.gn_plan(b, hw, c, 32, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
         if kind == "stats":
             def run(x, w, bias, impl):
                 return groupnorm.gn_scale_shift(x, w, bias, eps=eps, impl=impl)
 
             def library():
                 return torch.var_mean(x.view(b, hw, 32, c // 32), dim=(1, 3))
+
+            def raw():
+                return groupnorm.gn_scale_shift_kernel(x, w, bias, eps=eps)
             work = dict(flops=3 * nx, bytes=nx * 2 + b * 2 * c * 4 + 4 * c, rate=F32_FLOPS)
         else:
             silu = key[6]
@@ -550,8 +585,13 @@ def _case(kernel: str, key, gen):
             def library():
                 y = F.group_norm(x.view(b, hw, c).transpose(1, 2), 32, w, bias, eps)
                 return F.silu(y) if silu else y
+
+            def raw():
+                return groupnorm.group_norm_silu_kernel(x, w, bias, eps=eps, silu=silu)
             work = dict(flops=(9 if silu else 5) * nx, bytes=2 * nx * 2 + 4 * c, rate=F32_FLOPS)
         args = [x, w, bias]
+        work.update(group=kind, host=raw, note=f"plan=vec{plan.vec} gs{plan.gs} r{plan.r} "
+                    f"tiles{plan.tiles} chunks={plan.nchunks}")
     elif kernel == "K2":
         b, h, w_, cin, cout, prologue = key
         x = rn(b, h, w_, cin)
@@ -610,8 +650,17 @@ def _case(kernel: str, key, gen):
 
         def run(*a, impl):
             return ffn.geglu_ffn(*a[:7], a[7], impl=impl)
-        work = dict(flops=24 * m * c * c, bytes=2 * (3 * m * c + 12 * c * c + 11 * c),
-                    rate=BF16_TC_FLOPS)
+        plan = ffn.ffn_plan(m, c, torch.cuda.get_device_properties(0).multi_processor_count)
+        nbytes = 2 * (3 * m * c + 12 * c * c + 11 * c)
+        # the design's own device-memory bytes: the function's, h (M x 4C
+        # bf16) written and read back, and the split-K partials (f32)
+        design = nbytes + 2 * 2 * m * 4 * c + (2 * 4 * plan.ksplit2 * m * c if plan.ksplit2 > 1 else 0)
+        work = dict(flops=24 * m * c * c, bytes=nbytes, rate=BF16_TC_FLOPS,
+                    also={"g1": lambda: ffn.geglu_ffn_kernel(*args, _parts=1),
+                          "g2": lambda: ffn.geglu_ffn_kernel(*args, _parts=2)},
+                    note=f"plan=G1 {plan.g1} nsplit{plan.nsplit1} G2 {plan.g2} "
+                         f"ksplit{plan.ksplit2} design_bytes={design} "
+                         f"design_bound_ms={design / HBM_BYTES_PER_S * 1e3:.4f}")
     else:  # K5 / K6: the self-attention backward, q/k/v strided as the fused QKV's split
         b, s, h, d = key
         qkv = rn(b, s, 3 * h * d)
@@ -673,6 +722,14 @@ def check_kernels(shapes, kernels, label: str):
         lib_shapes = 0
         by = {"bytes": 0.0, "operations": 0.0}
         tot_also, groups = {}, {}
+        # host microseconds a call (kernels with a raw launcher, K1): at each
+        # group's smallest shape, where the device is quickest
+        smallest = {}
+        for key in keys:
+            size = int(np.prod([v for v in key if type(v) is int]))
+            grp = key[0]
+            if grp not in smallest or size < smallest[grp][0]:
+                smallest[grp] = (size, key)
         for key in keys:
             case = _case(kernel, key, gen)
             got = case["kernel"]().float()
@@ -696,6 +753,8 @@ def check_kernels(shapes, kernels, label: str):
             lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
             bf_ms = cuda_ms(case["bf16"]) if case.get("bf16") is not None else None
             also = {name: cuda_ms(fn) for name, fn in case.get("also", {}).items()}
+            h_us = (host_us(case["host"]) if case.get("host") is not None
+                    and smallest[key[0]][1] == key else None)
             b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"], case.get("exps", 0))
             tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
             tot["ms"] += n * k_ms
@@ -717,6 +776,8 @@ def check_kernels(shapes, kernels, label: str):
                 grp["ms"] += n * k_ms
                 grp["library_ms"] += n * (lib_ms or 0.0)
                 grp["bound_ms"] += n * b_ms
+                if h_us is not None:
+                    grp["host_us"] = h_us
                 for name, ms in also.items():
                     grp[f"{name}_ms"] = grp.get(f"{name}_ms", 0.0) + n * ms
             del case
@@ -726,6 +787,7 @@ def check_kernels(shapes, kernels, label: str):
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
                 + "".join(f"{name}_ms={ms:.4f} " for name, ms in also.items())
+                + ("" if h_us is None else f"host_us={h_us:.2f} ")
                 + f"bound_ms={b_ms:.4f} ({b_by})")
         summary[kernel] = dict(
             shapes=len(keys), max_abs_err=tot["err"], max_rel_err=tot["rel"], ms=tot["ms"],
@@ -738,6 +800,11 @@ def check_kernels(shapes, kernels, label: str):
             summary[kernel]["also_ms"] = tot_also
         if groups:
             summary[kernel]["groups"] = groups
+            say(f"  {label} {kernel} by kind, per pass: " + "; ".join(
+                f"{name} {g['calls']} calls {g['ms']:.3f} ms (library {g['library_ms']:.3f}, "
+                f"bound {g['bound_ms']:.3f})" + (f", host {g['host_us']:.2f} us a call"
+                                                 if "host_us" in g else "")
+                for name, g in groups.items()))
         if KERNELS[kernel]["library"] and lib_shapes < len(keys):
             summary[kernel].update(library_shapes=lib_shapes,
                                    ms_at_library_shapes=tot["ms_at_library_shapes"])
@@ -1223,6 +1290,39 @@ def phase_sd21(counters):
                     peak_gib=peak)
 
 
+def _kernel_group(name: str) -> str:
+    if name in ("partial_stats", "finalize", "apply"):  # an older checkout's Triton K1 (--root)
+        return "K1"
+    for pat, k in (("gn_stats", "K1"), ("gn_apply", "K1"), ("bwd_dq_kernel", "K5"),
+                   ("bwd_dkv_kernel", "K6"), ("conv3x3", "K2"), ("attention_kernel", "K3"),
+                   ("ffn_", "K4")):
+        if pat in name:
+            return k
+    return "library and elementwise"
+
+
+def _report_profile(prof, secs, runs: int, label: str, unit: str):
+    """Device busy a ``unit`` (the sum of CUDA kernel times over ``runs``
+    profiled runs), the idle share against the unprofiled median ``secs``,
+    and the time of each kernel group and of the 15 costliest kernels."""
+    wall = statistics.median(secs)
+    rows = [(e.key, e.self_device_time_total / 1e3 / runs, e.count / runs)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    say(f"profile {label}: unprofiled s/{unit} median {wall:.4f} ({[round(s, 4) for s in secs]}); "
+        f"device busy {busy:.2f} ms/{unit}; idle share {1 - busy / 1e3 / wall:.3f}")
+    by_group = {}
+    for key, ms, n in rows:
+        g = by_group.setdefault(_kernel_group(key), [0.0, 0.0])
+        g[0] += ms
+        g[1] += n
+    for name, (ms, n) in sorted(by_group.items()):
+        say(f"  {name}: {ms:.2f} ms/{unit} ({100 * ms / max(busy, 1e-9):.1f}% of busy), "
+            f"{n:.0f} launches")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:15]:
+        say(f"  {ms:8.2f} ms/{unit} {n:6.0f} calls  {key[:110]}")
+
+
 def profile_train_step(unet):
     """One-off torch.profiler trace of two steady train steps: device busy
     per step (sum of CUDA kernel times) and the kernels that take it."""
@@ -1239,33 +1339,77 @@ def profile_train_step(unet):
         m["loss"].item()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    wall = statistics.median(secs)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(2):
             state, m = step_fn(state, batch())
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / 2, e.count / 2)
-            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows)
-    say(f"profile train step: unprofiled s/step median {wall:.4f} ({[round(s, 4) for s in secs]}); "
-        f"device busy {busy:.2f} ms/step; idle share {1 - busy / 1e3 / wall:.3f}")
-    def group(name: str) -> str:
-        if name in ("partial_stats", "finalize", "apply"):  # the Triton kernels' names
-            return "K1"
-        for pat, k in (("bwd_dq_kernel", "K5"), ("bwd_dkv_kernel", "K6"), ("conv3x3", "K2"),
-                       ("attention_kernel", "K3"), ("ffn_", "K4")):
-            if pat in name:
-                return k
-        return "library and elementwise"
+    _report_profile(prof, secs, 2, "train step", "step")
 
-    by_group = {}
-    for key, ms, _ in rows:
-        by_group[group(key)] = by_group.get(group(key), 0.0) + ms
-    for name, ms in sorted(by_group.items()):
-        say(f"  {name}: {ms:.2f} ms/step ({100 * ms / max(busy, 1e-9):.1f}% of busy)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:15]:
-        say(f"  {ms:8.2f} ms/step {n:6.0f} calls  {key[:110]}")
+
+def profile_serve(pipe):
+    """One SD1.5 512^2 b1 DDIM-50 CFG-7.5 request under torch.profiler,
+    after three unprofiled ones (the first a warm-up): device busy a
+    request, the idle share, and the kernels that take the time."""
+    secs = []
+    cond, uncond = request_ids(0)
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
+                      inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
+        if r:
+            secs.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
+                      inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
+        torch.cuda.synchronize()
+    _report_profile(prof, secs, 1, "serve request (SD1.5 512^2 b1 DDIM-50 CFG)", "request")
+
+
+def k1_host(pipe, counters):
+    """K1 by kind at the serving pass's shapes, through the raw kernel
+    wrappers of whichever package was imported (``--root``): device ms a
+    pass (CUDA events, as phase 3) and host us a call at each kind's
+    smallest shape (1000 calls, no synchronize), beside the library call."""
+    from stable_diffusion_tpu_torch.ops import groupnorm
+
+    shapes = record_main_path_shapes(pipe, {"K1": counters["K1"]})["K1"]
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    tot = {}
+    for key, n in sorted(shapes.items(), key=lambda kv: (kv[0][0], kv[0][1] * kv[0][2] * kv[0][3])):
+        kind, b, hw, c = key[:4]
+        eps = key[5]
+        x = (torch.randn((b, hw, 1, c), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).bfloat16()
+        bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).bfloat16()
+        if kind == "stats":
+            def raw():
+                return groupnorm.gn_scale_shift_kernel(x, w, bias, eps=eps)
+
+            def lib():
+                return torch.var_mean(x.view(b, hw, 32, c // 32), dim=(1, 3))
+        else:
+            def raw():
+                return groupnorm.group_norm_silu_kernel(x, w, bias, eps=eps, silu=key[6])
+
+            def lib():
+                y = F.group_norm(x.view(b, hw, c).transpose(1, 2), 32, w, bias, eps)
+                return F.silu(y) if key[6] else y
+        t = tot.setdefault(kind, dict(calls=0, ms=0.0, library_ms=0.0))
+        k_ms, l_ms = cuda_ms(raw), cuda_ms(lib)
+        t["calls"] += n
+        t["ms"] += n * k_ms
+        t["library_ms"] += n * l_ms
+        if "host_us" not in t:  # the kind's smallest shape comes first
+            t["host_us"] = host_us(raw)
+            t["host_shape"] = (b, hw, c)
+        say(f"  k1 {kind} shape={(b, hw, c)} calls={n} kernel_ms={k_ms:.4f} library_ms={l_ms:.4f}")
+    say("k1 per serving pass, " + os.path.dirname(groupnorm.__file__) + ": " + "; ".join(
+        f"{kind} {t['calls']} calls {t['ms']:.3f} ms (library {t['library_ms']:.3f}), host "
+        f"{t['host_us']:.2f} us a call at {t['host_shape']}" for kind, t in tot.items())
+        + f"; total {sum(t['ms'] for t in tot.values()):.3f} ms")
 
 
 def graph_ms(fn, reps: int = 10) -> float:
@@ -1437,6 +1581,67 @@ def k56_sweep() -> bool:
     return ok
 
 
+# (m, c) of K4 at every shape of the serve (SD1.5 b1), SD2.1 and train (b4)
+# passes, with its calls a pass.
+K4_SWEEP_SHAPES = {"serve": [((8192, 320), 5), ((2048, 640), 5), ((512, 1280), 5), ((128, 1280), 1)],
+                   "sd21": [((18432, 320), 5), ((4608, 640), 5), ((1152, 1280), 5),
+                            ((288, 1280), 1)],
+                   "train": [((16384, 320), 5), ((4096, 640), 5), ((1024, 1280), 5),
+                             ((256, 1280), 1)]}
+
+
+def k4_sweep() -> bool:
+    """K4 at each (m, c) of the three passes: every compiled G1 variant with
+    the planner's G2, and every G2 variant with the planner's G1 (each with
+    the planner's splits for it), each checked through the whole block
+    against the plain f32 version and timed alone (G1 or G2), beside the
+    planner's choice through the entry point; per-pass sums by variant."""
+    from stable_diffusion_tpu_torch.ops import ffn
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok = True
+    for pas, shapes in K4_SWEEP_SHAPES.items():
+        per_pass = {}
+        for (m, c), calls in shapes:
+            rn = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+                                            * scale).bfloat16()
+            args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
+                    rn(8 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1),
+                    rn(m, c)]
+            ref = ffn.geglu_ffn_plain(*(t.float() for t in args))
+            refmax = ref.abs().max().item()
+            chosen = ffn.ffn_plan(m, c, sms)
+            entry = cuda_ms(lambda: ffn.geglu_ffn(*args, impl="cuda"))
+            say(f"  k4 {pas} shape={(m, c)} calls={calls} plan={tuple(chosen)[:4]} entry_ms={entry:.4f}")
+            per_pass.setdefault("entry", 0.0)
+            per_pass["entry"] += calls * entry
+            variants = [("G1", v, dict(g1=v)) for v in ffn.FFN_G1_VARIANTS
+                        if ffn._up_smem(v[0], v[1], c) <= ffn.SMEM_BLOCK]
+            variants += [("G2", v, dict(g2=v)) for v in ffn.FFN_G2_VARIANTS]
+            for part, v, kw in variants:
+                plan = ffn.ffn_plan(m, c, sms, **kw)
+                got = ffn.geglu_ffn_kernel(*args, _plan=plan).float()
+                torch.cuda.synchronize()
+                rel = (got - ref).abs().max().item() / refmax
+                good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+                ok &= good
+                ms = cuda_ms(lambda: ffn.geglu_ffn_kernel(*args, _plan=plan,
+                                                          _parts=1 if part == "G1" else 2))
+                per_pass[(part, v)] = per_pass.get((part, v), 0.0) + calls * ms
+                split = plan.nsplit1 if part == "G1" else plan.ksplit2
+                mark = " <- plan" if (plan.g1 if part == "G1" else plan.g2) == (
+                    chosen.g1 if part == "G1" else chosen.g2) else ""
+                say(f"    {part} {v} split={split} {'ok ' if good else 'BAD'} rel={rel:.3e} "
+                    f"ms={ms:.4f}{mark}")
+            del args, ref
+            torch.cuda.empty_cache()
+        say(f"k4 {pas} per pass (ms): " + "; ".join(
+            f"{k if isinstance(k, str) else k[0] + ' ' + str(k[1])} {v:.3f}"
+            for k, v in per_pass.items()))
+    return ok
+
+
 def sd21_line(sd) -> str:
     return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
             f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
@@ -1465,6 +1670,8 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}, {sms} SMs, max SM clock {clock:.0f} "
         f"MHz (exponential bound: {EXP_RATE:.3e} a second)")
 
+    if "--root" in sys.argv[1:]:  # measure another checkout's package with this script
+        sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--root") + 1]))
     from stable_diffusion_tpu_torch.ops import _cuda, conv, ffn, flash_attention, groupnorm, linear
 
     from stable_diffusion_tpu_torch.ops import winograd
@@ -1474,16 +1681,28 @@ def main() -> int:
                 "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
                 "K12": winograd.K12}
 
+    if "--k1-host" in sys.argv[1:] or "--profile-serve" in sys.argv[1:]:
+        say(f"  package: {os.path.dirname(os.path.dirname(groupnorm.__file__))}")
+        _cuda.library()
+        pipe = build_pipeline(torch.bfloat16, "cuda")
+        if "--k1-host" in sys.argv[1:]:
+            k1_host(pipe, counters)
+        else:
+            profile_serve(pipe)
+        return 0
+
     # 2. build
     t0 = time.perf_counter()
     _cuda.library()
     nvcc_s = _cuda.build_seconds
-    x = torch.randn(1, 8, 8, 64, device="cuda").bfloat16()
-    groupnorm.group_norm_silu(x, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"),
-                              impl="cuda")  # compiles the three Triton kernels
-    torch.cuda.synchronize()
     say(f"phase 2 build: ok, {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}, Triton JIT included)")
+        f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
+    occ = lambda d: "; ".join(  # noqa: E731
+        f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
+        f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in d.items())
+    say("  K1 statistics kernels (dtype, vec): " + occ(groupnorm.gn_occupancy()))
+    for c in (320, 640, 1280):
+        say(f"  K4 variants at C={c} (G1 bm / G2 bn): " + occ(ffn.ffn_occupancy(c)))
     say("  K2 variants (bm, bn) at their largest tile: " + "; ".join(
         f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in conv.conv3x3_occupancy().items()))
@@ -1495,6 +1714,8 @@ def main() -> int:
         return 0 if k3_sweep() else 1
     if "--k56-sweep" in sys.argv[1:]:
         return 0 if k56_sweep() else 1
+    if "--k4-sweep" in sys.argv[1:]:
+        return 0 if k4_sweep() else 1
 
     if "--only-sd21" in sys.argv[1:]:
         ok8, sd = phase_sd21(counters)

@@ -11,7 +11,7 @@ static-W8A8 serving form, the LoRA train step, and the JAX package's kernel
 switches SD_TPU_FUSED_MM (K10, K11) and SD_TPU_WINOGRAD (K12), read at call
 time and off by default, as there:
 
-  K1  ops/groupnorm.py        GroupNorm stats + normalize(+SiLU), Triton
+  K1  ops/groupnorm.py        GroupNorm stats + normalize(+SiLU), CUDA
   K2  ops/conv.py             3x3 conv with the GN+SiLU prologue, CUDA
   K3  ops/flash_attention.py  self / short-KV cross attention, CUDA
   K4  ops/ffn.py              LN -> GeGLU -> W2 -> +residual, CUDA

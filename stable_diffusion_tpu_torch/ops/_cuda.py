@@ -15,14 +15,16 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu", "conv3x3_q.cu",
-            "linear_q.cu", "ffn_q.cu", "linear.cu", "winograd.cu")
+_SOURCES = ("groupnorm.cu", "conv3x3.cu", "attention.cu", "attention_bwd.cu", "ffn.cu",
+            "conv3x3_q.cu", "linear_q.cu", "ffn_q.cu", "linear.cu", "winograd.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
@@ -93,11 +95,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_attention_bwd_dq.argtypes = [P] * 8 + [L] * 10 + [I] * 4 + [F] + [I] * 3 + [P]
     lib.sdtk_attention_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + [I] * 4 + [F] + [I] * 3 + [P]
     IP = ctypes.POINTER(ctypes.c_int)
+    lib.sdtk_gn_plan.argtypes = [I] * 6 + [IP]
+    lib.sdtk_gn_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_gn_apply.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_gn_attrs.argtypes = [I, I, IP]
     lib.sdtk_conv3x3_attrs.argtypes = [I, I, I, I, IP]
     lib.sdtk_attention_bwd_attrs.argtypes = [I] * 5 + [IP]
     lib.sdtk_attention_attrs.argtypes = [I, I, I, IP]
-    lib.sdtk_ffn_plan.argtypes = [I, I, IP, IP, IP]
-    lib.sdtk_ffn.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
+    lib.sdtk_ffn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_ffn_attrs.argtypes = [I] * 6 + [IP]
     lib.sdtk_conv3x3_q_ksplit.argtypes = [I, I, I, I, I]
     lib.sdtk_conv3x3_q.argtypes = [P] * 8 + [I] * 6 + [P]
     lib.sdtk_linear_q.argtypes = [P] * 9 + [I, I, I, F, P]
@@ -106,10 +112,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_ffn_q.argtypes = [P] * 14 + [I] * 5 + [F, P]
     lib.sdtk_linear.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, F, P]
     lib.sdtk_winograd.argtypes = [P] * 5 + [I] * 5 + [P]
-    for fn in (lib.sdtk_conv3x3, lib.sdtk_conv3x3_attrs, lib.sdtk_attention,
+    for fn in (lib.sdtk_gn_plan, lib.sdtk_gn_stats, lib.sdtk_gn_apply, lib.sdtk_gn_attrs,
+               lib.sdtk_conv3x3, lib.sdtk_conv3x3_attrs, lib.sdtk_attention,
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
-               lib.sdtk_attention_bwd_attrs, lib.sdtk_attention_attrs, lib.sdtk_ffn_plan,
-               lib.sdtk_ffn,
+               lib.sdtk_attention_bwd_attrs, lib.sdtk_attention_attrs, lib.sdtk_ffn,
+               lib.sdtk_ffn_attrs,
                lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
                lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q, lib.sdtk_linear,
                lib.sdtk_winograd):
@@ -146,6 +153,36 @@ def sm_count(index: int) -> int:
 
 
 def stream_handle(x) -> int:
+    """The current CUDA stream of ``x``'s device, as an integer handle."""
     import torch
 
-    return torch.cuda.current_stream(x.device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:  # a PyTorch without the raw accessor
+        return torch.cuda.current_stream(x.device).cuda_stream
+    return raw(x.get_device())
+
+
+class _Packed(threading.local):
+    """A per-thread argument block for the entries that take their
+    arguments packed (one ctypes argument in place of ~18: the launch's host
+    cost is what K1's small shapes pay)."""
+
+    def __init__(self):
+        self.buf = (ctypes.c_int64 * 32)()
+
+
+_PACKED = _Packed()
+
+
+def call_packed(fn, *args) -> int:
+    """``fn`` (a C entry taking ``const int64_t*``) on ``args``: pointers
+    (None for null) and integers, each one int64."""
+    buf = _PACKED.buf
+    buf[:len(args)] = [0 if a is None else a for a in args]
+    return fn(buf)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_bits(v: float) -> int:
+    """The bit pattern of ``v`` as an f32, for a packed argument."""
+    return struct.unpack("<i", struct.pack("<f", v))[0]

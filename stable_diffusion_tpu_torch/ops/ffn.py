@@ -4,12 +4,16 @@ plain version.
 K4 (csrc/ffn.cu) replaces stable_diffusion_tpu/ops/ffn.py's bf16
 ``_make_kernel`` (``_ffn_call`` via ``geglu_ffn`` -> ``_ln_ffn_res``): LN ->
 x W1 split into value and gate halves -> (hv + bv) * gelu_erf(hg + bg) ->
-W2 -> +b2 -> +residual, with the (M, 8C) intermediate kept out of device
-memory.  The note at the top of the source says what bounds it and how it
-is built.
+W2 -> +b2 -> +residual.  It runs as two ``wgmma`` GEMMs: G1 (LN prologue,
+GeGLU epilogue) writes the bf16 (M, 4C) GeGLU output, G2 (+b2 +residual
+epilogue, split-K where its tiles leave SMs idle) reads it back; the note at
+the top of the source says what bounds it and why.  :func:`ffn_plan`
+mirrors the C dispatch; the CPU tests hold it and an emulation of both
+GEMMs' schedules.
 
 Weights are in PyTorch's layout: W1 (8C, C) with the value rows first and
-the gate rows second, W2 (C, 4C).  The gradient is the VJP of the plain
+the gate rows second, W2 (C, 4C); G1's loads pair each 32 value rows with
+the 32 gate rows of the same hidden units.  The gradient is the VJP of the plain
 version, recomputed (JAX ``_ln_ffn_res_bwd``).
 
 K9 (csrc/ffn_q.cu) is the static-W8A8 form, replacing ffn.py's int8
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -53,36 +58,178 @@ def geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps
     return out if residual is None else out + residual
 
 
-def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5):
-    """Launch K4.  x (..., C) bf16 on CUDA; every parameter bf16 and contiguous."""
-    require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
-    require(x.is_cuda, f"K4 needs a CUDA tensor, got {x.device}")
+# K4's compiled variants (csrc/ffn.cu SDTK_FFN_UP_VARIANTS / _DN_VARIANTS):
+# G1 (rows a block, ring stages, asynchronous products), G2 (rows a block,
+# columns a block, ring stages, asynchronous products).  A G1 block tile is
+# 128 W1 rows, 32 values then their 32 gates twice (64 hidden units); a G2
+# block has a warpgroup per 64 rows.
+FFN_KC = 64            # channels a K step
+FFN_G1_VARIANTS = ((128, 2, 0), (128, 4, 1), (64, 4, 1))
+FFN_G2_VARIANTS = ((64, 160, 3, 0), (64, 128, 4, 0), (64, 64, 6, 0))
+FFN_MAX_C = 1280
+SMEM_BLOCK = 232448    # shared bytes a block may use on an H100
+SMEM_SM = 233472       # an SM's shared memory (228 KB)
+FFN_MAX_KSPLIT = 16
+
+
+class FfnPlan(NamedTuple):
+    """K4's launch at (m, c): G1 variant ``g1`` = (rows a block, stages,
+    async), its N tiles split over ``nsplit1`` blocks a row block; G2
+    variant ``g2`` = (rows, columns, stages, async), its K split over
+    ``ksplit2`` blocks (f32 partials, reduced in split order).  ``smem1``,
+    ``smem2``: each kernel's dynamic shared bytes."""
+    g1: tuple
+    nsplit1: int
+    g2: tuple
+    ksplit2: int
+    smem1: int
+    smem2: int
+
+    @property
+    def bm1(self) -> int:
+        return self.g1[0]
+
+    @property
+    def bm2(self) -> int:
+        return self.g2[0]
+
+    @property
+    def bn2(self) -> int:
+        return self.g2[1]
+
+    def grid1(self, m: int):
+        return -(-m // self.bm1), self.nsplit1
+
+    def grid2(self, m: int, c: int):
+        """(column blocks, row blocks, splits): the launch grid."""
+        return -(-c // self.bn2), -(-m // self.bm2), self.ksplit2
+
+
+def _up_smem(bm: int, stages: int, c: int) -> int:
+    """1024 bytes to align the ring, ``stages`` slabs of 128 W1 rows x 64
+    channels, the block's rows of x (64-channel chunks, C padded)."""
+    return 1024 + (stages * 128 + bm * -(-c // FFN_KC)) * FFN_KC * 2
+
+
+def _dn_smem(bm: int, bn: int, stages: int) -> int:
+    return 1024 + stages * (bm + bn) * FFN_KC * 2
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None) -> FfnPlan:
+    """K4's launch for an (m, c) call on a card of ``sms`` SMs, as
+    csrc/ffn.cu's entry takes it (``g1`` / ``g2`` name a variant to measure
+    instead of the planner's).
+
+    G1: 128 rows a block; a two-slab ring, synchronous products and two
+    blocks an SM where that fits shared memory (C <= 320), else a
+    four-slab ring with products kept in flight across steps, in 64-row
+    blocks where 128 rows do not fit (C = 1280).  Its C / 16 N tiles are
+    split over ``nsplit1`` blocks a row block, the count that finishes in
+    the fewest waves x (tiles a block + 1, the block's own rows of x being
+    about one tile's loads), the fewest splits on a tie.  G2: 64 rows a
+    block, two blocks an SM; 160 columns where C % 160 == 0, else 128
+    where C % 128 == 0, else 64; where its tiles fill at most half the
+    SMs, K is split into ceil(sms / tiles) parts (at least four 64-channel
+    steps each, at most 16).  The variants are the ones the H100 sweep
+    (chip_smoke.py --k4-sweep) found fastest per pass."""
+    require(c % 16 == 0 and 16 <= c <= FFN_MAX_C and m >= 1,
+            f"K4 takes C % 16 == 0 and C <= {FFN_MAX_C}, got C={c}")
+    if g1 is None:
+        g1 = ((128, 2, 0) if _up_smem(128, 2, c) + 1024 <= SMEM_SM // 2
+              else (128, 4, 1) if _up_smem(128, 4, c) <= SMEM_BLOCK else (64, 4, 1))
+    require(g1 in FFN_G1_VARIANTS and _up_smem(*g1[:2], c) <= SMEM_BLOCK,
+            f"K4: G1 variant {g1} does not fit C={c}")
+    smem1 = _up_smem(*g1[:2], c)
+    resident1 = max(1, min(2 if g1[1] == 2 else 1, SMEM_SM // (smem1 + 1024)))
+    ntiles, mb = c // 16, -(-m // g1[0])
+    best = None
+    for ns in range(1, ntiles + 1):
+        cost = -(-mb * ns // (sms * resident1)) * (-(-ntiles // ns) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, ns)
+    if g2 is None:
+        g2 = next(v for v in FFN_G2_VARIANTS if c % v[1] == 0 or v[1] == 64)
+    require(g2 in FFN_G2_VARIANTS, f"K4: no G2 variant {g2}")
+    tiles2 = -(-m // g2[0]) * -(-c // g2[1])
+    ksplit2 = 1
+    if 2 * tiles2 <= sms:
+        ksplit2 = max(1, min(-(-sms // tiles2), c // 16 // 4, FFN_MAX_KSPLIT))
+    return FfnPlan(g1, best[1], g2, ksplit2, smem1, _dn_smem(*g2[:3]))
+
+
+_SCRATCH = {}  # device index -> uint8 scratch: G1's output h, G2's split-K partials
+
+
+def _scratch(x: torch.Tensor, nbytes: int) -> int:
+    """The pointer of at least ``nbytes`` of scratch on ``x``'s device,
+    reused call after call (calls on one stream are ordered, so two streams
+    must not run K4 on one device at once)."""
+    buf = _SCRATCH.get(x.get_device())
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), device=x.device, dtype=torch.uint8)
+        _SCRATCH[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual):
+    """The shape rules; returns (m, c)."""
     c = x.shape[-1]
-    m = x.numel() // c
-    require(c % 16 == 0, f"K4 takes C % 16 == 0, got C={c}")
-    shapes = ((ln_weight, (c,)), (ln_bias, (c,)), (w1, (8 * c, c)), (b1, (8 * c,)),
-              (w2, (c, 4 * c)), (b2, (c,)))
-    for t, want in shapes:
-        require(tuple(t.shape) == want, f"K4: parameter {tuple(t.shape)}, expected {want}")
-    tensors = [x, *(t for t, _ in shapes)] + ([] if residual is None else [residual])
-    for t in tensors:
-        require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 32 == 0,
-                "K4 takes contiguous, 32-byte aligned bf16 tensors")
-    if residual is not None:
-        require(residual.shape == x.shape, "K4: residual shape differs from x")
-    lib = _cuda.library()
-    bm, rb, nsplit = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _cuda.check(lib.sdtk_ffn_plan(m, c, ctypes.byref(bm), ctypes.byref(rb), ctypes.byref(nsplit)),
-                f"K4 has no launch plan for C={c}")
-    mpad = (m + bm.value - 1) // bm.value * bm.value
-    ws = torch.empty((nsplit.value, mpad, c), device=x.device, dtype=torch.float32)
+    params = (ln_weight, ln_bias, w1, b1, w2, b2) + (() if residual is None else (residual,))
+    shapes = ((c,), (c,), (8 * c, c), (8 * c,), (c, 4 * c), (c,), x.shape)
+    if not (x.is_cuda and c % 16 == 0 and c <= FFN_MAX_C
+            and all(t.shape == s for t, s in zip(params, shapes))
+            and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                    for t in (x, *params))):
+        require(x.is_cuda, f"K4 needs a CUDA tensor, got {x.device}")
+        require(c % 16 == 0 and c <= FFN_MAX_C,
+                f"K4 takes C % 16 == 0 and C <= {FFN_MAX_C}, got C={c}")
+        for t, want in zip(params, shapes):
+            require(tuple(t.shape) == tuple(want),
+                    f"K4: parameter or residual {tuple(t.shape)}, expected {tuple(want)}")
+        raise ValueError("K4 takes contiguous, 16-byte aligned bf16 tensors")
+    return x.numel() // c, c
+
+
+def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
+                     _plan: FfnPlan = None, _parts: int = 3):
+    """Launch K4.  x (..., C) bf16 on CUDA; every parameter bf16 and contiguous.
+    It allocates only its output: the GeGLU output h and split-K partials
+    live in a per-device scratch.  For measuring: ``_plan`` runs another
+    plan; ``_parts`` 1 launches G1 alone, 2 G2 alone (on whatever h the
+    scratch holds, so its output means nothing)."""
+    require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
+    m, c = _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
+    plan = _plan or ffn_plan(m, c, _cuda.sm_count(x.get_device()))
+    h_bytes = -(-m * 4 * c * 2 // 256) * 256
+    h = _scratch(x, h_bytes + (plan.ksplit2 * m * c * 4 if plan.ksplit2 > 1 else 0))
     out = torch.empty_like(x)
-    code = lib.sdtk_ffn(
-        x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), None if residual is None else residual.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), m, c, bm, rb, nsplit, float(eps), _cuda.stream_handle(x))
-    _cuda.check(code, "K4 ffn")
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_ffn, x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        None if residual is None else residual.data_ptr(), h,
+        h + h_bytes if plan.ksplit2 > 1 else None, out.data_ptr(), m, c, *plan.g1, plan.nsplit1,
+        *plan.g2, plan.ksplit2, _parts, _cuda.f32_bits(eps), _cuda.stream_handle(x)), "K4 ffn")
     K4.launched((m, c))
+    return out
+
+
+def ffn_occupancy(c: int = 320) -> dict:
+    """Each compiled K4 variant on the current card: ``{("G1", *variant) |
+    ("G2", *variant): {...}}`` with registers a thread, spill (local) bytes
+    a thread, shared bytes a block (G1's for width ``c``; variants that do
+    not fit it left out) and resident blocks an SM, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    out = {}
+    for bm, st, asy in FFN_G1_VARIANTS:
+        if _up_smem(bm, st, c) <= SMEM_BLOCK:
+            got = (ctypes.c_int * 4)()
+            _cuda.check(_cuda.library().sdtk_ffn_attrs(0, bm, 0, st, asy, c, got), "K4 attributes")
+            out[("G1", bm, st, asy)] = dict(zip(keys, got))
+    for bm, bn, st, asy in FFN_G2_VARIANTS:
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_ffn_attrs(1, bm, bn, st, asy, c, got), "K4 attributes")
+        out[("G2", bm, bn, st, asy)] = dict(zip(keys, got))
     return out
 
 

@@ -1,56 +1,46 @@
-"""GroupNorm(+SiLU) over NHWC: kernel K1 (Triton) beside its plain version.
+"""GroupNorm(+SiLU) over NHWC: kernel K1 (CUDA) beside its plain version.
 
-K1 replaces two TPU kernels of stable_diffusion_tpu/ops/groupnorm.py:
-``_stats_kernel`` (per-channel sums -> group mean/rstd -> folded (B, 2, C)
-scale/shift; ``_stats_call``, ``_run_kernels``) and ``_norm_kernel``
-(``y = x * scale + shift`` (+SiLU); ``_run_kernels``).
+K1 (csrc/groupnorm.cu) replaces two TPU kernels of
+stable_diffusion_tpu/ops/groupnorm.py: ``_stats_kernel`` (per-channel sums
+-> group mean/rstd -> folded (B, 2, C) scale/shift; ``_stats_call``,
+``_run_kernels``) and ``_norm_kernel`` (``y = x * scale + shift`` (+SiLU);
+``_run_kernels``).  The note at the top of the source says what bounds it
+and how it is built: one launch a statistics call (chunk partials merged by
+the last block to arrive, with Chan's formula, in chunk order), one more for
+the normalize.  :func:`gn_plan` mirrors its C dispatch (``sdtk_gn_plan``);
+the CPU tests hold the plan and an emulation of its schedule.
 
-What bounds it on Hopper: device-memory bandwidth.  It reads the activation
-twice (stats, normalize) and writes it once, with a handful of FLOPs per
-byte and no tensor-core work, which is why it is a Triton kernel.
-
-Design: the TPU kernel carried sum(x) and sum(x^2) across a sequential HW
-grid axis in VMEM scratch and took the one-pass E[x^2] - E[x]^2.  Hopper
-runs blocks in parallel and in no order, and the VAE's 512^2 activations
-make the one-pass variance lose digits, so the stats are a split reduction
-with a safe merge: (1) each program takes a chunk of rows and a block of
-channels and writes per-channel (mean, M2) of its chunk, two passes over
-the chunk; (2) one program per (batch, group) merges those partials with
-Chan's formula (M2 = sum M2_i + sum n_i (mean_i - mean)^2) and folds gamma
-and beta into a (B, 2, C) f32 scale/shift; (3) an elementwise pass applies
-it (+SiLU).  The scale/shift is also exposed on its own
-(:func:`gn_scale_shift`), since K2 applies it in its prologue.
+The scale/shift is also exposed on its own (:func:`gn_scale_shift`), since
+K2, K7, K11 and K12 apply it in their prologues.  Each wrapper allocates
+only its output: the statistics kernel's partials and tickets, and the
+normalize path's scale/shift, live in one workspace per device, made on
+first use and reused (each launch leaves the tickets at 0).  Calls on one
+stream are ordered, so two streams must not run K1 on one device at once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-import os
-from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
+from stable_diffusion_tpu_torch.ops import _cuda
 from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
                                                      require_no_grad, use_kernel, wants_grad)
 
 K1 = LaunchCounter()
 
-_CHUNK = 256  # rows per stats program
-_BR = 32      # rows per load inside a program
-_BC = 64      # channels per program
-
-tl = None  # triton.language, bound by _kernels() on first launch
-_TRITON = None
+GN_THREADS = 256    # most threads of a statistics block
+GN_RMAX = 8         # most rows a thread holds in registers
+GN_MAX_GROUPS = 128  # most groups of a block's channel slab
 
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path and the card's reference)
 # ---------------------------------------------------------------------------
-
-
-def _hw_view(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
 def gn_scale_shift_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5):
@@ -90,159 +80,205 @@ def gn_silu_prologue(x, scale_shift):
 
 
 # ---------------------------------------------------------------------------
-# The Triton kernels, defined on first launch
+# The plan, the workspace and the kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _kernels():
-    global tl, _TRITON
-    if _TRITON is not None:
-        return _TRITON
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR",
-        str(Path(__file__).resolve().parents[2] / "build" / "triton_cache"))
-    import triton
-    import triton.language as language
+class GnPlan(NamedTuple):
+    """A statistics launch: ``vec`` channels a load (8 bf16 or 4 f32, 1
+    where C % that != 0), a block's slab of ``gs`` groups read by ``lanes``
+    vector lanes a row and ``tr`` rows at once (of its 256 threads), tiles
+    of ``r`` rows a thread held in registers, ``tiles`` of them a block in
+    order; ``chunk`` rows a block, ``nchunks`` blocks a (batch, slab);
+    ``mlanes`` lanes a group in the last block's merge."""
+    vec: int
+    gs: int
+    r: int
+    tiles: int
+    lanes: int
+    tr: int
+    chunk: int
+    nchunks: int
+    slabs: int
+    mlanes: int
 
-    tl = language
+    @property
+    def ticket(self) -> bool:
+        """Whether the chunks meet through the workspace (the last block merges)."""
+        return self.nchunks > 1
 
-    @triton.jit
-    def partial_stats(x_ptr, part_ptr, HW, C, NCH,
-                      CHUNK: tl.constexpr, BR: tl.constexpr, BC: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        ch = tl.program_id(1)
-        cols = tl.program_id(2) * BC + tl.arange(0, BC)
-        cmask = cols < C
-        r0 = ch * CHUNK
-        n = tl.minimum(CHUNK, HW - r0).to(tl.float32)
-        base = x_ptr + b * HW * C
-        s = tl.zeros([BC], tl.float32)
-        for i in range(0, CHUNK, BR):
-            rows = r0 + i + tl.arange(0, BR)
-            m = (rows < HW)[:, None] & cmask[None, :]
-            v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m, other=0.0)
-            s += tl.sum(v.to(tl.float32), axis=0)
-        mean = s / n
-        q = tl.zeros([BC], tl.float32)
-        for i in range(0, CHUNK, BR):
-            rows = r0 + i + tl.arange(0, BR)
-            m = (rows < HW)[:, None] & cmask[None, :]
-            v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m, other=0.0)
-            d = tl.where(m, v.to(tl.float32) - mean[None, :], 0.0)
-            q += tl.sum(d * d, axis=0)
-        pbase = part_ptr + (b * NCH + ch) * 2 * C
-        tl.store(pbase + cols, mean, mask=cmask)
-        tl.store(pbase + C + cols, q, mask=cmask)
-
-    @triton.jit
-    def finalize(part_ptr, w_ptr, b_ptr, ss_ptr, HW, C, NCH, CPG, eps,
-                 CHUNK: tl.constexpr, BN: tl.constexpr, BG: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        g = tl.program_id(1)
-        j = tl.arange(0, BG)
-        jmask = j < CPG
-        ch = g * CPG + j
-        total = (HW * CPG).to(tl.float32)
-        acc = tl.zeros([BN, BG], tl.float32)
-        for i0 in range(0, NCH, BN):
-            idx = i0 + tl.arange(0, BN)
-            imask = idx < NCH
-            cnt = tl.minimum(CHUNK, HW - idx * CHUNK).to(tl.float32)
-            m = imask[:, None] & jmask[None, :]
-            ptr = part_ptr + ((b * NCH + idx) * 2 * C)[:, None] + ch[None, :]
-            mu = tl.load(ptr, mask=m, other=0.0)
-            acc += tl.where(m, cnt[:, None] * mu, 0.0)
-        mean = tl.sum(tl.sum(acc, axis=1), axis=0) / total
-        acc2 = tl.zeros([BN, BG], tl.float32)
-        for i0 in range(0, NCH, BN):
-            idx = i0 + tl.arange(0, BN)
-            imask = idx < NCH
-            cnt = tl.minimum(CHUNK, HW - idx * CHUNK).to(tl.float32)
-            m = imask[:, None] & jmask[None, :]
-            ptr = part_ptr + ((b * NCH + idx) * 2 * C)[:, None] + ch[None, :]
-            mu = tl.load(ptr, mask=m, other=0.0)
-            m2 = tl.load(ptr + C, mask=m, other=0.0)
-            d = mu - mean
-            acc2 += tl.where(m, m2 + cnt[:, None] * d * d, 0.0)
-        var = tl.sum(tl.sum(acc2, axis=1), axis=0) / total
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + ch, mask=jmask, other=0.0).to(tl.float32)
-        bb = tl.load(b_ptr + ch, mask=jmask, other=0.0).to(tl.float32)
-        scale = w * rstd
-        shift = bb - mean * scale
-        tl.store(ss_ptr + b * 2 * C + ch, scale, mask=jmask)
-        tl.store(ss_ptr + b * 2 * C + C + ch, shift, mask=jmask)
-
-    @triton.jit
-    def apply(x_ptr, ss_ptr, y_ptr, HW, C,
-              SILU: tl.constexpr, BR: tl.constexpr, BC: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        rows = tl.program_id(1) * BR + tl.arange(0, BR)
-        cols = tl.program_id(2) * BC + tl.arange(0, BC)
-        cmask = cols < C
-        m = (rows < HW)[:, None] & cmask[None, :]
-        off = b * HW * C + rows[:, None] * C + cols[None, :]
-        x = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-        sc = tl.load(ss_ptr + b * 2 * C + cols, mask=cmask, other=0.0)
-        sh = tl.load(ss_ptr + b * 2 * C + C + cols, mask=cmask, other=0.0)
-        y = x * sc[None, :] + sh[None, :]
-        if SILU:
-            y = y / (1.0 + tl.exp(-y))
-        tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    _TRITON = (triton, partial_stats, finalize, apply)
-    return _TRITON
+    def grid(self, b: int):
+        return self.nchunks, self.slabs, b
 
 
-def _check(x, weight, num_groups):
-    require(x.is_cuda, f"K1 needs a CUDA tensor, got {x.device}")
-    require(x.dtype in (torch.bfloat16, torch.float32), f"K1 takes bf16/f32, got {x.dtype}")
-    require(x.is_contiguous(), "K1 needs a contiguous NHWC tensor")
+def _slab_ok(g: int, cpg: int, vec: int, d: int) -> bool:
+    return g % d == 0 and d <= GN_MAX_GROUPS and d * cpg % vec == 0 and d * cpg // vec <= GN_THREADS
+
+
+def _plan(vec, gs, r, tiles, hw, c, g) -> GnPlan:
+    lanes = gs * (c // g) // vec
+    tr = GN_THREADS // lanes
+    chunk = tr * r * tiles
+    mlanes = 32
+    while mlanes * gs > GN_THREADS:
+        mlanes //= 2
+    return GnPlan(vec, gs, r, tiles, lanes, tr, chunk, -(-hw // chunk), g // gs, mlanes)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
+            elem_bytes: int = 2) -> GnPlan:
+    """K1's statistics launch for a (b, hw, c) input of ``elem_bytes`` a
+    value, as csrc/groupnorm.cu ``sdtk_gn_plan`` dispatches it.
+
+    ``vec``: 16 bytes a load where C allows, else 1.  Where some slab of
+    ``gs`` groups lets one block hold a whole image's rows (hw <= 8 tr),
+    the largest such ``gs`` with r = ceil(hw / tr): one chunk, no ticket
+    (the UNet's 8^2 and 16^2 stages).  Else the largest ``gs`` (whole rows
+    read contiguously where C allows), the largest r in 8, 4, 2, 1 whose
+    tiles give two blocks an SM (1 where none does), and, where there are
+    more tiles than that, as many a block as make one wave of two blocks an
+    SM (the kernel's occupancy), at least enough for at most 512 chunks a
+    (batch, slab) (the last block merges them)."""
+    g = num_groups
+    require(g >= 1 and c % g == 0 and hw >= 1, f"K1: C={c} not divisible by {g} groups")
+    cpg = c // g
+    vec = 16 // elem_bytes
+    if c % vec:
+        vec = 1
+    ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
+    if not ok:
+        vec = 1
+        ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
+    require(bool(ok), f"K1: a group of {cpg} channels is wider than a block")
+    for d in ok:
+        tr = GN_THREADS // (d * cpg // vec)
+        if hw <= GN_RMAX * tr:
+            return _plan(vec, d, -(-hw // tr), 1, hw, c, g)
+    gs = ok[0]
+    slabs = g // gs
+    tr = GN_THREADS // (gs * cpg // vec)
+    r = next((cand for cand in (8, 4, 2) if b * slabs * -(-hw // (tr * cand)) >= 2 * sms), 1)
+    ntiles = -(-hw // (tr * r))
+    total = b * slabs * ntiles
+    tiles = max(-(-total // (2 * sms)) if total > 2 * sms else 1, -(-ntiles // 512))
+    return _plan(vec, gs, r, tiles, hw, c, g)
+
+
+_WORKSPACE = {}  # device index -> [partials f32, tickets int32 (all 0), scale/shift f32]
+
+
+def _workspace(x: torch.Tensor, n_part: int, n_count: int, n_ss: int = 0):
+    """The statistics workspace of ``x``'s device, each part grown to at
+    least its count: the chunk partials (floats), the tickets and the
+    normalize path's scale/shift scratch (floats, reused call after call:
+    calls on one stream are ordered); their pointers."""
+    ws = _WORKSPACE.get(x.get_device())
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count or ws[2].numel() < n_ss:
+        old = ws or [None] * 3
+        grow = lambda t, n, make: t if t is not None and t.numel() >= n else make(n)  # noqa: E731
+        ws = [grow(old[0], n_part, lambda n: torch.empty(max(n, 1 << 16), device=x.device,
+                                                        dtype=torch.float32)),
+              grow(old[1], n_count, lambda n: torch.zeros(max(n, 1024), device=x.device,
+                                                         dtype=torch.int32)),
+              grow(old[2], n_ss, lambda n: torch.empty(max(n, 1 << 14), device=x.device,
+                                                     dtype=torch.float32))]
+        _WORKSPACE[x.get_device()] = ws
+    return ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr()
+
+
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(x, weight, bias, num_groups):
+    """The shape rules; returns (b, hw, c)."""
     c = x.shape[-1]
-    require(c % num_groups == 0, f"K1: C={c} not divisible by {num_groups} groups")
-    require(weight.shape == (c,), f"K1: GroupNorm weight {tuple(weight.shape)} for C={c}")
+    if not (x.is_cuda and x.dtype in _DTYPES and x.is_contiguous() and x.dim() >= 2
+            and x.numel() and c % num_groups == 0 and weight.shape == (c,)
+            and bias.shape == (c,) and weight.dtype == bias.dtype and weight.dtype in _DTYPES
+            and weight.is_contiguous() and bias.is_contiguous() and x.data_ptr() % 16 == 0):
+        require(x.is_cuda, f"K1 needs a CUDA tensor, got {x.device}")
+        require(x.dtype in _DTYPES, f"K1 takes bf16/f32, got {x.dtype}")
+        require(x.is_contiguous() and x.dim() >= 2 and x.numel() > 0,
+                "K1 needs a contiguous, non-empty NHWC tensor")
+        require(c % num_groups == 0, f"K1: C={c} not divisible by {num_groups} groups")
+        require(x.data_ptr() % 16 == 0, "K1 needs a 16-byte aligned tensor")
+        raise ValueError(f"K1: GroupNorm weight/bias must be contiguous bf16/f32 (C,), got "
+                         f"{tuple(weight.shape)} {weight.dtype}")
+    b = x.shape[0]
+    return b, x.numel() // (b * c), c
 
 
-def _stats_launch(x3, weight, bias, num_groups, eps):
-    triton, partial_stats, finalize, _ = _kernels()
-    b, hw, c = x3.shape
-    nch = triton.cdiv(hw, _CHUNK)
-    part = torch.empty((b, nch, 2, c), device=x3.device, dtype=torch.float32)
-    ss = torch.empty((b, 2, c), device=x3.device, dtype=torch.float32)
-    partial_stats[(b, nch, triton.cdiv(c, _BC))](
-        x3, part, hw, c, nch, CHUNK=_CHUNK, BR=_BR, BC=_BC)
-    cpg = c // num_groups
-    finalize[(b, num_groups)](
-        part, weight.contiguous(), bias.contiguous(), ss, hw, c, nch, cpg, float(eps),
-        CHUNK=_CHUNK, BN=64, BG=max(triton.next_power_of_2(cpg), 2))
+def _stats(x, weight, bias, ss_ptr, b, hw, c, num_groups, eps) -> GnPlan:
+    """Launch the statistics kernel into the (B, 2, C) f32 at ``ss_ptr``."""
+    f32 = x.dtype == torch.float32
+    plan = gn_plan(b, hw, c, num_groups, _cuda.sm_count(x.get_device()), 4 if f32 else 2)
+    part = count = None
+    if plan.nchunks > 1:
+        part, count, _ = _workspace(x, 2 * b * plan.nchunks * num_groups, b * plan.slabs)
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_gn_stats, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        ss_ptr, part, count, f32, weight.dtype == torch.float32, b, hw, c, num_groups,
+        plan.vec, plan.gs, plan.r, plan.tiles, _cuda.f32_bits(eps), _cuda.stream_handle(x)),
+        "K1 statistics")
+    return plan
+
+
+def _scale_shift(x, weight, bias, num_groups, eps):
+    b, hw, c = _check(x, weight, bias, num_groups)
+    ss = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    _stats(x, weight, bias, ss.data_ptr(), b, hw, c, num_groups, eps)
+    K1.launched(("stats", b, hw, c, x.dtype, eps))
     return ss
+
+
+def _norm(x, weight, bias, num_groups, eps, silu):
+    b, hw, c = _check(x, weight, bias, num_groups)
+    ss = _workspace(x, 0, 0, b * 2 * c)[2]  # the scale/shift between the two launches
+    plan = _stats(x, weight, bias, ss, b, hw, c, num_groups, eps)
+    y = torch.empty_like(x)
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_gn_apply, x.data_ptr(), ss, y.data_ptr(),
+        x.dtype == torch.float32, b, hw, c, plan.vec, silu, _cuda.stream_handle(x)),
+        "K1 normalize")
+    K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
+    return y
 
 
 def gn_scale_shift_kernel(x, weight, bias, *, num_groups: int = 32,
                           eps: float = 1e-5) -> torch.Tensor:
-    """Launch K1's statistics kernels: the folded (B, 2, C) f32 affine."""
+    """Launch K1's statistics kernel: the folded (B, 2, C) f32 affine."""
     require_no_grad("K1", x, weight, bias)
-    _check(x, weight, num_groups)
-    x3 = _hw_view(x)
-    ss = _stats_launch(x3, weight, bias, num_groups, eps)
-    K1.launched(("stats", *x3.shape, x.dtype, eps))
-    return ss
+    return _scale_shift(x, weight, bias, num_groups, eps)
 
 
 def group_norm_silu_kernel(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                            silu: bool = True) -> torch.Tensor:
     """Launch K1: statistics, then the normalize (+SiLU) pass."""
     require_no_grad("K1", x, weight, bias)
-    _check(x, weight, num_groups)
-    triton, _, _, apply = _kernels()
-    x3 = _hw_view(x)
-    b, hw, c = x3.shape
-    ss = _stats_launch(x3, weight, bias, num_groups, eps)
-    y = torch.empty_like(x)
-    apply[(b, triton.cdiv(hw, 64), triton.cdiv(c, _BC))](
-        x3, ss, y, hw, c, SILU=silu, BR=64, BC=_BC)
-    K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
-    return y
+    return _norm(x, weight, bias, num_groups, eps, silu)
+
+
+def gn_occupancy() -> dict:
+    """Each compiled statistics kernel on the current card, ``{(dtype, vec):
+    {...}}``: registers a thread, spill (local) bytes a thread, static shared
+    bytes a block and resident blocks an SM at 256 threads, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    out = {}
+    for name, f32, vec in (("bf16", 0, 8), ("bf16", 0, 1), ("f32", 1, 4), ("f32", 1, 1)):
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_gn_attrs(f32, vec, got), "K1 attributes")
+        out[(name, vec)] = dict(zip(keys, got))
+    return out
+
+
+def gn_plan_native(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
+                   elem_bytes: int = 2) -> GnPlan:
+    """The plan ``sdtk_gn_plan`` computes (the tests hold :func:`gn_plan` to it)."""
+    got = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().sdtk_gn_plan(b, hw, c, num_groups, elem_bytes, sms, got),
+                "K1 plan")
+    return _plan(*got, hw, c, num_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -254,23 +290,25 @@ def group_norm_silu_kernel(x, weight, bias, *, num_groups: int = 32, eps: float 
 def gn_scale_shift(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                    impl: str = "auto") -> torch.Tensor:
     """Folded GroupNorm affine (B, 2, C) f32: ``y = x * out[:, 0] + out[:, 1]``."""
-    plain = functools.partial(gn_scale_shift_plain, num_groups=num_groups, eps=eps)
     if not use_kernel(impl, x):
-        return plain(x, weight, bias)
-    fwd = functools.partial(gn_scale_shift_kernel, num_groups=num_groups, eps=eps)
+        return gn_scale_shift_plain(x, weight, bias, num_groups, eps)
     if wants_grad(x, weight, bias):
-        return Recompute.apply(fwd, plain, x, weight, bias)
-    return fwd(x, weight, bias)
+        return Recompute.apply(
+            functools.partial(gn_scale_shift_kernel, num_groups=num_groups, eps=eps),
+            functools.partial(gn_scale_shift_plain, num_groups=num_groups, eps=eps),
+            x, weight, bias)
+    return _scale_shift(x, weight, bias, num_groups, eps)
 
 
 def group_norm_silu(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                     silu: bool = True, impl: str = "auto") -> torch.Tensor:
     """GroupNorm over the channel (last) dim of an NHWC tensor (+SiLU).  Its
     gradient is the VJP of the plain version, recomputed (JAX ``_gn_bwd``)."""
-    plain = functools.partial(group_norm_plain, num_groups=num_groups, eps=eps, silu=silu)
     if not use_kernel(impl, x):
-        return plain(x, weight, bias)
-    fwd = functools.partial(group_norm_silu_kernel, num_groups=num_groups, eps=eps, silu=silu)
+        return group_norm_plain(x, weight, bias, num_groups, eps, silu)
     if wants_grad(x, weight, bias):
-        return Recompute.apply(fwd, plain, x, weight, bias)
-    return fwd(x, weight, bias)
+        return Recompute.apply(
+            functools.partial(group_norm_silu_kernel, num_groups=num_groups, eps=eps, silu=silu),
+            functools.partial(group_norm_plain, num_groups=num_groups, eps=eps, silu=silu),
+            x, weight, bias)
+    return _norm(x, weight, bias, num_groups, eps, silu)

@@ -18,6 +18,10 @@ activation code may differ by one where the kernel's bf16 rounding before
 the quantizer and the f32 reference's lie on two sides of a half step.
 """
 
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -46,9 +50,11 @@ def _check(got, ref):
     assert rel <= REL, rel
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 32), (2, 4096, 320), (1, 4096, 512), (2, 64, 2560)])
+@pytest.mark.parametrize("shape", [(2, 16, 32), (2, 4096, 320), (1, 4096, 512), (2, 64, 2560),
+                                   (1, 262144, 128), (4, 262144, 128), (1, 589824, 128)])
 @pytest.mark.parametrize("silu", [True, False])
 def test_k1_groupnorm(gen, shape, silu):
+    """The UNet's and the VAE's shapes (512^2 at b1 and b4, 768^2)."""
     b, hw, c = shape
     x = _rn(gen, b, hw, 1, c, scale=3.0) + 5.0
     w, bias = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
@@ -60,6 +66,96 @@ def test_k1_groupnorm(gen, shape, silu):
     ref = groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), 32, 1e-6)
     torch.cuda.synchronize()
     torch.testing.assert_close(ss, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 262144, 128), (2, 4096, 320)])
+def test_k1_far_from_zero(gen, shape):
+    """Mean 100, std 1 (the one-pass E[x^2] - E[x]^2 loses its digits here)."""
+    b, hw, c = shape
+    x = _rn(gen, b, hw, 1, c) + 100.0
+    w, bias = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
+    ss = groupnorm.gn_scale_shift(x, w, bias, eps=1e-6, impl="cuda")
+    ref = groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), 32, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ss, ref, rtol=1e-4, atol=1e-4)
+    _check(groupnorm.group_norm_silu(x, w, bias, eps=1e-6, impl="cuda"),
+           groupnorm.group_norm_plain(x.float(), w.float(), bias.float(), 32, 1e-6, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 130, 36, 4), (2, 5000, 20, 4), (2, 300, 320, 32)])
+def test_k1_scalar_and_f32_loads(gen, dtype, shape):
+    """C % 8 != 0 (one channel a load, one chunk and many), and f32 input
+    (4 channels a load) with f32 GroupNorm weights."""
+    b, hw, c, groups = shape
+    x = (torch.randn((b, hw, c), generator=gen, device="cuda") * 2 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    ss = groupnorm.gn_scale_shift(x, w, bias, num_groups=groups, impl="cuda")
+    ref = groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), groups, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ss, ref, rtol=1e-4, atol=1e-4)
+    _check(groupnorm.group_norm_silu(x, w, bias, num_groups=groups, impl="cuda"),
+           groupnorm.group_norm_plain(x.float(), w.float(), bias.float(), groups, 1e-5, True))
+
+
+def test_k1_back_to_back_shapes_leave_the_tickets_at_zero(gen):
+    """Two ticketed statistics calls of different shapes in a row, then the
+    same shapes again: each right, the same bits the second time
+    (deterministic merge), and every ticket back at 0."""
+    shapes = [(2, 4096, 1, 320), (1, 16384, 1, 512)]
+    xs = [_rn(gen, *s, scale=2.0) + 1.0 for s in shapes]
+    ws = [(1 + _rn(gen, s[-1], scale=0.1), _rn(gen, s[-1], scale=0.1)) for s in shapes]
+    for s in shapes:
+        assert groupnorm.gn_plan(s[0], s[1], s[3], 32, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count).ticket
+    first = [groupnorm.gn_scale_shift(x, *w, impl="cuda") for x, w in zip(xs, ws)]
+    again = [groupnorm.gn_scale_shift(x, *w, impl="cuda") for x, w in zip(xs, ws)]
+    torch.cuda.synchronize()
+    for x, (w, bias), a, b in zip(xs, ws, first, again):
+        ref = groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), 32, 1e-5)
+        torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4)
+        assert torch.equal(a, b)
+    _, count, _ = groupnorm._WORKSPACE[torch.cuda.current_device()]
+    assert int(count.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 320), (2, 256, 1280), (2, 64, 2560), (1, 262144, 128),
+                                   (4, 262144, 128), (1, 589824, 128), (2, 130, 20), (8, 1024, 960)])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_k1_plan_mirrors_the_c_dispatch(gen, shape, elem_bytes):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = 4 if shape[2] == 20 else 32
+    assert (groupnorm.gn_plan(*shape, groups, sms, elem_bytes)
+            == groupnorm.gn_plan_native(*shape, groups, sms, elem_bytes))
+
+
+def test_k1_imports_no_triton(gen):
+    """K1 is CUDA C++: a process that runs both of its kernels has not
+    imported Triton."""
+    code = ("import sys, torch\n"
+            "from stable_diffusion_tpu_torch.ops import groupnorm as g\n"
+            "x = torch.randn(2, 64, 64, 320, device='cuda').bfloat16()\n"
+            "w = torch.ones(320, device='cuda').bfloat16()\n"
+            "g.group_norm_silu(x, w, w, impl='cuda'); torch.cuda.synchronize()\n"
+            "print('triton' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_k1_k4_occupancy(gen):
+    """Every compiled K1 statistics kernel and K4 variant (G1 at each width
+    it takes, G2 at each column tile): no spills, at least one block an SM,
+    the shared memory each plan computes."""
+    for key, o in groupnorm.gn_occupancy().items():
+        assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (key, o)
+    for c in (320, 640, 1280):
+        for key, o in ffn.ffn_occupancy(c).items():
+            assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (c, key, o)
+            want = ffn._up_smem(key[1], key[2], c) if key[0] == "G1" else ffn._dn_smem(*key[1:4])
+            assert o["smem_bytes"] == want, (c, key, o)
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 4, 32, 32), (2, 32, 32, 960, 320), (1, 64, 64, 512, 256),
@@ -200,16 +296,40 @@ def test_k3_occupancy(gen):
     assert all(("ring", dp, bq) in occ for dp, bq in flash_attention.K3_RING)
 
 
-@pytest.mark.parametrize("shape", [(16, 32), (8192, 320), (2048, 640), (512, 1280), (100, 64)])
-def test_k4_ffn(gen, shape):
+@pytest.mark.parametrize("shape", [(16, 32), (8192, 320), (2048, 640), (512, 1280), (100, 64),
+                                   (128, 1280), (18432, 320), (4608, 640), (1152, 1280), (288, 1280),
+                                   (16384, 320), (4096, 640), (1024, 1280), (256, 1280), (100, 320),
+                                   (8193, 320), (300, 96)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_k4_ffn(gen, shape, residual):
+    """Every (M, C) of the serve, SD2.1 and train paths, ragged M (100,
+    8193), C below a K step (32) and a ragged G2 column tile (96)."""
+    m, c = shape
+    args = [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+            _rn(gen, 8 * c, c, scale=c ** -0.5), _rn(gen, 8 * c, scale=0.1),
+            _rn(gen, c, 4 * c, scale=(4 * c) ** -0.5), _rn(gen, c, scale=0.1),
+            _rn(gen, m, c) if residual else None]
+    before = ffn.K4.launches
+    got = ffn.geglu_ffn(*args, impl="cuda")
+    assert ffn.K4.launches == before + 1
+    _check(got, ffn.geglu_ffn_plain(*(None if t is None else t.float() for t in args)))
+
+
+@pytest.mark.parametrize("shape", [(300, 320), (200, 96), (130, 1280)])
+def test_k4_every_variant(gen, shape):
+    """Every compiled G1 variant (with the planner's G2) and G2 variant
+    (with the planner's G1) through ``_plan``, at ragged M and columns."""
     m, c = shape
     args = [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
             _rn(gen, 8 * c, c, scale=c ** -0.5), _rn(gen, 8 * c, scale=0.1),
             _rn(gen, c, 4 * c, scale=(4 * c) ** -0.5), _rn(gen, c, scale=0.1), _rn(gen, m, c)]
-    before = ffn.K4.launches
-    got = ffn.geglu_ffn(*args, impl="cuda")
-    assert ffn.K4.launches == before + 1
-    _check(got, ffn.geglu_ffn_plain(*(t.float() for t in args)))
+    ref = ffn.geglu_ffn_plain(*(t.float() for t in args))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [ffn.ffn_plan(m, c, sms, g1=v) for v in ffn.FFN_G1_VARIANTS
+             if ffn._up_smem(v[0], v[1], c) <= ffn.SMEM_BLOCK]
+    plans += [ffn.ffn_plan(m, c, sms, g2=v) for v in ffn.FFN_G2_VARIANTS]
+    for plan in plans:
+        _check(ffn.geglu_ffn_kernel(*args, _plan=plan), ref)
 
 
 def test_kernels_raise_on_shapes_they_do_not_take(gen):
