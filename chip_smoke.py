@@ -11,6 +11,10 @@
                                            # bodies at the train step's ring shapes
     python3 chip_smoke.py --k4-sweep       # phases 1-2, then every K4 G1 and G2 variant
                                            # at the serve, SD2.1 and train shapes
+    python3 chip_smoke.py --k8-sweep       # phases 1-2, then every K8 variant at the
+                                           # W8A8 path's shapes, beside torch._int_mm
+    python3 chip_smoke.py --k12-sweep      # phases 1-2, then K12 at every region shape at
+                                           # the switched SD2.1 shapes, beside the K2 route
     python3 chip_smoke.py --k1-host [--root DIR]
                                            # phase 1, then K1 by kind at the serving
                                            # pass's shapes: device ms and host us a call
@@ -26,9 +30,9 @@ and the final line is printed only when every phase passed:
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
                  the SM count and the maximum SM clock.
   2. build    -- compiles the CUDA kernels (nvcc, sm_90a) from this
-                 checkout's sources; prints the seconds and each K1, K2, K3
-                 and K4 variant's registers, spills, shared bytes and blocks
-                 per SM.
+                 checkout's sources; prints the seconds and each K1, K2, K3,
+                 K4, K8 and K12 variant's registers, spills, shared bytes
+                 and blocks per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
@@ -58,7 +62,10 @@ and the final line is printed only when every phase passed:
                  context at UNet batch 8, quantizes its linears and 3x3 convs;
                  records the shapes K1-K3 and K7-K9 get in one b4 DDIM step
                  and checks and times each kernel there (K7-K9 beside their
-                 bf16 counterparts, and torch._int_mm for K8); holds one CFG
+                 bf16 counterparts, and torch._int_mm for K8, its rows
+                 zero-padded to 32 where M <= 16; K8's lines name each
+                 shape's plan and the bound of the design's own bytes);
+                 holds one CFG
                  UNet step against the plain W8A8 path in f32, below the
                  distance of the unquantized bf16 UNet from it, beside the
                  plain W8A8 path in bf16 as a witness, and reports it against
@@ -85,7 +92,8 @@ and the final line is printed only when every phase passed:
                  shapes of one b1 CFG DDIM step each way, checks K1-K4 at
                  SD2.1's shapes and K10-K12 at every shape of the switched
                  step against their plain f32 versions (K12 also within 2.5x
-                 of K2's error against the f32 direct conv), and times each
+                 of K2's error against the f32 direct conv; its lines name
+                 each shape's plan), and times each
                  beside its bound, its library call and the route it
                  replaces; holds the full SD2.1 UNet to
                  tests/golden/full_sd21_ddim2.npz (plain f32, then the
@@ -213,7 +221,7 @@ KERNELS = {
                replaces="stable_diffusion_tpu/ops/linear.py:400",
                replaces_all=["stable_diffusion_tpu/ops/linear.py:400 _make_q_kernel"],
                library="torch._int_mm on the int8 operands (the product only: no LN, quantize "
-                       "or dequantize; shapes with M > 16)",
+                       "or dequantize; rows zero-padded to 32 where M <= 16)",
                bf16="layer_norm_plain (LN shapes) -> F.linear on the bf16 weight (+ residual)"),
     "K9": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/ffn_q.cu",
                replaces="stable_diffusion_tpu/ops/ffn.py:319",
@@ -411,14 +419,28 @@ def _w8a8_case(kernel: str, key, gen):
         def bf16():  # the bf16 path's LN (layers.layer_norm) included, as in K8
             y = F.linear(linear.layer_norm_plain(x, lw, lb) if ln else x, wd, bias)
             return y if r is None else y + r
-        if m > 16:  # torch._int_mm's shape rule
-            xq = quantize_act(h, act_step(act))
+        # torch._int_mm takes M > 16 only: the time embeddings' rows are
+        # zero-padded to 32 for it
+        xq = quantize_act(h, act_step(act))
+        if m <= 16:
+            xq = torch.cat([xq, xq.new_zeros(32 - m, k)])
 
-            def library():
-                return torch._int_mm(xq, q.t())
+        def library():
+            return torch._int_mm(xq, q.t())
+        plan = linear.linear_q_plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+        rb = -(-m // plan.bm)
         work = dict(flops=2 * m * k * n,
                     bytes=2 * m * k + n * k + 2 * m * n * (2 if res else 1) + 6 * n
-                    + (4 * k if ln else 0))
+                    + (4 * k if ln else 0),
+                    # the design's own traffic: x read once and its int8 rows
+                    # written once, those read by each N split, the weight by
+                    # each row block, y (and the residual) once, split-K sums
+                    # added by each part and read back once
+                    design_bytes=3 * m * k + m * k * plan.nsplit
+                    + n * k * rb + 2 * m * n * (2 if res else 1) + 6 * n
+                    + (4 * m * n * (plan.ksplit + 2) if plan.ksplit > 1 else 0),
+                    note=f"plan={plan.variant} nsplit={plan.nsplit} ksplit={plan.ksplit} "
+                         f"smem={plan.smem}")
     else:  # K9
         m, c, hidden, ln, res = key
         assert ln and res, "the W8A8 path runs K9 with its LayerNorm and residual"
@@ -442,7 +464,7 @@ def _w8a8_case(kernel: str, key, gen):
         work = dict(flops=6 * m * c * hidden, bytes=6 * m * c + 3 * c * hidden + 12 * hidden + 10 * c)
     return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
                 ref=lambda: run(*map(f32, args), impl="torch"), library=library, bf16=bf16,
-                plain_once=True, rate=INT8_TC_OPS, **work)
+                plain_once=True, rate=INT8_TC_OPS, args=args, **work)
 
 
 def _switched_case(kernel: str, key, gen):
@@ -451,7 +473,7 @@ def _switched_case(kernel: str, key, gen):
     off (the route the kernel replaces).  K12 also carries ``bar``: its error
     against the f32 direct conv (TF32 off) within WINOGRAD_VS_DIRECT of
     K2's on the same inputs."""
-    from stable_diffusion_tpu_torch.ops import conv, groupnorm, linear
+    from stable_diffusion_tpu_torch.ops import conv, groupnorm, linear, winograd
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
@@ -529,15 +551,24 @@ def _switched_case(kernel: str, key, gen):
             e2 = ((direct - truth).abs().max() / scale).item()
             return e12 <= WINOGRAD_VS_DIRECT * max(e2, 1e-4), f"vs f32 direct {e12:.3e}, K2 {e2:.3e}"
         px = b * h * w_
+        plan = winograd.winograd_plan(b, h, w_, cin, cout)
         # Winograd's own operations (JAX's cost estimate): 16 products per 4 outputs
-        work = dict(flops=2 * px * 4 * cin * cout,
+        regions, cblocks = plan.grid
+        halo = (2 * plan.region[0] + 2) * (2 * plan.region[1] + 2)
+        work = dict(note=f"region={plan.region} grid={plan.grid} chunks={plan.chunks}",
+                    flops=2 * px * 4 * cin * cout,
                     bytes=2 * (px * (cin + cout) + 16 * cin * cout + cout)
                     + (b * 2 * cin * 4 if prologue else 0),
+                    # the design's own traffic: each block reads its region's
+                    # halo at every input channel (and the scale/shift) and
+                    # its 64 channels of U, and writes its outputs once
+                    design_bytes=regions * cblocks * (2 * halo * cin + (2 * cin * 4 if prologue else 0))
+                    + regions * 2 * 16 * cin * cout + 2 * px * cout + 2 * cout * regions,
                     plain_once=px * max(cin, cout) >= 2 ** 25)  # the VAE's 768^2 stages
     return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
                 ref=lambda: run(*map(f32, args), impl="torch"), library=library,
                 bf16=unswitched(lambda: run(*args, impl="cuda")), bar=bar, rate=BF16_TC_FLOPS,
-                **work)
+                args=args, **work)
 
 
 def _case(kernel: str, key, gen):
@@ -756,11 +787,15 @@ def check_kernels(shapes, kernels, label: str):
             h_us = (host_us(case["host"]) if case.get("host") is not None
                     and smallest[key[0]][1] == key else None)
             b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"], case.get("exps", 0))
+            d_ms = (bound_ms(case["flops"], case["design_bytes"], case["rate"])[0]
+                    if case.get("design_bytes") is not None else None)
             tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
             tot["ms"] += n * k_ms
             tot["plain_ms"] += n * p_ms
             tot["bound_ms"] += n * b_ms
             by[b_by] += n * b_ms
+            if d_ms is not None:
+                tot["design_bound_ms"] = tot.get("design_bound_ms", 0.0) + n * d_ms
             if lib_ms is not None:
                 tot["library_ms"] += n * lib_ms
                 tot["ms_at_library_shapes"] += n * k_ms
@@ -788,7 +823,8 @@ def check_kernels(shapes, kernels, label: str):
                 + ("" if bf_ms is None else f"bf16_ms={bf_ms:.4f} ")
                 + "".join(f"{name}_ms={ms:.4f} " for name, ms in also.items())
                 + ("" if h_us is None else f"host_us={h_us:.2f} ")
-                + f"bound_ms={b_ms:.4f} ({b_by})")
+                + f"bound_ms={b_ms:.4f} ({b_by})"
+                + ("" if d_ms is None else f" design_bound_ms={d_ms:.4f}"))
         summary[kernel] = dict(
             shapes=len(keys), max_abs_err=tot["err"], max_rel_err=tot["rel"], ms=tot["ms"],
             plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
@@ -796,6 +832,11 @@ def check_kernels(shapes, kernels, label: str):
             library_ms=tot["library_ms"] if KERNELS[kernel]["library"] else None)
         if KERNELS[kernel].get("bf16"):
             summary[kernel]["bf16_ms"] = tot["bf16_ms"]
+        if "design_bound_ms" in tot:
+            # computed from the plan's own bytes, not measured: text only
+            summary[kernel]["design_bound_ms"] = tot["design_bound_ms"]
+            say(f"  {label} {kernel} design_bound_ms per pass (computed) = "
+                f"{tot['design_bound_ms']:.4f}")
         if tot_also:
             summary[kernel]["also_ms"] = tot_also
         if groups:
@@ -1642,6 +1683,138 @@ def k4_sweep() -> bool:
     return ok
 
 
+# (M, K, N, LN, residual) of phase 6's K8 shapes and their calls in one
+# W8A8 b4 pass (one b4 DDIM step at UNet batch 8).
+K8_SWEEP_SHAPES = [((1, 1280, 1280, False, False), 13), ((1, 1280, 320, False, False), 5),
+                   ((1, 1280, 640, False, False), 5), ((1, 320, 1280, False, False), 1),
+                   ((32768, 320, 320, False, True), 10), ((32768, 320, 320, True, False), 5),
+                   ((32768, 320, 960, True, False), 5), ((8192, 640, 640, False, True), 10),
+                   ((8192, 640, 640, True, False), 5), ((8192, 640, 1920, True, False), 5),
+                   ((2048, 1280, 1280, False, True), 10), ((2048, 1280, 1280, True, False), 5),
+                   ((2048, 1280, 3840, True, False), 5), ((512, 1280, 1280, False, True), 2),
+                   ((512, 1280, 1280, True, False), 1), ((512, 1280, 3840, True, False), 1),
+                   ((616, 768, 320, False, False), 10), ((616, 768, 640, False, False), 10),
+                   ((616, 768, 1280, False, False), 12)]
+
+
+def k8_sweep() -> bool:
+    """K8 at each W8A8 path shape: every compiled variant with the
+    planner's splits for it, each checked against the plain f32 version and
+    timed on the device (CUDA-graph replay), beside the planner's choice
+    through the entry point (CUDA events as phase 6 times it, the device
+    time, and the host us a call) and torch._int_mm (rows zero-padded to 32
+    where M <= 16); per-pass sums."""
+    from stable_diffusion_tpu_torch.ops import linear
+    from stable_diffusion_tpu_torch.ops.quantize import folded_scales
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok, per_pass = True, {}
+    for key, calls in K8_SWEEP_SHAPES:
+        m, k, n, ln, res = key
+        case = _w8a8_case("K8", key, gen)
+        ref = case["ref"]().float()
+        refmax = ref.abs().max().item()
+        entry = cuda_ms(case["kernel"])
+        device = graph_ms(case["kernel"])
+        h_us = host_us(case["kernel"], calls=300)
+        lib = cuda_ms(case["library"])
+        lib_dev = graph_ms(case["library"])
+        chosen = linear.linear_q_plan(m, k, n, sms)
+        say(f"  k8 shape={key} calls={calls} plan={chosen.variant} nsplit={chosen.nsplit} "
+            f"ksplit={chosen.ksplit} entry_ms={entry:.4f} device_ms={device:.4f} host_us={h_us:.2f} "
+            f"int_mm_ms={lib:.4f} int_mm_device_ms={lib_dev:.4f}")
+        for name, ms in (("entry", entry), ("device", device), ("int_mm", lib),
+                         ("int_mm device", lib_dev)):
+            per_pass[name] = per_pass.get(name, 0.0) + calls * ms
+        x, q, sc, act, bias, r, lw, lb = case["args"]
+        s_x, oscale = folded_scales(sc, act)
+        for v in linear.LQ_VARIANTS:
+            try:
+                plan = linear.linear_q_plan(m, k, n, sms, variant=v)
+            except ValueError:
+                continue  # the variant's rows do not fit at any split
+            run = lambda plan=plan: linear.matmul_w8a8_kernel(  # noqa: E731
+                x, q, s_x, oscale, bias, r, lw, lb, _plan=plan)
+            got = run().float()
+            torch.cuda.synchronize()
+            rel = (got - ref).abs().max().item() / refmax
+            good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+            ok &= good
+            ms = graph_ms(run)
+            per_pass[v] = per_pass.get(v, 0.0) + calls * ms
+            say(f"    {v} nsplit={plan.nsplit} ksplit={plan.ksplit} {'ok ' if good else 'BAD'} "
+                f"rel={rel:.3e} device_ms={ms:.4f}" + (" <- plan" if plan == chosen else ""))
+        del case, ref
+        torch.cuda.empty_cache()
+    say("k8 per W8A8 pass (ms): " + "; ".join(f"{k} {v:.3f}" for k, v in per_pass.items()))
+    return ok
+
+
+# (B, H, W, Cin, Cout, prologue) of phase 8's K12 shapes and their calls
+# in one switched SD2.1 768^2 pass (one CFG step and the VAE decode).
+K12_SWEEP_SHAPES = [((2, 96, 96, 320, 320, True), 7), ((2, 96, 96, 640, 320, True), 2),
+                    ((2, 96, 96, 640, 640, False), 1), ((2, 96, 96, 960, 320, True), 1),
+                    ((2, 48, 48, 320, 640, True), 1), ((2, 48, 48, 640, 640, True), 6),
+                    ((2, 48, 48, 960, 640, True), 1), ((2, 48, 48, 1280, 640, True), 1),
+                    ((2, 48, 48, 1280, 1280, False), 1), ((2, 48, 48, 1920, 640, True), 1),
+                    ((2, 24, 24, 640, 1280, True), 1), ((2, 24, 24, 1280, 1280, False), 1),
+                    ((2, 24, 24, 1280, 1280, True), 6), ((2, 24, 24, 1920, 1280, True), 1),
+                    ((2, 24, 24, 2560, 1280, True), 2), ((1, 96, 96, 512, 512, True), 10),
+                    ((1, 192, 192, 512, 512, False), 1), ((1, 192, 192, 512, 512, True), 6),
+                    ((1, 384, 384, 512, 512, False), 1), ((1, 384, 384, 512, 256, True), 1),
+                    ((1, 384, 384, 256, 256, True), 5), ((1, 768, 768, 256, 256, False), 1),
+                    ((1, 768, 768, 256, 128, True), 1), ((1, 768, 768, 128, 128, True), 5)]
+
+
+def k12_sweep() -> bool:
+    """K12 at each switched SD2.1 shape: every region shape a block can
+    take, each checked against the plain f32 version and timed, beside the
+    planner's choice through the entry point, the K2 route it replaces and
+    F.conv2d; per-pass sums (the UNet's step and the VAE decode apart)."""
+    from stable_diffusion_tpu_torch.ops import winograd
+    from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    ok, per_pass = True, {}
+    with switches(True):
+        for key, calls in K12_SWEEP_SHAPES:
+            b, h, w, cin, cout, prologue = key
+            part = "unet" if b == 2 else "vae"
+            case = _switched_case("K12", key, gen)
+            ref = case["ref"]().float()
+            refmax = ref.abs().max().item()
+            chosen = winograd.winograd_plan(b, h, w, cin, cout)
+            entry, k2, lib = cuda_ms(case["kernel"]), cuda_ms(case["bf16"]), cuda_ms(case["library"])
+            say(f"  k12 shape={key} calls={calls} region={chosen.region} entry_ms={entry:.4f} "
+                f"k2_route_ms={k2:.4f} conv2d_ms={lib:.4f}")
+            for name, ms in (("entry", entry), ("k2 route", k2), ("conv2d", lib)):
+                per_pass[(part, name)] = per_pass.get((part, name), 0.0) + calls * ms
+            args = case["args"]
+            x, wt, bias = args[0], args[-2], args[-1]
+            ss = gn_scale_shift_kernel(x, args[1], args[2]) if prologue else None
+            for region in winograd.WINO_REGIONS:
+                plan = chosen._replace(region=region,
+                                       grid=(b * -(-(h // 2) // region[0]) * -(-(w // 2) // region[1]),
+                                             chosen.grid[1]))
+                run = lambda plan=plan: winograd.conv3x3_winograd_kernel(  # noqa: E731
+                    x, wt, bias, ss, _plan=plan)
+                got = run().float()
+                torch.cuda.synchronize()
+                rel = (got - ref).abs().max().item() / refmax
+                good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+                ok &= good
+                ms = cuda_ms(run)
+                per_pass[(part, region)] = per_pass.get((part, region), 0.0) + calls * ms
+                say(f"    region {region} {'ok ' if good else 'BAD'} rel={rel:.3e} ms={ms:.4f}"
+                    + (" <- plan" if region == chosen.region else ""))
+            del case, ref
+            torch.cuda.empty_cache()
+    say("k12 per switched SD2.1 pass (ms): " + "; ".join(
+        f"{p} {k} {v:.3f}" for (p, k), v in per_pass.items()))
+    return ok
+
+
 def sd21_line(sd) -> str:
     return (f"768^2 b1 DDIM {SERVE_STEPS} CFG 7.5: s/request switches off "
             f"{[round(x, 3) for x in sd['secs_off']]}, on {[round(x, 3) for x in sd['secs_on']]}; "
@@ -1710,6 +1883,16 @@ def main() -> int:
     say("  K3 variants (body, padded d, bq): " + "; ".join(
         f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in flash_attention.attention_occupancy().items()))
+    for k in (320, 1280):
+        say(f"  K8 variants (bm, bn, stages, min blocks) with K={k} resident: "
+            + occ(linear.linear_q_occupancy(k)))
+    o = winograd.winograd_occupancy()
+    say(f"  K12 (64 tiles x 64 channels, F-fold): {o['registers']} registers, {o['spill_bytes']} spill "
+        f"bytes, {o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM")
+    if "--k8-sweep" in sys.argv[1:]:
+        return 0 if k8_sweep() else 1
+    if "--k12-sweep" in sys.argv[1:]:
+        return 0 if k12_sweep() else 1
     if "--k3-sweep" in sys.argv[1:]:
         return 0 if k3_sweep() else 1
     if "--k56-sweep" in sys.argv[1:]:

@@ -80,6 +80,19 @@ __device__ __forceinline__ int quantize_s8(float v, float s) {
   return max(-127, min(127, __float2int_rn(v / s)));
 }
 
+// The same codes from inv = 1 / s (rounded once, IEEE): q0 = v * inv is
+// within an ulp of v / s, and one FMA correction, q0 + (v - q0 s) inv with
+// the residual exact, gives the correctly rounded quotient (Markstein's
+// theorem, for a correctly rounded reciprocal and no underflow; a quotient
+// small enough to underflow rounds to code 0 either way).  Five
+// instructions where the IEEE division's inlined slow-path check costs
+// ~25 and a call site (K8 quantizes every value of its rows with it).
+__device__ __forceinline__ int quantize_s8_rcp(float v, float s, float inv) {
+  const float q0 = v * inv;
+  const float q = fmaf(fmaf(-q0, s, v), inv, q0);
+  return max(-127, min(127, __float2int_rn(q)));
+}
+
 // Four int8 codes packed into one 32-bit word, lowest address first.
 __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
   return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |

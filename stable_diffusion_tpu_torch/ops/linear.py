@@ -27,10 +27,14 @@ the two are one function.  Under autograd the kernels run inside
 K8 (csrc/linear_q.cu) replaces ``_make_q_kernel`` (``_q_mm_call``, entries
 ``ln_matmul_w8a8`` / ``matmul_w8a8``): (LayerNorm ->) quantize the
 activation to int8 with the layer's static scale -> int8 x int8 -> int32
-product -> dequantize, +bias (+residual).  The int8 activation never reaches
-device memory.  One kernel serves every W8A8 linear of the UNet (fused QKV,
+product -> dequantize, +bias (+residual).  One kernel serves every W8A8 linear of the UNet (fused QKV,
 cross q/k/v, the out projections, ``t_embed`` and the time embedding) at any
-M; the note at the top of the source says what bounds it.  Inference only:
+M; the note at the top of the source says what bounds it and how it is
+built: a first launch LayerNorms and quantizes each row once into an int8
+scratch, the second multiplies.  :func:`linear_q_plan` chooses the
+product's launch (the variant, the N split and the K split), as the C
+entry takes it; split-K partials meet in a per-device int32 workspace that
+the kernel leaves zero.  Inference only:
 every W8A8 entry point raises NotImplementedError when an input wants a
 gradient (JAX ``_q_raise_bwd``).
 
@@ -46,7 +50,10 @@ codes.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -243,15 +250,147 @@ def matmul_w8a8_plain(x, weight_q, weight_scale, act_scale, bias=None, residual=
     return y if residual is None else y + residual
 
 
-def matmul_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, residual=None,
-                       ln_weight=None, ln_bias=None, *, eps: float = 1e-5):
-    """Launch K8.  x (..., K) bf16 contiguous on CUDA; weight_q (N, K) int8;
-    s_x (1,) and out_scale = s_x * weight_scale (N,) f32 (``folded_scales``);
-    bias (N,), residual (..., N) and the LN affine (K,) bf16."""
-    require_no_grad("K8", x, bias, residual, ln_weight, ln_bias)
+# K8's compiled variants (csrc/linear_q.cu SDTK_LQ_VARIANTS): (rows a block,
+# columns a tile, ring stages, blocks an SM for the launch bound).
+LQ_VARIANTS = ((128, 160, 4, 1), (128, 160, 3, 1), (64, 160, 4, 2), (64, 64, 4, 2), (64, 32, 4, 2),
+               (64, 16, 4, 2))
+LQ_KC = 128                # K a step: one 128-byte row of int8
+SMEM_BLOCK = 232448        # 227 KB a block may use on an H100
+SMEM_SM = 233472           # 228 KB an SM
+# The planner's cost model (rates an H100 reaches at best, scaled down):
+# int8 tensor work at 60% of 1979 TOP/s over the card; device memory at
+# 80% of 3.35 TB/s shared by the busy SMs, at most 60 GB/s an SM; L2 at
+# ~40 GB/s an SM; shared memory at ~200 GB/s an SM (wgmma reads A and B
+# from it); ~0.3 us a ring step at least and ~2 us a block to start.
+_LQ_OPS, _LQ_HBM, _LQ_HBM_SM, _LQ_L2, _LQ_SMEM = 0.6 * 1979e12, 0.8 * 3.35e12, 60e9, 40e9, 200e9
+_LQ_STEP, _LQ_BLOCK = 0.3e-6, 2e-6
+
+
+class LinearQPlan(NamedTuple):
+    """K8's launch at (m, k, n): ``variant`` = (rows a block, columns a
+    tile, stages, blocks an SM); its N tiles split over ``nsplit`` blocks a
+    row block and its 128-byte K chunks over ``ksplit``; ``nkc`` the K
+    chunks a block holds; ``smem`` its dynamic shared bytes."""
+    variant: tuple
+    nsplit: int
+    ksplit: int
+    nkc: int
+    smem: int
+
+    @property
+    def bm(self) -> int:
+        return self.variant[0]
+
+    @property
+    def bn(self) -> int:
+        return self.variant[1]
+
+    def grid(self, m: int):
+        """(row blocks, N splits, K splits): the launch grid."""
+        return -(-m // self.bm), self.nsplit, self.ksplit
+
+
+def lq_smem(bm: int, bn: int, stages: int, nkc: int) -> int:
+    """1024 bytes to align the ring, ``stages`` slabs of ``bn`` weight rows
+    x 128 bytes, the block's ``bm`` int8 rows of ``nkc`` 128-byte chunks,
+    three tiles' out_scale (f32) and bias (bf16) for their epilogues, 16
+    for the split-K ticket's flag."""
+    return 1024 + stages * bn * LQ_KC + bm * nkc * LQ_KC + 3 * bn * 6 + 16
+
+
+def _lq_cost(m: int, k: int, n: int, sms: int, variant: tuple, nsplit: int, ksplit: int) -> float:
+    """Seconds the planner expects of the product's launch: waves of
+    blocks, each block reading its int8 rows, running its tiles' ring steps
+    and storing (or merging) each tile."""
+    bm, bn, stages, minb = variant
+    kch, ntiles = -(-k // LQ_KC), -(-n // bn)
+    nch, tiles = -(-kch // ksplit), -(-ntiles // nsplit)
+    resident = max(1, min(minb, SMEM_SM // (lq_smem(bm, bn, stages, nch) + 1024)))
+    blocks = -(-m // bm) * nsplit * ksplit
+    busy = min(sms, -(-blocks // resident))
+    hbm = min(_LQ_HBM / busy, _LQ_HBM_SM) / resident
+    ops, l2, sm = _LQ_OPS / sms / resident, _LQ_L2 / resident, _LQ_SMEM / resident
+    rows = bm * nch * LQ_KC
+    step = max(2 * bm * bn * LQ_KC / ops, bn * LQ_KC / l2,
+               (bm + bm // 64 * bn) * LQ_KC / sm, _LQ_STEP)
+    tile = nch * step + bm * bn * 2 / hbm + (bm * bn * 8 / l2 if ksplit > 1 else 0)
+    block = _LQ_BLOCK + rows / hbm + tiles * tile
+    return -(-blocks // (sms * resident)) * block
+
+
+@functools.lru_cache(maxsize=None)
+def linear_q_plan(m: int, k: int, n: int, sms: int = 132, variant: tuple = None) -> LinearQPlan:
+    """K8's launch for an (m, k, n) call on a card of ``sms`` SMs, as
+    csrc/linear_q.cu's entry takes it (``variant`` names one to measure
+    instead of the planner's choice).
+
+    M <= 64 (the time embeddings): 64-row blocks, one tile each, the
+    widest tile (64, 32 or 16 columns) whose tiles times K chunks reach
+    ``sms`` blocks, and K split until the blocks do (weight-bound: at least
+    ``sms`` blocks stream the weight wherever the chunks allow).  Larger M:
+    the variant and N split that the cost model (``_lq_cost``) finishes
+    soonest, the fewest splits on a tie; K is split only where a block's
+    rows of all of K would not fit shared memory (merging M x N int32
+    partials by atomics cost 3x at (2048, 1280, 1280) on an NVIDIA H100
+    80GB HBM3 at 700 W)."""
+    require(m >= 1 and k % 32 == 0 and n % 8 == 0,
+            f"K8 takes K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
+    kch = -(-k // LQ_KC)
+
+    def fits(v, ks):
+        return lq_smem(*v[:3], -(-kch // ks)) <= SMEM_BLOCK
+
+    def make(v, ns, ks):
+        nkc = -(-kch // ks)
+        return LinearQPlan(v, ns, ks, nkc, lq_smem(*v[:3], nkc))
+
+    if variant is not None:
+        require(variant in LQ_VARIANTS, f"K8: no variant {variant}")
+        cands = [variant]
+    elif m <= 64:
+        small = [v for v in LQ_VARIANTS if v[0] == 64 and v[1] <= 64]
+        v = next((v for v in small if -(-n // v[1]) * kch >= sms), small[-1])
+        ntiles = -(-n // v[1])
+        ks = min(kch, max(-(-sms // ntiles), 1))
+        while not fits(v, ks):
+            ks += 1
+        return make(v, ntiles, ks)
+    else:
+        cands = [v for v in LQ_VARIANTS if v[1] >= 64]
+    best = None
+    for v in cands:
+        ntiles = -(-n // v[1])
+        ks = next((ks for ks in range(1, kch + 1) if fits(v, ks)), None)
+        if ks is None:
+            continue
+        for ns in range(1, ntiles + 1):
+            cost = _lq_cost(m, k, n, sms, v, ns, ks)
+            if best is None or cost < best[0] * (1 - 1e-9):
+                best = (cost, v, ns, ks)
+    require(best is not None, f"K8: no variant fits K={k}")
+    return make(*best[1:])
+
+
+_LQ_WS = {}  # device index -> int32 workspace: split-K sums, then tickets; left zero
+_LQ_Q = {}   # device index -> uint8 scratch: the quantized rows
+
+
+def _lq_workspace(x: torch.Tensor, ints: int) -> int:
+    """The pointer of at least ``ints`` zero int32 on ``x``'s device, reused
+    call after call (K8 leaves what it used zero; calls on one stream are
+    ordered, so two streams must not run split-K K8 on one device at once)."""
+    buf = _LQ_WS.get(x.get_device())
+    if buf is None or buf.numel() < ints:
+        buf = torch.zeros(max(ints, 1 << 18), device=x.device, dtype=torch.int32)
+        _LQ_WS[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def _k8_refuse(x, weight_q, s_x, out_scale, bias, residual, ln_weight, ln_bias):
+    """Raise the ValueError that names what K8 does not take (its shape
+    rules, checked in one expression on the launch path)."""
     require(x.is_cuda, f"K8 needs a CUDA tensor, got {x.device}")
     k = x.shape[-1]
-    m = x.numel() // k
     n = weight_q.shape[0]
     require(k % 32 == 0 and n % 8 == 0, f"K8 takes K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
     require(weight_q.shape == (n, k) and weight_q.dtype == torch.int8 and weight_q.is_contiguous(),
@@ -262,20 +401,80 @@ def matmul_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, residual=None,
     bf = [x] + [t for t in (bias, residual, ln_weight, ln_bias) if t is not None]
     require(all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf),
             "K8 takes contiguous bf16 activations, bias, residual and LN affine")
-    require(x.data_ptr() % 16 == 0 and weight_q.data_ptr() % 16 == 0, "K8 needs 16-byte alignment")
     require(bias is None or bias.shape == (n,), "K8: bias must be (N,)")
     require(residual is None or residual.shape == (*x.shape[:-1], n), "K8: residual shape")
     require((ln_weight is None) == (ln_bias is None)
             and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,)),
             "K8: LN weight and bias must both be (K,) or both None")
+    raise ValueError("K8 needs x, weight_q and the LN affine 16-byte aligned")
+
+
+def _lq_rows(x: torch.Tensor, nbytes: int) -> int:
+    """The pointer of at least ``nbytes`` of scratch on ``x``'s device for
+    K8's quantized rows, reused call after call (calls on one stream are
+    ordered, so two streams must not run K8 on one device at once)."""
+    buf = _LQ_Q.get(x.get_device())
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), device=x.device, dtype=torch.uint8)
+        _LQ_Q[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def matmul_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, residual=None,
+                       ln_weight=None, ln_bias=None, *, eps: float = 1e-5,
+                       _plan: LinearQPlan = None):
+    """Launch K8.  x (..., K) bf16 contiguous on CUDA; weight_q (N, K) int8;
+    s_x (1,) and out_scale = s_x * weight_scale (N,) f32 (``folded_scales``);
+    bias (N,), residual (..., N) and the LN affine (K,) bf16.  ``_plan``
+    runs another plan (for measuring)."""
+    require_no_grad("K8", x, bias, residual, ln_weight, ln_bias)
+    k = x.shape[-1]
+    m = x.numel() // k
+    n = weight_q.shape[0]
+    bf = [t for t in (x, bias, residual, ln_weight, ln_bias) if t is not None]
+    if not (x.is_cuda and k % 32 == 0 and n % 8 == 0 and weight_q.shape == (n, k)
+            and weight_q.dtype == torch.int8 and weight_q.is_contiguous()
+            and s_x.shape == (1,) and out_scale.shape == (n,)
+            and s_x.dtype == out_scale.dtype == torch.float32
+            and s_x.is_contiguous() and out_scale.is_contiguous()
+            and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
+            and all(t.data_ptr() % 16 == 0 for t in (x, weight_q, ln_weight, ln_bias) if t is not None)
+            and (bias is None or bias.shape == (n,))
+            and (residual is None or residual.shape == (*x.shape[:-1], n))
+            and (ln_weight is None) == (ln_bias is None)
+            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))):
+        _k8_refuse(x, weight_q, s_x, out_scale, bias, residual, ln_weight, ln_bias)
+    plan = _plan or linear_q_plan(m, k, n, _cuda.sm_count(x.get_device()))
+    ws = tickets = None
+    if plan.ksplit > 1:
+        rb, nt = -(-m // plan.bm), -(-n // plan.bn)
+        ws = _lq_workspace(x, m * n + rb * nt)
+        tickets = ws + 4 * m * n
     out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    code = _cuda.library().sdtk_linear_q(
-        x.data_ptr(), ptr(ln_weight), ptr(ln_bias), weight_q.data_ptr(), s_x.data_ptr(),
-        out_scale.data_ptr(), ptr(bias), ptr(residual), out.data_ptr(), m, n, k, float(eps),
-        _cuda.stream_handle(x))
-    _cuda.check(code, "K8 linear_q")
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_linear_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias),
+        weight_q.data_ptr(), s_x.data_ptr(), out_scale.data_ptr(), ptr(bias), ptr(residual),
+        out.data_ptr(), ws, tickets, _lq_rows(x, m * k), m, n, k, *plan.variant, plan.nsplit,
+        plan.ksplit,
+        _cuda.f32_bits(eps), _cuda.stream_handle(x)), "K8 linear_q")
     K8.launched((m, k, n, ln_weight is not None, residual is not None))
+    return out
+
+
+def linear_q_occupancy(k: int = 1280) -> dict:
+    """Each compiled K8 variant on the current card, its rows of all of
+    ``k`` resident (variants that do not fit left out): ``{variant: {...}}``
+    with registers a thread, spill (local) bytes a thread, shared bytes a
+    block and resident blocks an SM, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    nkc = -(-k // LQ_KC)
+    out = {}
+    for v in LQ_VARIANTS:
+        if lq_smem(*v[:3], nkc) <= SMEM_BLOCK:
+            got = (ctypes.c_int * 4)()
+            _cuda.check(_cuda.library().sdtk_linear_q_attrs(*v, nkc, got), "K8 attributes")
+            out[v] = dict(zip(keys, got))
     return out
 
 

@@ -20,6 +20,9 @@ port drops: K12 reads the NHWC input directly and writes NHWC, so every
 shape the rule admits runs (the 768^2 VAE stages too, which JAX's plan
 refused).
 
+K12's launch comes from :func:`winograd_plan` (the region of 64 tiles a
+block, the channel blocks, the shared bytes), as the C entry takes it.
+
 Numerics: the transforms are exact in f32 (B and A hold 0 and +-1); V and U
 are rounded to the input dtype once before the products, as on the TPU, so
 in bf16 K12 carries more rounding than K2 (the transforms grow magnitudes
@@ -32,7 +35,9 @@ through XLA).
 
 from __future__ import annotations
 
+import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -118,10 +123,60 @@ def u_tiles(weight: torch.Tensor) -> torch.Tensor:
     return cached(weight, "_sdtk_wino_u", [weight], make)
 
 
-def conv3x3_winograd_kernel(x, weight, bias=None, scale_shift=None):
+# csrc/winograd.cu: 64 tiles and 64 output channels a block (warpgroup o1
+# folds F[o1][k2]), Cin 64 a chunk, U through a three-slab ring.
+WINO_TILES, WINO_BN, WINO_KC, WINO_STAGES = 64, 64, 64, 3
+# (tile rows, tile columns) of a block's region, in the planner's order on a
+# tie: on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --k12-sweep) 4 x 16
+# regions ran the UNet's shapes ~20% faster than 8 x 8 at equal padding.  The
+# path's images are square, so no shape of it would pick a 16 x 4 region.
+WINO_REGIONS = ((4, 16), (8, 8))
+WINO_SMEM = (1024 + WINO_STAGES * 4 * WINO_BN * 128 + 4 * WINO_TILES * 128 + 2 * 340 * 128
+             + 2 * 2 * WINO_KC * 4)
+
+
+class WinogradPlan(NamedTuple):
+    """K12's launch at (b, h, w, cin, cout): a block takes a ``region`` of
+    (tile rows, tile columns) = 64 tiles of one image and 64 output
+    channels (the F-fold: F[o1][k2] sets, A^T's signs in A); ``grid`` =
+    (regions, channel blocks); ``chunks`` of 64 input channels; ``smem``
+    the dynamic shared bytes."""
+    region: tuple
+    grid: tuple
+    chunks: int
+    smem: int
+
+
+def winograd_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132) -> WinogradPlan:
+    """K12's launch, as csrc/winograd.cu's entry takes it: the region of
+    64 tiles (4 x 16 or 8 x 8) that pads the (H/2) x (W/2) tiles
+    least, in WINO_REGIONS' order on a tie.  ``sms`` does not change it:
+    every shape of the path gives at least one wave."""
+    require(h % 2 == 0 and w % 2 == 0 and cin % 8 == 0 and cout % 8 == 0,
+            f"K12 takes even H and W, Cin % 8 == 0 and Cout % 8 == 0, got {h}x{w}, {cin}->{cout}")
+    th_, tw_ = h // 2, w // 2
+
+    def padded(r):
+        return -(-th_ // r[0]) * r[0] * -(-tw_ // r[1]) * r[1]
+
+    region = min(WINO_REGIONS, key=lambda r: (padded(r), WINO_REGIONS.index(r)))
+    regions = b * -(-th_ // region[0]) * -(-tw_ // region[1])
+    return WinogradPlan(region, (regions, -(-cout // WINO_BN)), -(-cin // WINO_KC), WINO_SMEM)
+
+
+def winograd_occupancy() -> dict:
+    """K12's kernel on the current card: registers a thread, spill (local)
+    bytes a thread, shared bytes a block and resident blocks an SM."""
+    got = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().sdtk_winograd_attrs(got), "K12 attributes")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), got))
+
+
+def conv3x3_winograd_kernel(x, weight, bias=None, scale_shift=None, *, _plan: WinogradPlan = None):
     """Launch K12.  x (B,H,W,Cin) bf16 contiguous, H and W even; weight
     OIHW (Cout,Cin,3,3) bf16; bias (Cout,) bf16; scale_shift (B, 2, Cin)
-    f32 applies GroupNorm+SiLU to x first."""
+    f32 applies GroupNorm+SiLU to x first.  ``_plan`` runs another plan
+    (for measuring)."""
     require_no_grad("K12", x, weight, bias, scale_shift)
     require(x.is_cuda, f"K12 needs a CUDA tensor, got {x.device}")
     require(x.dtype == torch.bfloat16, f"K12 takes bf16, got {x.dtype}")
@@ -141,11 +196,12 @@ def conv3x3_winograd_kernel(x, weight, bias=None, scale_shift=None):
                 and scale_shift.is_contiguous(), "K12: scale_shift must be contiguous f32 (B, 2, Cin)")
     u = u_tiles(weight)
     require(x.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0, "K12 needs 16-byte aligned tensors")
+    plan = _plan or winograd_plan(b, h, w, cin, cout)
     y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    code = _cuda.library().sdtk_winograd(
-        x.data_ptr(), u.data_ptr(), None if bias is None else bias.data_ptr(),
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_winograd, x.data_ptr(), u.data_ptr(),
+        None if bias is None else bias.data_ptr(),
         None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-        _cuda.stream_handle(x))
-    _cuda.check(code, "K12 winograd")
+        *plan.region, _cuda.stream_handle(x)), "K12 winograd")
     K12.launched((b, h, w, cin, cout, scale_shift is not None))
     return y

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear, winograd
-from stable_diffusion_tpu_torch.ops.quantize import folded_scales, quantize_tensor
+from stable_diffusion_tpu_torch.ops.quantize import (act_step, folded_scales, quantize_act,
+                                                     quantize_tensor)
 
 pytestmark = pytest.mark.gpu
 REL = 2e-2
@@ -482,9 +483,17 @@ def test_k7_conv3x3_q(gen, shape, prologue):
 
 
 @pytest.mark.parametrize("shape", [(32768, 320, 960, True, False), (32768, 320, 320, False, True),
-                                   (8192, 640, 640, True, True), (616, 768, 1280, False, False),
-                                   (1, 1280, 320, False, False), (100, 64, 40, True, True)])
+                                   (8192, 640, 640, True, True), (8192, 640, 1920, True, False),
+                                   (2048, 1280, 3840, True, False), (512, 1280, 1280, False, True),
+                                   (616, 768, 1280, False, False), (616, 768, 320, False, False),
+                                   (8, 1280, 1280, False, False), (8, 640, 320, True, True),
+                                   (1, 1280, 320, False, False), (1, 320, 1280, False, False),
+                                   (100, 64, 40, True, True), (200, 1536, 48, True, False),
+                                   (3000, 4096, 512, False, True)])
 def test_k8_linear_q(gen, shape):
+    """The W8A8 path's classes (LN and residual on and off; M = 32768,
+    8192, 2048, 616 and 512, the M = 1 and 8 time embeddings, split K),
+    ragged M and N, K > 1280 (the rows' three-pass prologue)."""
     m, k, n, ln, res = shape
     x = _rn(gen, m, k, scale=2.0)
     q, scale = _q8(gen, n, k)
@@ -501,6 +510,63 @@ def test_k8_linear_q(gen, shape):
     assert linear.K8.launches == before + 1
     f = lambda t: None if t is None else t.float()  # noqa: E731
     _check(got, linear.matmul_w8a8_plain(x.float(), q, scale, act, bias.float(), f(r), f(lw), f(lb)))
+
+
+@pytest.mark.parametrize("variant", linear.LQ_VARIANTS)
+@pytest.mark.parametrize("shape", [(616, 768, 320, True, True), (8, 768, 200, False, True)])
+@pytest.mark.parametrize("ksplit", [1, 3])
+def test_k8_every_variant(gen, variant, shape, ksplit):
+    """Each compiled K8 variant, with one and three K parts (the split-K
+    workspace merge), two N tiles a block; the workspace is left zero."""
+    m, k, n, ln, res = shape
+    x = _rn(gen, m, k, scale=2.0)
+    q, scale = _q8(gen, n, k)
+    bias = _rn(gen, n, scale=0.1)
+    lw, lb = (1 + _rn(gen, k, scale=0.1), _rn(gen, k, scale=0.1)) if ln else (None, None)
+    r = _rn(gen, m, n) if res else None
+    act = _act(linear.layer_norm_plain(x.float(), lw, lb) if ln else x)
+    s_x, out_scale = folded_scales(scale, act)
+    kch, nt = -(-k // linear.LQ_KC), -(-n // variant[1])
+    nkc = -(-kch // ksplit)
+    plan = linear.LinearQPlan(variant, max(1, nt // 2), ksplit, nkc, linear.lq_smem(*variant[:3], nkc))
+    f = lambda t: None if t is None else t.float()  # noqa: E731
+    want = linear.matmul_w8a8_plain(x.float(), q, scale, act, bias.float(), f(r), f(lw), f(lb))
+    for _ in range(2):  # the second call finds the workspace the first left
+        _check(linear.matmul_w8a8_kernel(x, q, s_x, out_scale, bias, r, lw, lb, _plan=plan), want)
+    ws = linear._LQ_WS.get(x.get_device())
+    assert ws is None or not ws.any()
+
+
+@pytest.mark.parametrize("act_scale", [12.7, 3.3, 0.077, 15.875])
+def test_k8_codes_equal_the_plain_quantizer(gen, act_scale):
+    """Through an identity weight K8 returns each activation's code times
+    s_x: every code, ties and values an ulp from a half step included, must
+    equal quantize_act's (x / s_x rounded half to even, clipped)."""
+    k = 256
+    s_x = act_step(torch.tensor(act_scale, device="cuda"))
+    steps = torch.randn(4096, k, generator=gen, device="cuda") * 60
+    x = (steps.round() + 0.5 * (torch.rand(4096, k, generator=gen, device="cuda") < 0.5)) * s_x
+    x = torch.cat([x.bfloat16(), (torch.randn(4096, k, generator=gen, device="cuda") * 200 * s_x)
+                   .bfloat16()])
+    eye = torch.eye(k, device="cuda", dtype=torch.int8)
+    s, out_scale = folded_scales(torch.ones(k, device="cuda"), torch.tensor(act_scale, device="cuda"))
+    got = linear.matmul_w8a8_kernel(x, eye, s, out_scale)
+    want = (quantize_act(x, s_x).float() * s_x).bfloat16()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k8_occupancy(gen):
+    """Every compiled K8 variant: no spills, its launch bound's blocks an SM
+    where shared memory allows, the shared memory the planner computes."""
+    for k in (320, 768, 1280):
+        nkc = -(-k // linear.LQ_KC)
+        for v, o in linear.linear_q_occupancy(k).items():
+            assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (k, v, o)
+            assert o["smem_bytes"] == linear.lq_smem(*v[:3], nkc), (k, v, o)
+    for m, k, n in ((32768, 320, 960), (2048, 1280, 3840), (616, 768, 1280), (1, 1280, 1280)):
+        plan = linear.linear_q_plan(m, k, n)
+        assert plan.smem == linear.lq_smem(*plan.variant[:3], plan.nkc) <= linear.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("shape", [(32768, 320), (8192, 640), (2048, 1280), (512, 1280), (100, 64)])
@@ -592,7 +658,8 @@ def test_fused_switch_off_launches_no_k10_k11(gen, monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 96, 96, 320, 320), (2, 48, 48, 640, 640), (2, 24, 24, 1280, 1280),
                                    (2, 48, 48, 1920, 640), (1, 96, 96, 512, 512), (1, 16, 18, 40, 24),
-                                   (1, 16, 16, 128, 8)])
+                                   (1, 16, 16, 128, 8), (2, 24, 24, 2560, 1280), (1, 40, 24, 96, 72),
+                                   (1, 32, 16, 64, 136), (1, 384, 384, 256, 256)])
 @pytest.mark.parametrize("prologue", [True, False])
 def test_k12_winograd(gen, monkeypatch, shape, prologue):
     """K12 against its plain f32 version, and against the f32 direct conv
@@ -626,6 +693,24 @@ def test_k12_winograd(gen, monkeypatch, shape, prologue):
     e12 = ((got.float() - truth).abs().max() / scale).item()
     e2 = ((direct.float() - truth).abs().max() / scale).item()
     assert e12 <= 2.5 * max(e2, 1e-4), (e12, e2)
+
+
+@pytest.mark.parametrize("region", winograd.WINO_REGIONS)
+def test_k12_every_region(gen, region):
+    """Each region shape a block can take, at one shape, against the plain
+    f32 version."""
+    x = _rn(gen, 2, 32, 48, 96)
+    wt, bias = _rn(gen, 72, 96, 3, 3, scale=(9 * 96) ** -0.5), _rn(gen, 72, scale=0.1)
+    plan = winograd.winograd_plan(2, 32, 48, 96, 72)._replace(region=region)
+    got = winograd.conv3x3_winograd_kernel(x, wt, bias, _plan=plan)
+    _check(got, winograd.conv3x3_winograd_plain(x.float(), wt.float(), bias.float()))
+
+
+def test_k12_occupancy(gen):
+    """K12's kernel: no spills, one block an SM, the planner's shared bytes."""
+    o = winograd.winograd_occupancy()
+    assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, o
+    assert o["smem_bytes"] == winograd.WINO_SMEM == winograd.winograd_plan(2, 96, 96, 320, 320).smem, o
 
 
 def test_k10_k12_raise_on_shapes_they_do_not_take(gen):
