@@ -15,6 +15,8 @@
                                            # W8A8 path's shapes, beside torch._int_mm
     python3 chip_smoke.py --k12-sweep      # phases 1-2, then K12 at every region shape at
                                            # the switched SD2.1 shapes, beside the K2 route
+    python3 chip_smoke.py --k10-sweep      # phases 1-2, then every K10/K11 variant at the
+                                           # switched SD2.1 shapes, beside F.linear
     python3 chip_smoke.py --k1-host [--root DIR]
                                            # phase 1, then K1 by kind at the serving
                                            # pass's shapes: device ms and host us a call
@@ -31,8 +33,8 @@ and the final line is printed only when every phase passed:
                  the SM count and the maximum SM clock.
   2. build    -- compiles the CUDA kernels (nvcc, sm_90a) from this
                  checkout's sources; prints the seconds and each K1, K2, K3,
-                 K4, K8 and K12 variant's registers, spills, shared bytes
-                 and blocks per SM.
+                 K4, K8, K10/K11 and K12 variant's registers, spills, shared
+                 bytes and blocks per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
@@ -92,8 +94,9 @@ and the final line is printed only when every phase passed:
                  shapes of one b1 CFG DDIM step each way, checks K1-K4 at
                  SD2.1's shapes and K10-K12 at every shape of the switched
                  step against their plain f32 versions (K12 also within 2.5x
-                 of K2's error against the f32 direct conv; its lines name
-                 each shape's plan), and times each
+                 of K2's error against the f32 direct conv; K10's, K11's
+                 and K12's lines name each shape's plan; K11's also time its
+                 launch alone, without K1's statistics), and times each
                  beside its bound, its library call and the route it
                  replaces; holds the full SD2.1 UNet to
                  tests/golden/full_sd21_ddim2.npz (plain f32, then the
@@ -502,7 +505,10 @@ def _switched_case(kernel: str, key, gen):
 
         def library():
             return F.linear(x, w, bias)
-        work = dict(flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n * (2 if res else 1) + n)
+        plan = linear.linear_plan(m, k, n, "ln" if ln else "none",
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+        work = dict(note=plan_note(plan),
+                    flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n * (2 if res else 1) + n)
                     + (4 * k if ln else 0))
     elif kernel == "K11":
         b, rows, k, n = key
@@ -517,7 +523,13 @@ def _switched_case(kernel: str, key, gen):
         def library():
             return F.linear(x, w, bias)
         m = b * rows
-        work = dict(flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n + n + 2 * k))
+        ss = groupnorm.gn_scale_shift(x, gw, gb, eps=1e-6, impl="cuda")
+        plan = linear.linear_plan(m, k, n, "gn", torch.cuda.get_device_properties(0).multi_processor_count)
+        # the K11 launch alone, on K1's statistics taken once (the entry
+        # point's time includes that launch)
+        work = dict(note=plan_note(plan), also=dict(k11_launch=lambda: linear.linear_kernel(
+                        x, w, bias, scale_shift=ss)),
+                    flops=2 * m * k * n, bytes=2 * (m * k + n * k + m * n + n + 2 * k))
     else:  # K12
         b, h, w_, cin, cout, prologue = key
         x = rn(b, h, w_, cin)
@@ -569,6 +581,12 @@ def _switched_case(kernel: str, key, gen):
                 ref=lambda: run(*map(f32, args), impl="torch"), library=library,
                 bf16=unswitched(lambda: run(*args, impl="cuda")), bar=bar, rate=BF16_TC_FLOPS,
                 args=args, **work)
+
+
+def plan_note(plan) -> str:
+    """A K10/K11 plan as phase 8's and --k10-sweep's lines name it."""
+    return (f"plan={plan.schedule}(bm={plan.bm},bn={plan.bn},stages={plan.variant[3]}) "
+            f"nsplit={plan.nsplit} ksplit={plan.ksplit}")
 
 
 def _case(kernel: str, key, gen):
@@ -1751,6 +1769,100 @@ def k8_sweep() -> bool:
     return ok
 
 
+# (M, K, N, LN, residual) of phase 8's K10 shapes and (B, rows an image, K,
+# N) of its K11 shapes, with their calls in one switched SD2.1 768^2 CFG
+# step (tests/test_torch_linear_tiles.py enumerates the same from the
+# UNet's configuration).
+K10_SWEEP_SHAPES = [
+    ((18432, 320, 320, True, False), 5), ((18432, 320, 320, False, True), 15),
+    ((18432, 320, 960, True, False), 5), ((18432, 640, 320, False, True), 2),
+    ((18432, 960, 320, False, True), 1), ((4608, 320, 640, False, True), 1),
+    ((4608, 640, 640, True, False), 5), ((4608, 640, 640, False, True), 15),
+    ((4608, 640, 1920, True, False), 5), ((4608, 960, 640, False, True), 1),
+    ((4608, 1280, 640, False, True), 1), ((4608, 1920, 640, False, True), 1),
+    ((1152, 640, 1280, False, True), 1), ((1152, 1280, 1280, True, False), 5),
+    ((1152, 1280, 1280, False, True), 15), ((1152, 1280, 3840, True, False), 5),
+    ((1152, 1920, 1280, False, True), 1), ((1152, 2560, 1280, False, True), 2),
+    ((288, 1280, 1280, True, False), 1), ((288, 1280, 1280, False, True), 3),
+    ((288, 1280, 3840, True, False), 1), ((288, 2560, 1280, False, True), 3)]
+K11_SWEEP_SHAPES = [((2, 9216, 320, 320), 5), ((2, 2304, 640, 640), 5), ((2, 576, 1280, 1280), 5),
+                    ((2, 144, 1280, 1280), 1)]
+
+
+def k10_sweep() -> bool:
+    """K10 and K11 at each shape of phase 8's switched SD2.1 step: every
+    compiled variant that takes the shape (the planner's splits for it),
+    checked against the plain f32 version and timed on the device
+    (CUDA-graph replay), beside the planner's choice through the entry
+    point (CUDA events, as phase 8 times it), F.linear (events and device)
+    and the unswitched route, and the entry's host us a call (unsynchronized
+    calls); K11's raw launches on K1's statistics taken once.  Per-pass
+    sums."""
+    from stable_diffusion_tpu_torch.ops import groupnorm, linear
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok, per_pass = True, {}
+    for kernel, shapes in (("K10", K10_SWEEP_SHAPES), ("K11", K11_SWEEP_SHAPES)):
+        for key, calls in shapes:
+            with switches(True):
+                case = _switched_case(kernel, key, gen)
+                ref = case["ref"]().float()
+                entry = cuda_ms(case["kernel"])
+            refmax = ref.abs().max().item()
+            with switches(True):
+                h_us = host_us(case["kernel"], calls=200)
+            lib, lib_dev, route = cuda_ms(case["library"]), graph_ms(case["library"]), cuda_ms(case["bf16"])
+            if kernel == "K10":
+                x, w, bias, r, lw, lb = case["args"]
+                m, k, n, ln, _ = key
+                pro = "ln" if ln else "none"
+                run = lambda plan: linear.linear_kernel(x, w, bias, r, lw, lb, _plan=plan)  # noqa: E731
+            else:
+                x, gw, gb, w, bias = case["args"]
+                m, k, n, pro = key[0] * key[1], key[2], key[3], "gn"
+                ss = groupnorm.gn_scale_shift(x, gw, gb, eps=1e-6, impl="cuda")
+                run = lambda plan: linear.linear_kernel(x, w, bias, scale_shift=ss, _plan=plan)  # noqa: E731
+            chosen = linear.linear_plan(m, k, n, pro, sms)
+            say(f"  k10 {kernel} shape={key} calls={calls} {plan_note(chosen)} entry_ms={entry:.4f} "
+                f"host_us={h_us:.2f} linear_ms={lib:.4f} linear_device_ms={lib_dev:.4f} route_ms={route:.4f}")
+            for name, ms in ((f"{kernel} entry", entry), (f"{kernel} F.linear", lib),
+                             (f"{kernel} F.linear device", lib_dev), (f"{kernel} route", route)):
+                per_pass[name] = per_pass.get(name, 0.0) + calls * ms
+            for v in linear.LIN_VARIANTS:
+                if v[0] and pro == "none":
+                    continue
+                try:
+                    plan = linear.linear_plan(m, k, n, pro, sms, variant=v)
+                except ValueError:
+                    continue  # the variant's rows do not fit shared memory at this K
+                got = run(plan).float()
+                torch.cuda.synchronize()
+                rel = (got - ref).abs().max().item() / refmax
+                good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+                ok &= good
+                ms = graph_ms(lambda plan=plan: run(plan))
+                name = f"{kernel} {v}"
+                per_pass[name] = per_pass.get(name, 0.0) + calls * ms
+                if plan == chosen:
+                    per_pass[f"{kernel} plan device"] = per_pass.get(f"{kernel} plan device", 0.0) + calls * ms
+                say(f"    {v} nsplit={plan.nsplit} ksplit={plan.ksplit} {'ok ' if good else 'BAD'} "
+                    f"rel={rel:.3e} device_ms={ms:.4f}" + (" <- plan" if plan == chosen else ""))
+            # the planner's variant at other splits (R: N splits; S: K splits)
+            ntiles = -(-n // chosen.bn)
+            for split in range(1, (min(ntiles, 8) if chosen.schedule == "R" else 4) + 1):
+                other = (chosen._replace(nsplit=split) if chosen.schedule == "R"
+                         else chosen._replace(ksplit=split))
+                if other == chosen or (chosen.schedule == "S" and split > -(-k // linear.LIN_KC)):
+                    continue
+                ms = graph_ms(lambda plan=other: run(plan))
+                say(f"    split {chosen.variant} nsplit={other.nsplit} ksplit={other.ksplit} device_ms={ms:.4f}")
+            del case, ref
+            torch.cuda.empty_cache()
+    say("k10 per switched SD2.1 pass (ms): " + "; ".join(f"{k} {v:.4f}" for k, v in per_pass.items()))
+    return ok
+
+
 # (B, H, W, Cin, Cout, prologue) of phase 8's K12 shapes and their calls
 # in one switched SD2.1 768^2 pass (one CFG step and the VAE decode).
 K12_SWEEP_SHAPES = [((2, 96, 96, 320, 320, True), 7), ((2, 96, 96, 640, 320, True), 2),
@@ -1886,6 +1998,9 @@ def main() -> int:
     for k in (320, 1280):
         say(f"  K8 variants (bm, bn, stages, min blocks) with K={k} resident: "
             + occ(linear.linear_q_occupancy(k)))
+    for k in (320, 1280, 2560):
+        say(f"  K10/K11 variants (resident, bm, bn, stages, min blocks) at K={k}: "
+            + occ(linear.linear_occupancy(k)))
     o = winograd.winograd_occupancy()
     say(f"  K12 (64 tiles x 64 channels, F-fold): {o['registers']} registers, {o['spill_bytes']} spill "
         f"bytes, {o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM")
@@ -1893,6 +2008,8 @@ def main() -> int:
         return 0 if k8_sweep() else 1
     if "--k12-sweep" in sys.argv[1:]:
         return 0 if k12_sweep() else 1
+    if "--k10-sweep" in sys.argv[1:]:
+        return 0 if k10_sweep() else 1
     if "--k3-sweep" in sys.argv[1:]:
         return 0 if k3_sweep() else 1
     if "--k56-sweep" in sys.argv[1:]:

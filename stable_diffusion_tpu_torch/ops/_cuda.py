@@ -111,7 +111,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_ffn_q_rows.argtypes = []
     lib.sdtk_ffn_q_plan.argtypes = [I, I, I, IP, IP]
     lib.sdtk_ffn_q.argtypes = [P] * 14 + [I] * 5 + [F, P]
-    lib.sdtk_linear.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, F, P]
+    lib.sdtk_linear.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_linear_attrs.argtypes = [I] * 6 + [IP]
     lib.sdtk_winograd.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_winograd_attrs.argtypes = [IP]
     for fn in (lib.sdtk_gn_plan, lib.sdtk_gn_stats, lib.sdtk_gn_apply, lib.sdtk_gn_attrs,
@@ -122,6 +123,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
                lib.sdtk_linear_q_attrs,
                lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q, lib.sdtk_linear,
+               lib.sdtk_linear_attrs,
                lib.sdtk_winograd, lib.sdtk_winograd_attrs):
         fn.restype = ctypes.c_int
     return lib

@@ -6,8 +6,14 @@ K10 (csrc/linear.cu) replaces ``_make_kernel`` (``_mm_call``, entries
 ``ln_matmul`` / ``matmul_residual``): (LayerNorm, f32 statistics ->) x @ W^T
 + b (+ residual), f32 accumulation, one bf16 rounding.  K11 (the same
 source) replaces ``_gn_mm_kernel`` (``_gn_mm_call``, entry ``gn_matmul``):
-the GroupNorm normalize, from K1's folded (B, 2, K) scale/shift, applied as
-the A tile is staged, then the same product and bias.  The JAX package keeps
+the GroupNorm normalize, from K1's folded (B, 2, K) scale/shift, then the
+same product and bias.  Both are one ``wgmma`` GEMM with three prologues;
+:func:`linear_plan` chooses its launch as the C entry takes it: schedule R
+(the LN and GN sites: a block's rows resident in shared memory, normalized
+there once, for all its N tiles) or S (the plain and residual sites: x and
+W streamed through one ring, split K where the tiles leave most SMs idle,
+the f32 partials reduced in split order).  The note at the top of the
+source says what bounds it and why.  The JAX package keeps
 both behind ``SD_TPU_FUSED_MM`` (read at call time): "0" (the default) runs
 every site unfused, "envelope" only the sites ``site_wins`` names (its
 thresholds were measured on a TPU, not here), "all"/"1" every site.  As in
@@ -70,6 +76,8 @@ from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32
 K8 = LaunchCounter()
 K10 = LaunchCounter()
 K11 = LaunchCounter()
+SMEM_BLOCK = 232448        # shared bytes a block may use on an H100
+SMEM_SM = 233472           # an SM's shared memory (228 KB)
 
 
 # ---------------------------------------------------------------------------
@@ -139,17 +147,134 @@ def gn_matmul_plain(x, gn_weight, gn_bias, weight, bias=None, *, num_groups: int
     return y if bias is None else y + bias.to(xn.dtype)
 
 
-def linear_kernel(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=None,
-                  scale_shift=None, *, eps: float = 1e-5):
-    """Launch K10, or K11 when ``scale_shift`` is given.  x (..., K) bf16
-    contiguous on CUDA; weight (N, K), bias (N,), residual (..., N) and the
-    LN affine (K,) bf16; scale_shift (B, 2, K) f32 from K1, x then NHWC
-    (B, H, W, K) or (B, S, K), the GroupNorm normalize applied to x first."""
+# K10/K11's compiled variants (csrc/linear.cu SDTK_LIN_VARIANTS): (schedule
+# R = 1 (rows resident) or S = 0 (streamed), rows a block, columns a tile,
+# ring stages, blocks an SM for the launch bound).
+LIN_VARIANTS = ((1, 128, 160, 3, 1), (1, 64, 160, 3, 2), (0, 128, 160, 4, 1), (0, 64, 160, 3, 2))
+LIN_KC = 64                # channels a K step: one 128-byte row of bf16
+LIN_MAX_KSPLIT = 16
+PROLOGUES = ("none", "ln", "gn")
+
+
+class LinearPlan(NamedTuple):
+    """K10/K11's launch at (m, k, n): ``variant`` = (resident, rows a block,
+    columns a tile, stages, blocks an SM); schedule R walks ``nsplit``
+    contiguous ranges of N tiles a row block, schedule S one tile a block
+    over ``ksplit`` ranges of 64-channel K chunks; ``smem`` the dynamic
+    shared bytes."""
+    variant: tuple
+    nsplit: int
+    ksplit: int
+    smem: int
+
+    @property
+    def schedule(self) -> str:
+        return "R" if self.variant[0] else "S"
+
+    @property
+    def bm(self) -> int:
+        return self.variant[1]
+
+    @property
+    def bn(self) -> int:
+        return self.variant[2]
+
+    def grid(self, m: int, n: int):
+        """The launch grid: R (row blocks, N splits), S (N tiles, row
+        blocks, K splits)."""
+        mb = -(-m // self.bm)
+        return (mb, self.nsplit) if self.variant[0] else (-(-n // self.bn), mb, self.ksplit)
+
+
+def lin_smem(resident: int, bm: int, bn: int, stages: int, kch: int) -> int:
+    """1024 bytes to align the ring; R: ``stages`` weight slabs of ``bn``
+    rows x 128 bytes, the block's ``bm`` rows of ``kch`` 128-byte chunks and
+    the LayerNorm affine (bf16, K padded to whole chunks);
+    S: ``stages`` slabs of ``bm`` + ``bn`` rows and the rows' LayerNorm
+    mean and rstd (f32); 128 for the mbarriers."""
+    if resident:
+        return 1024 + stages * bn * 128 + bm * kch * 128 + kch * 256 + 128
+    return 1024 + stages * (bm + bn) * 128 + bm * 8 + 128
+
+
+def _blocks_per_sm(v: tuple, kch: int) -> int:
+    return max(1, min(v[4], SMEM_SM // (lin_smem(*v[:4], kch) + 1024)))
+
+
+@functools.lru_cache(maxsize=None)
+def linear_plan(m: int, k: int, n: int, prologue: str = "none", sms: int = 132,
+                variant: tuple = None) -> LinearPlan:
+    """K10/K11's launch for an (m, k, n) call with ``prologue`` ("none",
+    "ln" or "gn") on a card of ``sms`` SMs, as csrc/linear.cu's entry takes
+    it (``variant`` names one to measure instead of the planner's).
+
+    Schedule R for a LN or GN prologue wherever a block's rows fit shared
+    memory (K <= 1280): 64 rows a block (two blocks an SM at
+    K <= 384, which hides one block's prologue under the other's products),
+    128 rows at 384 < K <= 640 unless their tiles would leave more than a
+    third of the SMs idle.  Its N tiles are split over ``nsplit``
+    blocks a row block, the count that finishes in the fewest waves x (tiles
+    a block + 1, the block's own rows being about one tile's loads), the
+    fewest splits on a tie.  Schedule S elsewhere (a prologue then applied
+    to each streamed slab): 64-row blocks, two an SM, but 128 rows at K >=
+    1280 where 128-row tiles would fill between half the SMs and all of them
+    once; where its tiles leave at least half the SMs idle, K is split
+    into ceil(sms / tiles) parts (at least two 64-channel chunks each, at
+    most 16).  The variants and rules are the ones the H100 sweep
+    (chip_smoke.py --k10-sweep, PERF.md) found fastest per pass."""
+    require(prologue in PROLOGUES, f"K10/K11: prologue {prologue!r} not in {PROLOGUES}")
+    require(m >= 1 and k >= 8 and k % 8 == 0 and n % 8 == 0,
+            f"K10/K11 take K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
+    kch = -(-k // LIN_KC)
+
+    def fits(v):
+        return lin_smem(*v[:4], kch) <= SMEM_BLOCK
+
+    if variant is not None:
+        require(variant in LIN_VARIANTS, f"K10/K11: no variant {variant}")
+        require(fits(variant), f"K10/K11: variant {variant} does not fit K={k}")
+        v = variant
+    elif prologue != "none" and any(u[0] and fits(u) for u in LIN_VARIANTS):
+        v = (1, 128, 160, 3, 1) if 384 < k <= 640 else (1, 64, 160, 3, 2)
+        if v[1] == 128 and -(-m // 128) * -(-n // v[2]) * 3 < 2 * sms:
+            v = (1, 64, 160, 3, 2)
+    else:
+        tiles = -(-m // 128) * -(-n // 160)
+        v = (0, 128, 160, 4, 1) if k >= 1280 and sms <= 2 * tiles < 2 * sms else (0, 64, 160, 3, 2)
+    ntiles = -(-n // v[2])
+    mb = -(-m // v[1])
+    if v[0]:
+        per = sms * _blocks_per_sm(v, kch)
+        best = min(range(1, ntiles + 1), key=lambda ns: (-(-mb * ns // per) * (-(-ntiles // ns) + 1), ns))
+        return LinearPlan(v, best, 1, lin_smem(*v[:4], kch))
+    tiles = mb * ntiles
+    ks = 1
+    if 2 * tiles <= sms:
+        ks = max(1, min(-(-sms // tiles), kch // 2, LIN_MAX_KSPLIT))
+    return LinearPlan(v, ntiles, ks, lin_smem(*v[:4], kch))
+
+
+_LIN_WS = {}  # device index -> f32 scratch: split-K partials
+
+
+def _lin_workspace(x: torch.Tensor, floats: int) -> int:
+    """The pointer of at least ``floats`` f32 of scratch on ``x``'s device,
+    reused call after call (calls on one stream are ordered, so two streams
+    must not run split-K K10 on one device at once)."""
+    buf = _LIN_WS.get(x.get_device())
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(max(floats, 1 << 18), device=x.device, dtype=torch.float32)
+        _LIN_WS[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def _k10_refuse(x, weight, bias, residual, ln_weight, ln_bias, scale_shift):
+    """Raise the error that names what K10/K11 do not take (their shape
+    rules, checked in one expression on the launch path)."""
     name = "K10" if scale_shift is None else "K11"
     require_no_grad(name, x, weight, bias, residual, ln_weight, ln_bias, scale_shift)
     require(x.is_cuda, f"{name} needs a CUDA tensor, got {x.device}")
     k = x.shape[-1]
-    m = x.numel() // k
     n = weight.shape[0]
     require(k % 8 == 0 and n % 8 == 0, f"{name} takes K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
     require(weight.shape == (n, k), f"{name}: weight {tuple(weight.shape)} for K={k}")
@@ -162,23 +287,66 @@ def linear_kernel(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=N
     require((ln_weight is None) == (ln_bias is None)
             and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,)),
             f"{name}: LN weight and bias must both be (K,) or both None")
-    rows = 1
-    if scale_shift is not None:
-        require(ln_weight is None, "K11 takes no LayerNorm")
-        b = x.shape[0]
-        rows = m // b
-        require(scale_shift.shape == (b, 2, k) and scale_shift.dtype == torch.float32
-                and scale_shift.is_contiguous(), "K11: scale_shift must be contiguous f32 (B, 2, K)")
+    require(ln_weight is None, "K11 takes no LayerNorm")
+    raise ValueError("K11: scale_shift must be contiguous, 16-byte aligned f32 (B, 2, K)")
+
+
+def linear_kernel(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=None,
+                  scale_shift=None, *, eps: float = 1e-5, _plan: LinearPlan = None):
+    """Launch K10, or K11 when ``scale_shift`` is given.  x (..., K) bf16
+    contiguous on CUDA; weight (N, K), bias (N,), residual (..., N) and the
+    LN affine (K,) bf16; scale_shift (B, 2, K) f32 from K1, x then NHWC
+    (B, H, W, K) or (B, S, K), the GroupNorm normalize applied to x first.
+    ``_plan`` runs another plan (for measuring)."""
+    k = x.shape[-1]
+    m = x.numel() // k
+    n = weight.shape[0]
+    bf = [t for t in (x, weight, bias, residual, ln_weight, ln_bias) if t is not None]
+    rows = m // x.shape[0] if scale_shift is not None else 1
+    if not (x.is_cuda and k % 8 == 0 and n % 8 == 0 and weight.shape == (n, k)
+            and not wants_grad(scale_shift, *bf)
+            and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                    for t in bf)
+            and (bias is None or bias.shape == (n,))
+            and (residual is None or residual.shape == (*x.shape[:-1], n))
+            and (ln_weight is None) == (ln_bias is None)
+            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))
+            and (scale_shift is None or (ln_weight is None
+                                         and scale_shift.shape == (x.shape[0], 2, k)
+                                         and scale_shift.dtype == torch.float32
+                                         and scale_shift.is_contiguous()
+                                         and scale_shift.data_ptr() % 16 == 0))):
+        _k10_refuse(x, weight, bias, residual, ln_weight, ln_bias, scale_shift)
+    prologue = "gn" if scale_shift is not None else "none" if ln_weight is None else "ln"
+    plan = _plan or linear_plan(m, k, n, prologue, _cuda.sm_count(x.get_device()))
+    ws = _lin_workspace(x, plan.ksplit * m * n) if plan.ksplit > 1 else None
     out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    code = _cuda.library().sdtk_linear(
-        x.data_ptr(), ptr(ln_weight), ptr(ln_bias), ptr(scale_shift), rows, weight.data_ptr(),
-        ptr(bias), ptr(residual), out.data_ptr(), m, n, k, float(eps), _cuda.stream_handle(x))
-    _cuda.check(code, f"{name} linear")
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_linear, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), ptr(scale_shift),
+        weight.data_ptr(), ptr(bias), ptr(residual), out.data_ptr(), ws, rows, m, n, k,
+        *plan.variant, plan.nsplit, plan.ksplit, _cuda.f32_bits(eps), _cuda.stream_handle(x)),
+        "K10/K11 linear")
     if scale_shift is None:
         K10.launched((m, k, n, ln_weight is not None, residual is not None))
     else:
         K11.launched((x.shape[0], rows, k, n))
+    return out
+
+
+def linear_occupancy(k: int = 1280) -> dict:
+    """Each compiled K10/K11 variant on the current card, its shared memory
+    for K = ``k`` (variants that do not fit it left out): ``{variant:
+    {...}}`` with registers a thread, spill (local) bytes a thread, shared
+    bytes a block and resident blocks an SM, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    kch = -(-k // LIN_KC)
+    out = {}
+    for v in LIN_VARIANTS:
+        if lin_smem(*v[:4], kch) <= SMEM_BLOCK:
+            got = (ctypes.c_int * 4)()
+            _cuda.check(_cuda.library().sdtk_linear_attrs(*v, kch, got), "K10/K11 attributes")
+            out[v] = dict(zip(keys, got))
     return out
 
 
@@ -255,8 +423,6 @@ def matmul_w8a8_plain(x, weight_q, weight_scale, act_scale, bias=None, residual=
 LQ_VARIANTS = ((128, 160, 4, 1), (128, 160, 3, 1), (64, 160, 4, 2), (64, 64, 4, 2), (64, 32, 4, 2),
                (64, 16, 4, 2))
 LQ_KC = 128                # K a step: one 128-byte row of int8
-SMEM_BLOCK = 232448        # 227 KB a block may use on an H100
-SMEM_SM = 233472           # 228 KB an SM
 # The planner's cost model (rates an H100 reaches at best, scaled down):
 # int8 tensor work at 60% of 1979 TOP/s over the card; device memory at
 # 80% of 3.35 TB/s shared by the busy SMs, at most 60 GB/s an SM; L2 at

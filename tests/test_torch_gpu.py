@@ -629,9 +629,11 @@ def test_k10_linear(gen, monkeypatch, shape, ln, res):
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 96, 320, 320), (2, 24, 24, 1280, 1280), (1, 5, 7, 64, 40),
-                                   (3, 10, 10, 96, 32)])
+                                   (3, 10, 10, 96, 32), (2, 12, 12, 1280, 1280), (1, 8, 16, 2560, 320)])
 def test_k11_gn_matmul(gen, monkeypatch, shape):
-    """Row blocks of 64 straddle images where H * W % 64 != 0."""
+    """Row blocks straddle images where H * W is not a multiple of the
+    plan's rows a block (the mid block's 144 rows); K = 2560 streams its
+    rows (schedule S with the GroupNorm applied to each slab)."""
     monkeypatch.setenv("SD_TPU_FUSED_MM", "all")
     b, h, w_, c, n = shape
     x = _rn(gen, b, h, w_, c, scale=2.0) + 0.5
@@ -642,6 +644,92 @@ def test_k11_gn_matmul(gen, monkeypatch, shape):
     assert (linear.K11.launches, linear.K10.launches) == (before[0] + 1, before[1])
     _check(got, linear.gn_matmul_plain(x.float(), gw.float(), gb.float(), w.float(), bias.float(),
                                        eps=1e-6))
+
+
+# (M, K, N, LN, residual) of schedule R and S cases: the switched SD2.1
+# step's widest, K = 2560 skip projections, the mid block's 288 rows (split
+# K), M = 1, ragged N and K, and LN beside a residual.
+K10_VARIANT_SHAPES = [(18432, 320, 960, True, False), (4608, 640, 640, False, True),
+                      (1152, 1280, 3840, True, False), (288, 2560, 1280, False, True),
+                      (288, 1280, 1280, True, True), (1, 320, 1280, False, False),
+                      (77, 72, 40, True, True)]
+
+
+@pytest.mark.parametrize("shape", K10_VARIANT_SHAPES)
+def test_k10_every_variant(gen, shape):
+    """Each compiled variant that fits the shape (schedule R only with a
+    prologue; S also takes the LayerNorm where R's rows do not fit) against
+    the plain f32 version, through ``linear_kernel(..., _plan=...)``."""
+    m, k, n, ln, res = shape
+    x, w = _rn(gen, m, k, scale=2.0), _rn(gen, n, k, scale=k ** -0.5)
+    bias, r = _rn(gen, n, scale=0.1), (_rn(gen, m, n) if res else None)
+    lw, lb = (1 + _rn(gen, k, scale=0.1), _rn(gen, k, scale=0.1)) if ln else (None, None)
+    ref = linear.linear_plain(x.float(), w.float(), bias.float(), None if r is None else r.float(),
+                              None if lw is None else lw.float(), None if lb is None else lb.float())
+    ran = 0
+    for v in linear.LIN_VARIANTS:
+        if v[0] and not ln:
+            continue
+        try:
+            plan = linear.linear_plan(m, k, n, "ln" if ln else "none", variant=v)
+        except ValueError:
+            continue  # its rows do not fit shared memory at this K
+        before = linear.K10.launches
+        _check(linear.linear_kernel(x, w, bias, r, lw, lb, _plan=plan), ref)
+        assert linear.K10.launches == before + 1
+        ran += 1
+    assert ran >= 2, shape
+
+
+@pytest.mark.parametrize("rows", [144, 576, 64])
+@pytest.mark.parametrize("variant", [v for v in linear.LIN_VARIANTS if v[0]])
+def test_k11_row_blocks_straddle_images(gen, rows, variant):
+    """K11 where row blocks of 64 and 128 hold rows of two images (144 rows
+    an image: SD2.1's mid block; 576: its 24^2 stage), each R variant."""
+    b, k, n = 2, 320, 640
+    x = _rn(gen, b, rows, 1, k, scale=2.0) + 0.5
+    x = x + torch.arange(b, device="cuda").view(b, 1, 1, 1).bfloat16() * 3  # images differ
+    gw, gb = 1 + _rn(gen, k, scale=0.1), _rn(gen, k, scale=0.1)
+    w, bias = _rn(gen, n, k, scale=k ** -0.5), _rn(gen, n, scale=0.1)
+    ss = groupnorm.gn_scale_shift(x, gw, gb, eps=1e-6, impl="cuda")
+    plan = linear.linear_plan(b * rows, k, n, "gn", variant=variant)
+    got = linear.linear_kernel(x, w, bias, scale_shift=ss, _plan=plan)
+    _check(got, linear.gn_matmul_plain(x.float(), gw.float(), gb.float(), w.float(), bias.float(),
+                                       eps=1e-6))
+
+
+def test_k10_k11_plan_mirrors_the_c_dispatch(gen):
+    """The planner's shared bytes are the runtime's for the variant at that
+    K, every variant compiles without spills, and the C entry refuses a plan
+    outside its rules (an N split past the tiles, a K split under R)."""
+    for k in (320, 640, 1280, 2560):
+        kch = -(-k // linear.LIN_KC)
+        for v, o in linear.linear_occupancy(k).items():
+            assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (k, v, o)
+            assert o["smem_bytes"] == linear.lin_smem(*v[:4], kch), (k, v, o)
+    shapes = [(18432, 320, 960, "ln"), (4608, 640, 640, "gn"), (1152, 1280, 3840, "ln"),
+              (288, 2560, 1280, "none"), (288, 1280, 1280, "gn"), (1, 320, 1280, "none")]
+    for m, k, n, pro in shapes:
+        plan = linear.linear_plan(m, k, n, pro)
+        occ = linear.linear_occupancy(k)[plan.variant]
+        assert occ["smem_bytes"] == plan.smem <= linear.SMEM_BLOCK, (m, k, n, plan)
+    x, w = _rn(gen, 256, 320), _rn(gen, 320, 320)
+    lw, lb = torch.ones(320, device="cuda").bfloat16(), torch.zeros(320, device="cuda").bfloat16()
+    good = linear.linear_plan(256, 320, 320, "ln")
+    for bad in (good._replace(nsplit=3), good._replace(ksplit=2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            linear.linear_kernel(x, w, None, None, lw, lb, _plan=bad)
+
+
+def test_k10_split_k_is_deterministic(gen):
+    """Split K (the mid block's residual sites): the same bits twice."""
+    m, k, n = 288, 2560, 1280
+    x, w, r = _rn(gen, m, k), _rn(gen, n, k, scale=k ** -0.5), _rn(gen, m, n)
+    assert linear.linear_plan(m, k, n).ksplit > 1
+    a = linear.linear_kernel(x, w, None, r)
+    b = linear.linear_kernel(x, w, None, r)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_fused_switch_off_launches_no_k10_k11(gen, monkeypatch):
