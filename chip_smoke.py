@@ -5,8 +5,9 @@
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
                                            # time at the serving pass's shapes
-    python3 chip_smoke.py --k3-sweep       # phases 1-2, then every K3 body and tile
-                                           # variant at the UNet's self-attention shapes
+    python3 chip_smoke.py --k3-sweep       # phases 1-2, then K3's general body beside
+                                           # every variant of the planner's body at the
+                                           # self-, cross- and VAE attention shapes
     python3 chip_smoke.py --k56-sweep      # phases 1-2, then K5 and K6's ring and first
                                            # bodies at the train step's ring shapes
     python3 chip_smoke.py --k4-sweep       # phases 1-2, then every K4 G1 and G2 variant
@@ -45,9 +46,12 @@ and the final line is printed only when every phase passed:
                  kind, statistics or normalize, and K1's summary groups
                  them with the host us a call at each kind's smallest
                  shape; K2's lines name each shape's tile plan; K3's its
-                 body and tile, q/k/v of a self-attention are views of one
-                 fused QKV, and a ring-body shape also times the general
-                 body as general_ms; K4's name its plan and time its two
+                 body (ring, cross or wide) and the body's tile and splits,
+                 q/k/v of a self-attention are views of one fused QKV, every
+                 shape also times the general body, the first design, as
+                 general_ms, and K3's groups are its bodies; the recorded
+                 path must launch the general body at no shape, as phases
+                 5-8's runs must not either; K4's name its plan and time its two
                  GEMMs apart as g1_ms and g2_ms, beside the bound of the
                  design's own bytes).
   4. golden   -- rebuilds tests/golden/full_sd15_ddim2.npz's inputs with
@@ -251,6 +255,7 @@ KERNELS.update({
                 bf16="the unswitched route: K2 (with its GN+SiLU prologue where K12 has it)"),
 })
 SERVING_KERNELS = ("K1", "K2", "K3", "K4")
+K3_BODY_NAMES = ("ring", "cross", "wide", "general")  # flash_attention.K3_BODIES
 SWITCHED_KERNELS = ("K10", "K11", "K12")
 W8A8_KERNELS = ("K7", "K8", "K9")
 W8A8_PATH_KERNELS = ("K1", "K2", "K3", *W8A8_KERNELS)  # K4 is not on the W8A8 path
@@ -583,6 +588,30 @@ def _switched_case(kernel: str, key, gen):
                 args=args, **work)
 
 
+def k3_note(plan) -> str:
+    """A K3 plan as phase 3's and --k3-sweep's lines name it: its body and
+    the body's own parameters."""
+    extra = {"ring": "", "general": f" passes={plan.passes}",
+             "cross": f" nk={plan.nk} tiles={plan.tiles}",
+             "wide": f" splits={plan.splits}"}[plan.body]
+    return f"body={plan.body} bq={plan.bq}{extra}"
+
+
+def k3_bodies(counters) -> dict:
+    """K3's launches by body (the K3:<body> counters)."""
+    return {k.split(":", 1)[1]: c.launches for k, c in counters.items() if k.startswith("K3:")}
+
+
+def no_general_body(shapes_or_launches, label: str) -> bool:
+    """Every K3 call of a path took the ring, cross or wide body: the
+    general body's recorded shapes (a Counter) or launches (an int) are
+    none; says so either way."""
+    n = shapes_or_launches.get("K3:general", 0)
+    n = sum(n.values()) if hasattr(n, "values") else n
+    say(f"  {label}: K3 general-body launches {n} ({'ok' if n == 0 else 'BAD: a path took it'})")
+    return n == 0
+
+
 def plan_note(plan) -> str:
     """A K10/K11 plan as phase 8's and --k10-sweep's lines name it."""
     return (f"plan={plan.schedule}(bm={plan.bm},bn={plan.bn},stages={plan.variant[3]}) "
@@ -680,17 +709,19 @@ def _case(kernel: str, key, gen):
 
         def library():
             return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in args))
-        # the general body (the first design) at a ring-body shape, timed beside it
-        also = {}
-        if plan.body == "ring":
-            first = fa.AttentionPlan("general", plan.dp, 64)
-            also["general"] = lambda: fa.attention_kernel(*args, _plan=first)
-        group = "self" if plan.body == "ring" else "cross" if sq != sk else f"general d={d}"
+        # the general body (the first design) timed beside every shape
+        first = fa.general_plan(d)
+        also = {"general": lambda: fa.attention_kernel(*args, _plan=first)}
+        # device time (CUDA-graph replay, no host launch cost): the small
+        # shapes' eager times are the host's
+        device = {"kernel": lambda: fa.attention_kernel(*args), "general": also["general"],
+                  "sdpa": library}
+        group = f"wide d={d}" if plan.body == "wide" else plan.body
         # the plain version materializes B*H*Sq*Sk f32 scores: one call at s = 9216
         work = dict(flops=4 * b * h * sq * sk * d, bytes=2 * b * h * d * (2 * sq + 2 * sk),
                     exps=b * h * sq * sk, rate=BF16_TC_FLOPS, plain_once=sq * sk > 4096 * 4096,
-                    also=also, group=group,
-                    note=f"body={plan.body} bq={plan.bq} exps={b * h * sq * sk}")
+                    also=also, device=device, group=group,
+                    note=f"{k3_note(plan)} exps={b * h * sq * sk}")
     elif kernel == "K4":
         m, c = key
         args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
@@ -802,6 +833,7 @@ def check_kernels(shapes, kernels, label: str):
             lib_ms = cuda_ms(case["library"]) if case["library"] is not None else None
             bf_ms = cuda_ms(case["bf16"]) if case.get("bf16") is not None else None
             also = {name: cuda_ms(fn) for name, fn in case.get("also", {}).items()}
+            also.update({f"{name}_dev": graph_ms(fn) for name, fn in case.get("device", {}).items()})
             h_us = (host_us(case["host"]) if case.get("host") is not None
                     and smallest[key[0]][1] == key else None)
             b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"], case.get("exps", 0))
@@ -1104,7 +1136,9 @@ def phase_w8a8(pipe, counters):
     shapes = record_main_path_shapes(qpipe, counters, W8A8_BATCH)
     say("  w8a8 step shapes: " + ", ".join(f"{k} {len(shapes[k])} shapes {sum(shapes[k].values())} "
                                             f"calls" for k in (*W8A8_PATH_KERNELS, "K4")))
+    ok_sg = no_general_body(shapes, "w8a8 path (one b4 DDIM step)")
     ok_k, summary = check_kernels(shapes, W8A8_PATH_KERNELS, "w8a8")
+    ok_k &= ok_sg
     # 2. one CFG UNet step against the plain W8A8 path and the bf16 UNet
     ok_s, step = check_w8a8_step(pipe, qpipe, batches[1])
     # 3. two b4 requests through the W8A8 UNet, then one bf16 request
@@ -1128,7 +1162,8 @@ def phase_w8a8(pipe, counters):
             f"{'ok' if good else 'BAD'}")
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ok_r &= all(launches[k] > 0 for k in W8A8_KERNELS) and launches["K4"] == 0
+    ok_r &= (all(launches[k] > 0 for k in W8A8_KERNELS) and launches["K4"] == 0
+             and no_general_body(launches, "phase 6 requests"))
     torch.cuda.reset_peak_memory_stats()
     cond, uncond = request_ids(0, W8A8_BATCH)
     torch.cuda.synchronize()
@@ -1247,7 +1282,9 @@ def phase_training(unet, counters):
             f"{k} {o['registers']} registers, {o['spill_bytes']} spill bytes, "
             f"{o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM"
             for k, o in occ.items()))
+    ok_sg = no_general_body(shapes, "train step")
     ok_k, summary = check_kernels(shapes, TRAIN_KERNELS, "train")
+    ok_k &= ok_sg
     pair_bound, pair_lib = attention_bwd_pair(shapes, torch.Generator(device="cuda").manual_seed(7))
     # 4. gradients against the plain f32 path
     ok_g, grad_rel = check_train_grads(unet, cfg, b0)
@@ -1274,8 +1311,11 @@ def phase_training(unet, counters):
         say(f"  train step {i}: {secs[-1]:.4f} s loss={loss:.5f} grad_norm={gnorm:.4f} "
             f"lora {'updated' if changed else 'unchanged'} {'ok' if good else 'BAD'}")
     launches = {k: counters[k].launches for k in TRAIN_KERNELS}
+    bodies = k3_bodies(counters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ok = ok_k and ok_g and ok_s and all(n > 0 for n in launches.values())
+    ok = (ok_k and ok_g and ok_s and all(n > 0 for n in launches.values())
+          and no_general_body({"K3:general": bodies["general"]}, "phase 7 steps"))
+    launches.update({f"K3:{b}": n for b, n in bodies.items()})
     return ok, dict(summary=summary, secs=secs, launches=launches, peak_gib=peak,
                     grad_rel=grad_rel, shapes=shapes, pair_bound_ms=pair_bound,
                     pair_library_ms=pair_lib)
@@ -1321,7 +1361,9 @@ def phase_sd21(counters):
         say(f"  sd21 step shapes, switches {label}: " + ", ".join(
             f"{k} {len(v)} shapes {sum(v.values())} calls" for k, v in shapes.items() if v))
     # (b) K1-K4 at SD2.1's shapes; K10-K12 at every shape of the switched step
+    ok_sg = no_general_body(off, "sd21 path, switches off") & no_general_body(on, "sd21 path, switches on")
     ok_k, summary = check_kernels(off, SERVING_KERNELS, "sd21")
+    ok_k &= ok_sg
     with switches(True):
         ok_s, switched = check_kernels(on, SWITCHED_KERNELS, "sd21-switched")
     # (c) the SD2.1 golden
@@ -1336,6 +1378,8 @@ def phase_sd21(counters):
                and all(launches_off[k] == 0 for k in SWITCHED_KERNELS))
     # switched on, K2 keeps the 12^2 stage (W < 16) and K1, K3, K4 run as before
     ok_on &= all(launches_on[k] > 0 for k in (*SERVING_KERNELS, *SWITCHED_KERNELS))
+    ok_off &= no_general_body(launches_off, "phase 8 requests, switches off")
+    ok_on &= no_general_body(launches_on, "phase 8 request, switches on")
     drift = np.abs(imgs_on[0].astype(np.float32) - imgs_off[0].astype(np.float32)) / 255.0
     say(f"  sd21 launches switches off {launches_off}; on {launches_on}; switched vs unswitched "
         f"image drift |d| on [0, 1]: p50 {np.percentile(drift, 50):.4f} p99 "
@@ -1512,39 +1556,63 @@ def k2_device(pipe, counters):
     say("k2 per serving pass (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
 
 
-# The UNet's self-attention shapes (b, s, h, d) on the four paths: SD1.5
-# serving (CFG batch 2) at 64^2 and 32^2 latents, SD2.1 at 96^2, 48^2 and
-# 24^2, W8A8 serving (UNet batch 8) and training (batch 4).
-K3_SWEEP_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 9216, 5, 64), (2, 2304, 10, 64),
-                   (2, 576, 20, 64), (8, 4096, 8, 40), (8, 1024, 8, 80), (4, 4096, 8, 40),
-                   (4, 1024, 8, 80)]
+# K3's shapes on the four paths, (b, sq, sk, h, d): the UNet's
+# self-attention (the ring body) for SD1.5 serving (CFG batch 2) at 64^2 and
+# 32^2 latents, SD2.1 at 96^2, 48^2 and 24^2, W8A8 serving (UNet batch 8)
+# and training (batch 4); the 77-token cross-attention (the cross body) at
+# every SD1.5 and SD2.1 serving level and SD1.5's first level at batch 8;
+# SD1.5's d = 160 self-attention and the VAE's d = 512 head (the wide body).
+K3_SWEEP_SHAPES = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 9216, 9216, 5, 64),
+                   (2, 2304, 2304, 10, 64), (2, 576, 576, 20, 64), (8, 4096, 4096, 8, 40),
+                   (8, 1024, 1024, 8, 80), (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80),
+                   (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 77, 8, 160),
+                   (2, 64, 77, 8, 160), (2, 9216, 77, 5, 64), (2, 2304, 77, 10, 64),
+                   (2, 576, 77, 20, 64), (2, 144, 77, 20, 64), (8, 4096, 77, 8, 40),
+                   (8, 1024, 77, 8, 80), (4, 1024, 77, 8, 80), (4, 4096, 77, 8, 40),
+                   (2, 256, 256, 8, 160), (2, 64, 64, 8, 160), (4, 256, 256, 8, 160),
+                   (1, 4096, 4096, 1, 512), (4, 4096, 4096, 1, 512), (1, 9216, 9216, 1, 512)]
 
 
 def k3_sweep() -> bool:
-    """K3 at each UNet self-attention shape, q/k/v as the fused QKV's views:
-    every compiled ring-body variant and the general body through the raw
-    kernel, beside SDPA and the bound, with each one's error against the
-    plain f32 version; marks the planner's choice."""
+    """K3 at each shape of K3_SWEEP_SHAPES (q/k/v of a self-attention as the
+    fused QKV's views) through the raw kernel: the general body (the first
+    design) beside every compiled variant of the body the planner picks (the
+    ring's tiles; the cross body's query tiles a block; the wide body's key
+    splits 1-8), beside SDPA and the bound, with each
+    one's error against the plain f32 version; eager CUDA-event ms (the
+    host's launch cost included) and device ms (CUDA-graph replay); marks
+    the planner's choice."""
     from stable_diffusion_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = True
-    for b, s, h, d in K3_SWEEP_SHAPES:
-        qkv = (torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")).bfloat16()
-        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    for b, sq, sk, h, d in K3_SWEEP_SHAPES:
+        if sq == sk:
+            qkv = (torch.randn((b, sq, 3 * h * d), generator=gen, device="cuda")).bfloat16()
+            q, k, v = (t.reshape(b, sq, h, d) for t in qkv.split(h * d, dim=-1))
+        else:
+            q, k, v = ((torch.randn((b, n, h, d), generator=gen, device="cuda")).bfloat16()
+                       for n in (sq, sk, sk))
         ref = fa.attention_plain(q.float(), k.float(), v.float())
         refmax = ref.abs().max().item()
-        chosen = fa.attention_plan(b, s, s, h, d, sms)
+        chosen = fa.attention_plan(b, sq, sk, h, d, sms)
         dp = chosen.dp
-        plans = [fa.AttentionPlan("general", dp, 64)] + [
-            fa.AttentionPlan("ring", dp, bq) for vdp, bq in fa.K3_RING if vdp == dp]
-        b_ms, _ = bound_ms(4 * b * h * s * s * d, 8 * b * h * s * d, BF16_TC_FLOPS)
-        e_ms = b * h * s * s / EXP_RATE * 1e3
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                             v.transpose(1, 2)))
-        say(f"  k3 shape={(b, s, h, d)} sdpa_ms={lib:.4f} bound_ms={max(b_ms, e_ms):.4f} "
-            f"(bytes/products {b_ms:.4f}, exponentials {e_ms:.4f})")
+        plans = [fa.general_plan(d)]
+        if chosen.body == "ring":
+            plans += [fa.AttentionPlan("ring", dp, bq) for vdp, bq in fa.K3_RING if vdp == dp]
+        elif chosen.body == "cross":
+            plans += sorted({chosen, *(chosen._replace(tiles=t) for t in (1, 2, 3, 4, 6)
+                                       if t <= -(-sq // 64))})
+        elif chosen.body == "wide":
+            plans += sorted({chosen, *(chosen._replace(splits=n)
+                                       for n in range(1, min(fa.WIDE_MAX_SPLITS, -(-sk // 64)) + 1))})
+        b_ms, _ = bound_ms(4 * b * h * sq * sk * d, 2 * b * h * d * (2 * sq + 2 * sk), BF16_TC_FLOPS)
+        e_ms = b * h * sq * sk / EXP_RATE * 1e3
+        def sdpa():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        say(f"  k3 shape={(b, sq, sk, h, d)} sdpa_ms={cuda_ms(sdpa):.4f} sdpa_dev_ms={graph_ms(sdpa):.4f} "
+            f"bound_ms={max(b_ms, e_ms):.4f} (bytes/products {b_ms:.4f}, exponentials {e_ms:.4f})")
         for plan in plans:
             def run(plan=plan):
                 return fa.attention_kernel(q, k, v, _plan=plan)
@@ -1553,10 +1621,12 @@ def k3_sweep() -> bool:
             rel = (got - ref).abs().max().item() / refmax
             good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
             ok &= good
-            say(f"    {plan.body:7s} bq={plan.bq:3d} "
-                f"{'ok ' if good else 'BAD'} rel={rel:.3e} ms={cuda_ms(run, reps=30, rounds=5):.4f}"
+            say(f"    {k3_note(plan):40s} {'ok ' if good else 'BAD'} rel={rel:.3e} "
+                f"ms={cuda_ms(run, reps=30, rounds=5):.4f} dev_ms={graph_ms(run):.4f}"
                 + (" <- plan" if plan == chosen else ""))
-        del q, k, v, qkv, ref
+            del got
+        del q, k, v, ref
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -1965,6 +2035,7 @@ def main() -> int:
                 "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
                 "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
                 "K12": winograd.K12}
+    counters.update({f"K3:{body}": c for body, c in flash_attention.K3_BY_BODY.items()})
 
     if "--k1-host" in sys.argv[1:] or "--profile-serve" in sys.argv[1:]:
         say(f"  package: {os.path.dirname(os.path.dirname(groupnorm.__file__))}")
@@ -1992,9 +2063,10 @@ def main() -> int:
         f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in conv.conv3x3_occupancy().items()))
 
-    say("  K3 variants (body, padded d, bq): " + "; ".join(
-        f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
-        f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in flash_attention.attention_occupancy().items()))
+    say("  K3 variants (padded d, plan): " + "; ".join(
+        f"d{v.dp} {k3_note(v)} {o['registers']} registers, {o['spill_bytes']} spill bytes, "
+        f"{o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM"
+        for v, o in flash_attention.attention_occupancy().items()))
     for k in (320, 1280):
         say(f"  K8 variants (bm, bn, stages, min blocks) with K={k} resident: "
             + occ(linear.linear_q_occupancy(k)))
@@ -2033,7 +2105,9 @@ def main() -> int:
 
     # 3. kernels vs plain at the main path's shapes
     shapes = record_main_path_shapes(pipe, counters)
+    ok3g = no_general_body(shapes, "serve path (one DDIM step)")
     ok3, summary = check_kernels(shapes, SERVING_KERNELS, "serve")
+    ok3 &= ok3g
     say(f"phase 3 kernels: {'ok' if ok3 else 'FAIL'}, " + ", ".join(
         f"{k} {s['shapes']} shapes max_rel={s['max_rel_err']:.2e} kernel {s['ms']:.2f} ms, "
         f"plain {s['plain_ms']:.2f}, library "
@@ -2054,7 +2128,7 @@ def main() -> int:
 
     # 5. serving
     ok5, secs, launches, peak = phase_serving(pipe, counters)
-    ok5 &= all(launches[k] > 0 for k in SERVING_KERNELS)
+    ok5 &= all(launches[k] > 0 for k in SERVING_KERNELS) and no_general_body(launches, "phase 5 requests")
     say(f"phase 5 serving: {'ok' if ok5 else 'FAIL'}, {SERVE_REQUESTS} requests at 512^2, "
         f"DDIM {SERVE_STEPS} steps, CFG 7.5: s/request={[round(s, 3) for s in secs]} "
         f"launches={launches} peak_mem={peak:.2f} GiB")
@@ -2141,6 +2215,10 @@ def main() -> int:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
             row["bf16_call"] = KERNELS[k]["bf16"]
+        if k == "K3":  # launches by body: phase 5's, 7's, 6's and 8's (switches off)
+            for tag, m in (("", launches), ("train_", train["launches"]), ("w8a8_", w8["launches"]),
+                           ("sd21_", sd["launches_off"])):
+                row[f"{tag}bodies"] = {b: m[f"K3:{b}"] for b in K3_BODY_NAMES}
         for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"]),
                                ("sd21", sd["summary"], sd["launches_off"])):
             if serving and k in other:

@@ -73,10 +73,10 @@
 // Not yet (PERF.md says where the time goes): a persistent tile loop (one
 // block's prologue and epilogue under another tile's products), two-block
 // clusters sharing the weight's slabs.
-#include <cuda.h>
 #include <string.h>
 
 #include "mma.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace sdtk {
@@ -96,12 +96,6 @@ enum Prologue { kNone = 0, kLN = 1, kGN = 2 };
 __host__ __device__ constexpr int lin_smem(int resident, int BM, int BN, int STAGES, int kch) {
   return 1024 + (resident ? STAGES * BN * RB + BM * kch * RB + kch * 4 * KC : STAGES * (BM + BN) * RB + BM * 8) +
          128;
-}
-
-// Byte offset of 16-byte piece j of 128-byte row r in the 128-byte swizzle
-// (from 1024-byte aligned regions).
-__device__ __forceinline__ uint32_t swz(int r, int j) {
-  return (uint32_t)(r * RB + ((j ^ (r & 7)) << 4));
 }
 
 struct LinArgs {
@@ -147,42 +141,6 @@ __device__ __forceinline__ Pack8 gn8(const Pack8& xv, const SS8& q) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) o.h[j] = to_bf(to_f(xv.h[j]) * s[j] + h[j]);
   return o;
-}
-
-// The tensor-memory accelerator (TMA): one thread asks for a whole 2-D box
-// (64 channels x rows) to be copied from device memory into shared memory in
-// the 128-byte swizzle, and the copy reports its bytes to an mbarrier.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(phase)
-        : "memory");
-}
-// Box (channels c .. c + 63, rows r ..) of the tensor map into shared dst.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c, int r, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
-      : "memory");
-}
-
-// Box (columns c .., rows r ..) of shared src to the tensor map's tensor.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, int c, int r, uint32_t src) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(src)
-               : "memory");
 }
 
 // BM rows x BN columns a tile, STAGES ring slabs, RES_A: schedule R
@@ -516,59 +474,6 @@ __global__ void linear_reduce_kernel(const float* ws, const bf16* bias, const bf
 #pragma unroll
   for (int j = 0; j < 8; ++j) o.h[j] = to_bf(v[j] + to_f(b.h[j]) + to_f(r.h[j]));
   *reinterpret_cast<uint4*>(y + i) = o.u;
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The TMA map of a (rows, cols) row-major bf16 tensor in boxes of box_cols x
-// box_rows in the given swizzle, zeros read out of bounds and nothing written
-// there (cuTensorMapEncodeTiled, reached through the runtime: no libcuda link).
-bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols, int box_rows,
-                CUtensorMapSwizzle swizzle) {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return false;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// encode_map through a small cache keyed by everything the map encodes (a
-// hit is the same map): the weights' maps, and the activations' while the
-// caching allocator hands their buffers back at the same addresses, cost a
-// lookup instead of ~1-5 us of host time each.  One card, one host thread.
-bool cached_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols, int box_rows,
-                CUtensorMapSwizzle swizzle) {
-  struct Entry {
-    const void* base;
-    int rows, cols, box_cols, box_rows, swizzle;
-    CUtensorMap map;
-  };
-  constexpr int kEntries = 512;
-  static Entry cache[kEntries];
-  const uint64_t key = (uint64_t)(uintptr_t)base ^ ((uint64_t)rows << 40) ^ ((uint64_t)cols << 20) ^
-                       ((uint64_t)box_cols << 8) ^ (uint64_t)box_rows ^ ((uint64_t)swizzle << 60);
-  Entry& e = cache[(key ^ (key >> 29) ^ (key >> 47)) % kEntries];
-  if (e.base == base && e.rows == rows && e.cols == cols && e.box_cols == box_cols && e.box_rows == box_rows &&
-      e.swizzle == (int)swizzle) {
-    *map = e.map;
-    return true;
-  }
-  if (!encode_map(map, base, rows, cols, box_cols, box_rows, swizzle)) return false;
-  e = Entry{base, rows, cols, box_cols, box_rows, (int)swizzle, *map};
-  return true;
 }
 
 template <class F>

@@ -1,8 +1,8 @@
 // Hopper warpgroup products (`wgmma.mma_async`) for the port's kernels:
 // bf16 in, f32 accumulate, A from registers, B from shared memory through a
 // 128-byte-swizzle descriptor (K2, K4); bf16 with both operands by
-// descriptor (K10/K11); s8 in, s32 accumulate, both operands by descriptor
-// (K8).
+// descriptor (K10/K11, K3's wide body); s8 in, s32 accumulate, both operands
+// by descriptor (K8).
 //
 // A warpgroup is four consecutive warps (128 threads).  A's registers are
 // the m16n8k16 A fragment of each warp's 16 rows (mma.cuh), so fragments
@@ -104,8 +104,8 @@ struct Wgmma<32> {
 
 // wgmma m64nNk16, bf16 with both operands K-major in shared memory through
 // 128-byte-swizzle descriptors (K10/K11: A is the block's rows, resident or
-// streamed, B the weight slab), f32 accumulators d[N / 2] in the layout
-// above.  No A registers: the warpgroup's 64 rows are read by the tensor
+// streamed, B the weight slab; K3's wide body, m64n64: A the 64 query rows,
+// B a 64-key tile), f32 accumulators d[N / 2] in the layout above.  No A registers: the warpgroup's 64 rows are read by the tensor
 // cores themselves.
 template <int N>
 struct WgmmaSS;
@@ -132,6 +132,23 @@ struct WgmmaSS<160> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
           "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(1));
   }
 };

@@ -91,7 +91,7 @@ def _compile(out: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.sdtk_conv3x3.argtypes = [P] * 6 + [I] * 11 + [P]
-    lib.sdtk_attention.argtypes = [P, P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F, I, I, P]
+    lib.sdtk_attention.argtypes = [P, P, P, P, P, L, L, L, L, L, L, I, I, I, I, I, I, F] + [I] * 5 + [P, P]
     lib.sdtk_attention_bwd_dq.argtypes = [P] * 8 + [L] * 10 + [I] * 4 + [F] + [I] * 3 + [P]
     lib.sdtk_attention_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + [I] * 4 + [F] + [I] * 3 + [P]
     IP = ctypes.POINTER(ctypes.c_int)
@@ -101,7 +101,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_gn_attrs.argtypes = [I, I, IP]
     lib.sdtk_conv3x3_attrs.argtypes = [I, I, I, I, IP]
     lib.sdtk_attention_bwd_attrs.argtypes = [I] * 5 + [IP]
-    lib.sdtk_attention_attrs.argtypes = [I, I, I, IP]
+    lib.sdtk_attention_attrs.argtypes = [I] * 5 + [IP]
     lib.sdtk_ffn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_ffn_attrs.argtypes = [I] * 6 + [IP]
     lib.sdtk_conv3x3_q_ksplit.argtypes = [I, I, I, I, I]

@@ -3,12 +3,18 @@ and kernels K5 + K6 (CUDA) for the self-attention backward, beside their
 plain versions.
 
 K3 (csrc/attention.cu) replaces three TPU kernels of
-stable_diffusion_tpu/ops/flash_attention.py with one blockwise online
-softmax: ``_single_pass_kernel`` and ``_flash_kernel`` (self-attention) and
+stable_diffusion_tpu/ops/flash_attention.py with blockwise softmaxes:
+``_single_pass_kernel`` and ``_flash_kernel`` (self-attention) and
 ``_cross_kernel`` (the 77-token text cross-attention, masked by ``kv_len``).
 :func:`attention_plan` picks its body and tile: the UNet's self-attention
-(head dims 40, 64, 80) runs a body with a cp.async K/V ring and Q held in
-registers, everything else the general body.
+at head dims 40, 64, 80 runs the ring body (a cp.async K/V ring, Q held in
+registers); the cross-attention (at most 128 keys) the cross body (a
+block's K and V loaded once, one exact softmax); the self-attention at head
+dims 160 and 512 (SD1.5's deepest stages, the VAE's mid block) the wide
+body (TMA-fed tiles, each logit computed once by one warpgroup's ``wgmma``,
+the output split by columns across warps, the keys split across blocks
+where the query tiles leave SMs idle); every other shape the general body.  :data:`K3_BY_BODY` counts
+the launches of each body.
 K5 and K6 (csrc/attention_bwd.cu) replace the two passes of
 ``_premerged_flash_bwd``: ``_bwd_dq_kernel`` (dQ and delta = rowsum(dO*O))
 and ``_bwd_dkv_kernel`` (dK, dV).  :func:`attention_bwd_plan` picks their
@@ -48,12 +54,28 @@ K6 = LaunchCounter()
 
 BWD_MAX_D = 160  # widest head dim K5/K6 take (the SD1.5 UNet's deepest stages)
 
-# K3's bodies (csrc/attention.cu), as sdtk_attention numbers them.
-K3_BODIES = {"general": 0, "ring": 1}
-K3_BKV = 64          # keys a tile, both bodies
+# K3's bodies (csrc/attention.cu), as sdtk_attention numbers them, and the
+# launches of each (K3 counts them all).
+K3_BODIES = {"general": 0, "ring": 1, "cross": 2, "wide": 3}
+K3_BY_BODY = {body: LaunchCounter() for body in K3_BODIES}
+K3_BKV = 64          # keys a tile: the general, ring and wide bodies
 K3_RING_STAGES = 3   # K/V tiles in the ring body's ring
 # The compiled ring variants (SDTK_ATTN_RING_VARIANTS): (padded head dim, query rows a block).
 K3_RING = ((48, 128), (64, 64), (64, 192), (64, 256), (80, 128))
+# The compiled cross variants (SDTK_ATTN_CROSS_VARIANTS): (padded head dim,
+# keys zero-filled to); 64 query rows a tile, 4 warps.
+K3_CROSS = ((48, 80), (64, 80), (80, 80), (160, 80), (48, 128), (64, 128), (80, 128))
+CROSS_MAX_KEYS = 128
+CROSS_MAX_TILES = 4
+# Blocks an SM the cross variants' registers allow at least (CrossCfg::MINB,
+# their __launch_bounds__): the compiled variants use up to that bound.
+CROSS_MINB = {(dp, nk): (4 if nk <= 80 else 3) if dp <= 64 else 3 if dp <= 80 else 2
+              for dp, nk in K3_CROSS}
+# The compiled wide variants (SDTK_ATTN_WIDE_VARIANTS): padded head dim ->
+# (warps, rows, columns of a warp's O block); 64 query rows a block.
+K3_WIDE = {160: (4, 16, 160), 512: (8, 64, 64)}
+WIDE_MAX_SPLITS = 8
+WIDE_WS_BYTES = 128 << 20  # the largest partial workspace a key split may take
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared bytes a block can use, and an SM has (H100)
 
 # K5/K6's bodies (csrc/attention_bwd.cu), as sdtk_attention_bwd_* number them.
@@ -66,31 +88,57 @@ K6_RING = ((48, 128, 64), (64, 64, 64), (80, 128, 64))
 
 
 class AttentionPlan(NamedTuple):
-    """K3's launch: ``body`` ("general" or "ring"), the head dim ``dp`` held
-    in shared memory (padded to a multiple of 16; the general body's heads
-    wider than 160 to a multiple of 128, run as ``passes`` 128-column
-    passes) and ``bq`` query rows a block (16 a warp)."""
+    """K3's launch: ``body`` ("general", "ring", "cross" or "wide"), the head
+    dim ``dp`` held in shared memory (padded to a multiple of 16; the general
+    body's heads wider than 160 to a multiple of 128, run as ``passes``
+    128-column passes) and ``bq`` query rows a block (ring: 16 a warp) or a
+    tile (64 in the others).  The cross body also takes ``nk``, the keys
+    zero-filled to, and ``tiles``, query tiles a block; the wide body
+    ``splits``, the blocks the keys are split across (merged by a second
+    launch)."""
     body: str
     dp: int
     bq: int
     passes: int = 1
+    nk: int = 0
+    tiles: int = 1
+    splits: int = 1
 
     @property
     def threads(self) -> int:
-        return 2 * self.bq
+        if self.body == "ring":
+            return 2 * self.bq
+        if self.body == "wide":
+            return 32 * K3_WIDE[self.dp][0]
+        return 128
 
     def grid(self, b: int, sq: int, h: int):
-        """(query blocks, batch x heads, passes): the launch grid."""
-        return -(-sq // self.bq), b * h, self.passes
+        """The launch grid: (query blocks, batch x heads, passes) (general,
+        ring), (query-tile runs, batch x heads, 1) (cross) or (query blocks,
+        batch x heads, key splits) (wide)."""
+        qb = -(-sq // self.bq)
+        if self.body == "cross":
+            return -(-qb // self.tiles), b * h, 1
+        return qb, b * h, self.splits if self.body == "wide" else self.passes
 
     @property
     def smem(self) -> int:
-        """Dynamic shared memory a block takes (csrc/attention.cu): rows of
-        dp + 8 bf16 (16 bytes of padding) for the Q tile and each K and V
-        tile of 64 keys; one K/V pair in the general body, the ring's three
-        in the ring body."""
+        """Dynamic shared memory a block takes (csrc/attention.cu).  General
+        and ring: rows of dp + 8 bf16 (16 bytes of padding) for the Q tile
+        and each K and V tile of 64 keys, one K/V pair in the general body,
+        the ring's three in the ring body.  Cross: the head's K and V (nk
+        rows each) and Q buffers of 64 rows, three where a block takes three
+        tiles or more, else two.
+        Wide: 1024 to align, the Q, K and V tiles (64 rows of 128-byte
+        swizzled boxes, one a 64 columns), P (64 rows of 64 + 8 bf16), the
+        tile's row maxima and sums (64 f32 each) and three mbarriers."""
+        row = (self.dp + 8) * 2
+        if self.body == "cross":
+            return (2 * self.nk + (3 if self.tiles >= 3 else 2) * 64) * row
+        if self.body == "wide":
+            return 1024 + 3 * -(-self.dp // 64) * 8192 + 64 * (K3_BKV + 8) * 2 + 2 * 64 * 4 + 64
         kv = K3_RING_STAGES if self.body == "ring" else 1
-        return (self.bq + 2 * kv * K3_BKV) * (self.dp + 8) * 2
+        return (self.bq + 2 * kv * K3_BKV) * row
 
     @property
     def resident(self) -> int:
@@ -99,6 +147,45 @@ class AttentionPlan(NamedTuple):
         the compiled kernel's on the card)."""
         return min(2048 // self.threads, 32, SMEM_SM // (self.smem + 1024))
 
+    def workspace(self, b: int, sq: int, h: int, d: int) -> int:
+        """f32 values of the wide body's split workspace: each split's
+        unnormalized O (b h sq x d) and its row max and sum; 0 unsplit."""
+        return self.splits * b * h * sq * (d + 2) if self.splits > 1 else 0
+
+
+def _cross_plan(b: int, sq: int, h: int, d: int, dp: int, kv: int, sms: int) -> AttentionPlan:
+    """The cross body's query tiles a block: enough to fill one wave of
+    block slots (the fewest, up to CROSS_MAX_TILES, so each block's K and V
+    serve as many tiles as that allows), a slot counted by shared memory
+    and by the registers the launch bounds hold (CROSS_MINB).  From
+    ``chip_smoke.py --k3-sweep`` on an H100 (PERF.md, Findings): the
+    fastest tile count measured, or within the runs' spread of it, at
+    every cross shape of the paths."""
+    plan = AttentionPlan("cross", dp, 64, nk=80 if kv <= 80 else CROSS_MAX_KEYS)
+    ntile = -(-sq // 64)
+    slots = sms * min(plan.resident, CROSS_MINB[(dp, plan.nk)])
+    return plan._replace(tiles=min(ntile, CROSS_MAX_TILES, -(-ntile * b * h // slots)))
+
+
+def _wide_plan(b: int, sq: int, h: int, d: int, dp: int, kv: int, sms: int) -> AttentionPlan:
+    """The wide body's key splits: the count (up to WIDE_MAX_SPLITS, one key
+    tile a split at least, the workspace within WIDE_WS_BYTES) that
+    minimizes waves of blocks x key tiles a block, a split counting its
+    merge launch as ceil(1024 / dp) tiles more (two at d = 512, whose tiles
+    take longest); ties to fewer splits."""
+    plan = AttentionPlan("wide", dp, 64)
+    qt, nt = -(-sq // 64), -(-kv // K3_BKV)
+    slots = sms * plan.resident
+    best = None
+    for ns in range(1, min(nt, WIDE_MAX_SPLITS) + 1):
+        cand = plan._replace(splits=ns)
+        if ns > 1 and 4 * cand.workspace(b, sq, h, d) > WIDE_WS_BYTES:
+            break
+        cost = -(-qt * b * h * ns // slots) * -(-nt // ns) + (-(-1024 // dp) if ns > 1 else 0)
+        if best is None or cost < best[0]:
+            best = (cost, cand)
+    return best[1]
+
 
 @functools.lru_cache(maxsize=None)
 def attention_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = 132,
@@ -106,21 +193,41 @@ def attention_plan(b: int, sq: int, sk: int, h: int, d: int, sms: int = 132,
     """K3's body and tile for q (b, sq, h, d), k/v (b, sk, h, d) on a card of
     ``sms`` SMs, as csrc/attention.cu compiles them.
 
-    Self-attention (sq == sk, no shorter ``kv_len``) at a padded head dim of
-    48, 64 or 80 (d = 40, 64, 80) takes the ring body.  Its tile, from
-    ``chip_smoke.py --k3-sweep`` on an H100 (PERF.md, Findings): 128 query
-    rows at d = 40 and 80; at d = 64, 256 rows where that still gives two
-    blocks for every SM (SD2.1's s = 9216), else 192 where that gives one
-    (s = 2304), else 64 (s = 576, 144).  Every other shape (the 77-token
-    cross-attention, d = 160, the VAE's d = 512) takes the general body."""
+    A plain self-attention (sq == sk, no shorter ``kv_len``) at a padded
+    head dim of 48, 64 or 80 (d = 40, 64, 80) takes the ring body.  Its
+    tile, from ``chip_smoke.py --k3-sweep`` on an H100 (PERF.md, Findings):
+    128 query rows at d = 40 and 80; at d = 64, 256 rows where that still
+    gives two blocks for every SM (SD2.1's s = 9216), else 192 where that
+    gives one (s = 2304), else 64 (s = 576, 144).  At a padded head dim of
+    160 or 512 it takes the wide body (:func:`_wide_plan`'s key splits).
+    Any other attention over at most 128 keys (the 77-token
+    cross-attention; a kv_len that masks) at a padded head dim of 48, 64,
+    80 or (up to 80 keys) 160 takes the cross body (:func:`_cross_plan`).  Every other shape
+    (odd test widths, more than 128 keys that are not a self-attention)
+    takes the general body."""
     dp = -(-d // 16) * 16
-    if sq == sk and kv_len in (None, sk) and dp in (48, 64, 80):
+    kv = sk if kv_len is None else kv_len
+    self_attention = sq == sk and kv == sk
+    if self_attention and dp in (48, 64, 80):
         bq = 128
         if dp == 64:
             heads = b * h
             bq = (256 if -(-sq // 256) * heads >= 2 * sms else
                   192 if -(-sq // 192) * heads >= sms else 64)
         return AttentionPlan("ring", dp, bq)
+    if self_attention and dp in K3_WIDE:
+        return _wide_plan(b, sq, h, d, dp, kv, sms)
+    if not self_attention and (dp, 80 if kv <= 80 else CROSS_MAX_KEYS) in K3_CROSS and kv <= CROSS_MAX_KEYS:
+        return _cross_plan(b, sq, h, d, dp, kv, sms)
+    return general_plan(d)
+
+
+def general_plan(d: int) -> AttentionPlan:
+    """The general body's plan at head dim ``d``: one pass up to a padded
+    160, else 128-column passes over the head padded to a multiple of 128.
+    The planner gives it only shapes no other body takes; ``_plan=`` runs it
+    anywhere (the first design, measured beside the others)."""
+    dp = -(-d // 16) * 16
     if dp <= 160:
         return AttentionPlan("general", dp, 64)
     dq = -(-dp // 128) * 128
@@ -264,8 +371,8 @@ def attention_bwd_plain(q, k, v, o, do, scale: Optional[float] = None):
 
 
 def _strides_ok(t: torch.Tensor, d: int) -> bool:
-    return (t.stride(3) == 1 and t.stride(2) == d and t.stride(0) % 8 == 0
-            and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0)
+    s = t.stride()
+    return s[3] == 1 and s[2] == d and s[0] % 8 == 0 and s[1] % 8 == 0 and t.data_ptr() % 16 == 0
 
 
 def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] = None,
@@ -274,31 +381,40 @@ def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional
     ``return_lse`` also the f32 (B, H, Sq) row log-sum-exp in the log2
     domain (log2 sum_k 2^(s_k scale log2 e)), which K5/K6 take.  ``_plan``
     replaces :func:`attention_plan`'s choice (for measuring one body beside
-    another; not a switch of the model's path)."""
+    another; not a switch of the model's path).  Its checks build no
+    message when they pass: every K3 call pays them on the host."""
     require_no_grad("K3", q, k, v)
-    require(q.is_cuda, f"K3 needs a CUDA tensor, got {q.device}")
+    if not q.is_cuda:
+        raise ValueError(f"K3 needs a CUDA tensor, got {q.device}")
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "K3 takes (B, S, H, D) tensors")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    require(k.shape == (b, sk, h, d) and v.shape == k.shape,
-            f"K3: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "K3 takes bf16 q, k, v")
-    require(d % 8 == 0 and d <= 512, f"K3 takes head dims that are multiples of 8 up to 512, got {d}")
-    require(all(_strides_ok(t, d) for t in (q, k, v)),
+    if k.shape != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"K3: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    require(q.dtype == k.dtype == v.dtype == torch.bfloat16, "K3 takes bf16 q, k, v")
+    if d % 8 or d > 512:
+        raise ValueError(f"K3 takes head dims that are multiples of 8 up to 512, got {d}")
+    require(_strides_ok(q, d) and _strides_ok(k, d) and _strides_ok(v, d),
             "K3 needs packed (H, D) axes, strides that are multiples of 8 and 16-byte alignment")
     kv_len = sk if kv_len is None else int(kv_len)
-    require(0 < kv_len <= sk, f"K3: kv_len={kv_len} for Sk={sk}")
+    if not 0 < kv_len <= sk:
+        raise ValueError(f"K3: kv_len={kv_len} for Sk={sk}")
     scale = d ** -0.5 if scale is None else float(scale)
     plan = _plan or attention_plan(b, sq, sk, h, d, _cuda.sm_count(q.device.index or 0), kv_len)
     o = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
+    n_ws = plan.workspace(b, sq, h, d)
+    ws = torch.empty(n_ws, device=q.device, dtype=torch.float32) if n_ws else None
     code = _cuda.library().sdtk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        b, h, sq, sk, d, kv_len, scale, K3_BODIES[plan.body], plan.bq, _cuda.stream_handle(q))
-    _cuda.check(code, "K3 attention")
+        b, h, sq, sk, d, kv_len, scale, K3_BODIES[plan.body], plan.bq, plan.nk, plan.tiles,
+        plan.splits, None if ws is None else ws.data_ptr(), _cuda.stream_handle(q))
+    if code:
+        _cuda.check(code, f"K3 attention ({plan.body} body)")
     K3.launched((b, sq, sk, h, d))
+    K3_BY_BODY[plan.body].launched((b, sq, sk, h, d))
     return (o, lse) if return_lse else o
 
 
@@ -381,22 +497,31 @@ def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None,
     return dq, dk, dv
 
 
+def k3_variants():
+    """A plan for each compiled K3 variant the paths reach, and the general
+    body at the padded head dims it used to take there: the ring body's
+    variants, the cross body's (three Q buffers), the wide body's, and the general body at
+    48, 80, 160 and 512 (128-column passes)."""
+    out = [AttentionPlan("ring", dp, bq) for dp, bq in K3_RING]
+    for dp, nk in K3_CROSS:  # with three Q buffers (a block of three tiles or more)
+        out.append(AttentionPlan("cross", dp, 64, nk=nk, tiles=3))
+    out += [AttentionPlan("wide", dp, 64) for dp in K3_WIDE]
+    out += [AttentionPlan("general", dp, 64) for dp in (48, 80, 160)]
+    out.append(AttentionPlan("general", 512, 64, passes=4))
+    return out
+
+
 def attention_occupancy() -> dict:
-    """Each compiled K3 variant on the current card: ``{(body, dp, bq):
+    """Each plan of :func:`k3_variants` on the current card: ``{plan:
     {...}}`` with registers a thread, spill (local) bytes a thread, shared
-    bytes a block and resident blocks an SM, from the runtime: the ring
-    body's variants, and the general body at the padded head dims the paths
-    give it (48, 80 and 160 for the cross-attention, 512 for the VAE in
-    128-column passes)."""
+    bytes a block and resident blocks an SM, from the runtime."""
     keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
-    variants = [*(("ring", dp, bq) for dp, bq in K3_RING),
-                *(("general", dp, 64) for dp in (48, 80, 160, 512))]
     out = {}
-    for body, dp, bq in variants:
+    for plan in k3_variants():
         got = (ctypes.c_int * 4)()
-        _cuda.check(_cuda.library().sdtk_attention_attrs(K3_BODIES[body], dp, bq, got),
-                    "K3 attributes")
-        out[(body, dp, bq)] = dict(zip(keys, got))
+        _cuda.check(_cuda.library().sdtk_attention_attrs(K3_BODIES[plan.body], plan.dp, plan.bq, plan.nk,
+                                                         plan.tiles, got), "K3 attributes")
+        out[plan] = dict(zip(keys, got))
     return out
 
 
@@ -462,13 +587,13 @@ def attention(q, k, v, *, scale: Optional[float] = None, kv_len: Optional[int] =
               impl: str = "auto"):
     """Non-causal attention: K3 on the card (K5 + K6 for its gradient), the
     plain version on the CPU."""
-    plain = functools.partial(attention_plain, scale=scale, kv_len=kv_len)
     if not use_kernel(impl, q):
-        return plain(q, k, v)
+        return attention_plain(q, k, v, scale=scale, kv_len=kv_len)
     if not wants_grad(q, k, v):
         return attention_kernel(q, k, v, scale=scale, kv_len=kv_len)
     d = q.shape[-1]
     if q.shape[1] == k.shape[1] and kv_len is None and d % 8 == 0 and d <= BWD_MAX_D:
         return SelfAttentionFn.apply(KERNEL_OPS, q, k, v, d ** -0.5 if scale is None else scale)
     fwd = functools.partial(attention_kernel, scale=scale, kv_len=kv_len)
+    plain = functools.partial(attention_plain, scale=scale, kv_len=kv_len)
     return Recompute.apply(fwd, plain, q, k, v)

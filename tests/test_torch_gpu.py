@@ -18,6 +18,7 @@ activation code may differ by one where the kernel's bf16 rounding before
 the quantizer and the f32 reference's lie on two sides of a half step.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -277,24 +278,149 @@ def test_k3_general_body_at_self_shapes(gen):
 
 
 def test_k3_passes_across_the_grid(gen):
-    """d = 512 in four 128-column passes, one per blockIdx.z; pass 0 writes
-    the log-sum-exp."""
+    """The general body at d = 512, in four 128-column passes, one per
+    blockIdx.z (asked for: the planner gives d = 512 to the wide body); pass
+    0 writes the log-sum-exp."""
     q, k, v = (_rn(gen, 1, 1000, 1, 512) for _ in range(3))
-    assert flash_attention.attention_plan(1, 1000, 1000, 1, 512).passes == 4
-    o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True)
+    plan = flash_attention.AttentionPlan("general", 512, 64, passes=4)
+    assert flash_attention.attention_plan(1, 1000, 1000, 1, 512).body == "wide"
+    o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True, _plan=plan)
     _check(o, flash_attention.attention_plain(q.float(), k.float(), v.float()))
     _check(lse, _lse2(q, k))
 
 
 def test_k3_occupancy(gen):
-    """Every compiled K3 variant: no spills, at least one block an SM, and
-    the shared memory its plan computes."""
+    """Every compiled K3 variant the paths reach: no spills, at least one
+    block an SM, and the shared memory its plan computes."""
     occ = flash_attention.attention_occupancy()
-    for key, o in occ.items():
-        assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (key, o)
-        plan = flash_attention.AttentionPlan(*key, passes=key[1] // 128 if key[1] > 160 else 1)
-        assert o["smem_bytes"] == plan.smem, (key, o)
-    assert all(("ring", dp, bq) in occ for dp, bq in flash_attention.K3_RING)
+    for plan, o in occ.items():
+        assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (plan, o)
+        assert o["smem_bytes"] == plan.smem, (plan, o)
+    bodies = {plan.body for plan in occ}
+    assert bodies == set(flash_attention.K3_BODIES), bodies
+
+
+def _k3_path_shapes(body):
+    """The K3 shapes of the four paths (tests/test_torch_attention_tiles.py
+    PATHS) that the planner gives ``body``."""
+    spec = importlib.util.spec_from_file_location(
+        "k3_tiles", os.path.join(os.path.dirname(__file__), "test_torch_attention_tiles.py"))
+    tiles = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tiles)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = sorted({s for shapes in tiles.PATHS.values() for s in shapes})
+    return [s for s in out if flash_attention.attention_plan(*s, sms).body == body]
+
+
+def _by_body():
+    return {b: c.launches for b, c in flash_attention.K3_BY_BODY.items()}
+
+
+@pytest.mark.parametrize("body", ["cross", "wide"])
+def test_k3_new_bodies_at_every_path_shape(gen, body):
+    """The cross and wide bodies at every K3 shape of the four paths they
+    take, through the entry point (one launch of that body, none of
+    another), q/k/v of a self-attention as the fused QKV's views, against
+    the plain f32 version; the row log-sum-exp too."""
+    shapes = _k3_path_shapes(body)
+    assert shapes, body
+    for b, sq, sk, h, d in shapes:
+        if sq == sk:
+            q, k, v = _qkv(gen, b, sq, h, d)
+        else:
+            q, k, v = _rn(gen, b, sq, h, d), _rn(gen, b, sk, h, d), _rn(gen, b, sk, h, d)
+        before = _by_body()
+        o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True)
+        after = _by_body()
+        assert {x: after[x] - before[x] for x in after} == {x: int(x == body) for x in after}
+        _check(o, flash_attention.attention_plain(q.float(), k.float(), v.float()))
+        _check(lse, _lse2(q, k))
+        del q, k, v, o, lse
+
+
+@pytest.mark.parametrize("shape,kv_len", [((2, 100, 128, 8, 40), 77), ((2, 100, 128, 8, 40), 100),
+                                          ((1, 333, 77, 3, 40), None), ((2, 130, 120, 5, 64), None),
+                                          ((1, 70, 77, 2, 160), 9), ((2, 256, 256, 5, 64), 77),
+                                          ((1, 64, 1, 1, 80), None)])
+def test_k3_cross_body_kv_len_and_ragged(gen, shape, kv_len):
+    """The cross body at ragged query lengths (100, 333, 130, 70), an odd head
+    count, 128 keys (nk = 128), a kv_len that masks
+    (77, 100, 9; and 77 of a 256-key self-attention), a single key; q/k/v
+    strided as a fused QKV's split where Sq == Sk; one and three query
+    tiles a block."""
+    b, sq, sk, h, d = shape
+    if sq == sk:
+        q, k, v = _qkv(gen, b, sq, h, d)
+    else:
+        q, k, v = _rn(gen, b, sq, h, d), _rn(gen, b, sk, h, d), _rn(gen, b, sk, h, d)
+    plan = flash_attention.attention_plan(b, sq, sk, h, d, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count, kv_len)
+    assert plan.body == "cross", plan
+    o, lse = flash_attention.attention_kernel(q, k, v, kv_len=kv_len, return_lse=True)
+    _check(o, flash_attention.attention_plain(q.float(), k.float(), v.float(), kv_len=kv_len))
+    n = sk if kv_len is None else kv_len
+    _check(lse, _lse2(q, k[:, :n]))
+    for tiles in (1, 3):  # one tile a block (two Q buffers), and three (three buffers)
+        o2 = flash_attention.attention_kernel(q, k, v, kv_len=kv_len, _plan=plan._replace(tiles=tiles))
+        _check(o2, o.float())
+
+
+@pytest.mark.parametrize("shape", [(1, 1000, 1, 512), (2, 300, 3, 160), (1, 4096, 1, 512),
+                                   (2, 64, 8, 160)])
+def test_k3_wide_body_splits(gen, shape):
+    """The wide body at a ragged length (1000, 300: the last query block and
+    key tile part-filled) and at path shapes, q/k/v as the fused QKV's
+    views, with every key split 1-4 (the merge's log-sum-exp equal to the
+    unsplit one)."""
+    b, s, h, d = shape
+    q, k, v = _qkv(gen, b, s, h, d)
+    ref = flash_attention.attention_plain(q.float(), k.float(), v.float())
+    want_lse = _lse2(q, k)
+    base = flash_attention.AttentionPlan("wide", d, 64)
+    for splits in range(1, min(4, -(-s // 64)) + 1):
+        o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True,
+                                                  _plan=base._replace(splits=splits))
+        _check(o, ref)
+        _check(lse, want_lse)
+
+
+def test_k3_wide_lse_feeds_k5_k6(gen):
+    """At d = 160 the train step's backward (K5 + K6) takes the wide body's
+    row log-sum-exp, split or not."""
+    b, s, h, d = 4, 256, 8, 160
+    q, k, v = _qkv(gen, b, s, h, d)
+    do = _rn(gen, b, s, h, d)
+    want = flash_attention.attention_bwd_plain(*(t.float() for t in (q, k, v)),
+                                               flash_attention.attention_plain(q.float(), k.float(),
+                                                                               v.float()),
+                                               do.float())
+    for splits in (1, 2):
+        plan = flash_attention.AttentionPlan("wide", d, 64, splits=splits)
+        o, lse = flash_attention.attention_kernel(q, k, v, return_lse=True, _plan=plan)
+        got = flash_attention.attention_bwd_kernel(q, k, v, o, lse, do)
+        for g, w in zip(got, want):
+            _check(g, w)
+
+
+def test_sd15_request_launches_no_general_body(gen):
+    """One SD1.5 512^2 request (full width, seeded random weights, two DDIM
+    steps): every K3 call takes the ring, cross or wide body."""
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils.weights import init_random_
+
+    pipe = StableDiffusion.for_version("1.5", device="cuda", dtype=torch.bfloat16, impl="cuda")
+    for i, m in enumerate((pipe.unet, pipe.text_encoder, pipe.vae)):
+        init_random_(m, i)
+    for c in flash_attention.K3_BY_BODY.values():
+        c.reset()
+    img = pipe.generate([[1] * 77], [[0] * 77], img_size=(512, 512), inference_steps=2,
+                        output_dtype="uint8")
+    torch.cuda.synchronize()
+    assert img.shape == (1, 512, 512, 3)
+    launches = _by_body()
+    assert launches["general"] == 0 and all(launches[b] > 0 for b in ("ring", "cross", "wide")), launches
+    del pipe
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("shape", [(16, 32), (8192, 320), (2048, 640), (512, 1280), (100, 64),

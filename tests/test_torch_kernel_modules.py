@@ -3,8 +3,8 @@ JAX package's Pallas kernel run as the JAX tests run it on the CPU
 (``pltpu.force_tpu_interpret_mode()``): the same numpy inputs, f32.
 
 K1 groupnorm ``_run_kernels`` / ``_stats_call``, K2 conv ``_gn_silu_conv`` /
-``_conv3x3``, K3 flash_attention ``_flash`` (d = 40, 64, 80; 128 and 200
-rows) / ``_flash_cross``, K4 ffn ``_ln_ffn_res``.  Tolerances: 2e-5 absolute, as the JAX package's own
+``_conv3x3``, K3 flash_attention ``_flash`` (d = 40, 64, 80, 160, 512; 128
+and 200 rows) / ``_flash_cross`` (d = 40, 64, 160), K4 ffn ``_ln_ffn_res``.  Tolerances: 2e-5 absolute, as the JAX package's own
 interpret-mode tests (the TPU kernels sum in blocks, and the GN stats kernel
 takes the one-pass variance), 1e-4 for the stats."""
 
@@ -86,6 +86,30 @@ def test_self_attention_ragged_matches_pallas(rng, d):
     q, k, v = (rng.standard_normal((1, 200, 2, d), dtype=np.float32) for _ in range(3))
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jfa._flash(q, k, v, d ** -0.5))
+    got = tfa.attention(_t(q), _t(k), _t(v), impl="torch").numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 2, 160), (1, 128, 1, 512)])
+def test_wide_self_attention_matches_pallas(rng, shape):
+    """The head dims K3's wide body takes (SD1.5's d = 160, the VAE's single
+    d = 512 head)."""
+    d = shape[-1]
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa._flash(q, k, v, d ** -0.5))
+    got = tfa.attention(_t(q), _t(k), _t(v), impl="torch").numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 160])
+def test_cross_attention_widths_match_pallas(rng, d):
+    """77 text tokens at the head dims of K3's cross body beside d = 40:
+    SD2.1's 64 and SD1.5's deepest 160."""
+    q = rng.standard_normal((2, 128, 2, d), dtype=np.float32)
+    k, v = (rng.standard_normal((2, 77, 2, d), dtype=np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa._flash_cross(q, k, v, d ** -0.5))
     got = tfa.attention(_t(q), _t(k), _t(v), impl="torch").numpy()
     np.testing.assert_allclose(got, want, atol=2e-5)
 
