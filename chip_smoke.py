@@ -14,6 +14,10 @@
                                            # at the serve, SD2.1 and train shapes
     python3 chip_smoke.py --k8-sweep       # phases 1-2, then every K8 variant at the
                                            # W8A8 path's shapes, beside torch._int_mm
+    python3 chip_smoke.py --w8a8-sweep [--root DIR]
+                                           # phases 1-2, then K7 and K9 at the W8A8
+                                           # path's shapes: every variant, beside the
+                                           # K2 / K4 routes and torch._int_mm
     python3 chip_smoke.py --k12-sweep      # phases 1-2, then K12 at every region shape at
                                            # the switched SD2.1 shapes, beside the K2 route
     python3 chip_smoke.py --k10-sweep      # phases 1-2, then every K10/K11 variant at the
@@ -34,8 +38,8 @@ and the final line is printed only when every phase passed:
                  the SM count and the maximum SM clock.
   2. build    -- compiles the CUDA kernels (nvcc, sm_90a) from this
                  checkout's sources; prints the seconds and each K1, K2, K3,
-                 K4, K8, K10/K11 and K12 variant's registers, spills, shared
-                 bytes and blocks per SM.
+                 K4, K7, K8, K9, K10/K11 and K12 variant's registers,
+                 spills, shared bytes and blocks per SM.
   3. kernels  -- runs the SD1.5 txt2img main path once at 512^2 to record
                  the shape each of K1-K4 gets there, then runs every kernel
                  at every such shape in bf16 against its plain PyTorch
@@ -68,9 +72,11 @@ and the final line is printed only when every phase passed:
                  context at UNet batch 8, quantizes its linears and 3x3 convs;
                  records the shapes K1-K3 and K7-K9 get in one b4 DDIM step
                  and checks and times each kernel there (K7-K9 beside their
-                 bf16 counterparts, and torch._int_mm for K8, its rows
-                 zero-padded to 32 where M <= 16; K8's lines name each
-                 shape's plan and the bound of the design's own bytes);
+                 bf16 counterparts and the product-only torch._int_mm
+                 yardstick: K7's on an explicit int8 im2col, K8's rows
+                 zero-padded to 32 where M <= 16, K9's two products; their
+                 lines name each shape's plan and the bound of the design's
+                 own bytes);
                  holds one CFG
                  UNet step against the plain W8A8 path in f32, below the
                  distance of the unquantized bf16 UNet from it, beside the
@@ -222,7 +228,8 @@ KERNELS = {
     "K7": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/conv3x3_q.cu",
                replaces="stable_diffusion_tpu/ops/conv.py:333",
                replaces_all=["stable_diffusion_tpu/ops/conv.py:333 _conv3x3_q_kernel"],
-               library=None,  # no one PyTorch call computes an int8 conv
+               library="torch._int_mm on an explicit int8 im2col (M x 9 Cin) of the codes (the "
+                       "product only: no GN+SiLU, quantize, im2col or dequantize)",
                bf16="K2 with the GN+SiLU prologue (gn_silu_conv3x3) on the bf16 weight"),
     "K8": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/linear_q.cu",
                replaces="stable_diffusion_tpu/ops/linear.py:400",
@@ -233,7 +240,8 @@ KERNELS = {
     "K9": dict(route="cuda", source="stable_diffusion_tpu_torch/csrc/ffn_q.cu",
                replaces="stable_diffusion_tpu/ops/ffn.py:319",
                replaces_all=["stable_diffusion_tpu/ops/ffn.py:319 _make_q_kernel"],
-               library=None,  # no one PyTorch call computes LN -> int8 GeGLU -> FFN
+               library="the two torch._int_mm products on int8 operands (x W1^T, h W2^T: no "
+                       "LN, quantize, GeGLU or dequantize)",
                bf16="K4 (geglu_ffn) on the bf16 weights"),
 }
 KERNELS.update({
@@ -406,8 +414,33 @@ def _w8a8_case(kernel: str, key, gen):
         def bf16():
             return conv.gn_silu_conv3x3(x, gw, gb, wd, bias, impl="cuda")
         px = b * h * w_
+        # the product-only yardstick: the codes' im2col (M x 9 Cin, tap-major
+        # as the weight's (Cout, 3, 3, Cin) rows) times the weight, on int32
+        xq = quantize_act(conv.gn_silu_prologue(x, gn_scale_shift_plain(x, gw, gb)),
+                          act_step(act, floor=True))
+        xp = F.pad(xq.view(torch.uint8), (0, 0, 1, 1, 1, 1)).view(torch.int8)
+        cols = torch.stack([xp[:, ky:ky + h, kx:kx + w_] for ky in range(3) for kx in range(3)],
+                           dim=3).reshape(px, 9 * cin)
+        wmat = q.reshape(cout, 9 * cin)
+        del xq, xp
+
+        def library():
+            return torch._int_mm(cols, wmat.t())
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = conv.conv3x3_q_plan(b, h, w_, cin, cout, sms) if hasattr(conv, "conv3x3_q_plan") else None
         work = dict(flops=2 * px * cin * cout * 9,
                     bytes=2 * px * (cin + cout) + 9 * cin * cout + 6 * cout + b * 2 * cin * 4)
+        if plan is not None:
+            tiles, cols_n, _ = plan.grid(b, h, w_, cout)
+            # the design's own traffic: x read and its codes written once,
+            # each tile's halo of codes read per column block, the weight
+            # streamed by every tile, y written once, split-K sums added by
+            # each part and read back once
+            work.update(design_bytes=3 * px * cin + tiles * cols_n * (plan.th + 2) * (plan.tw + 2) * cin
+                        + 9 * cin * cout * tiles + 2 * px * cout + 6 * cout
+                        + (4 * px * cout * (plan.ksplit + 2) if plan.ksplit > 1 else 0),
+                        note=f"plan=({plan.th}x{plan.tw}, bm {plan.bm}, bn {plan.bn}, stages "
+                             f"{plan.stages}) ksplit={plan.ksplit} smem={plan.smem}")
     elif kernel == "K8":
         m, k, n, ln, res = key
         x = rn(m, k, scale=2.0)
@@ -469,7 +502,26 @@ def _w8a8_case(kernel: str, key, gen):
 
         def bf16():
             return ffn.geglu_ffn(x, lw, lb, w1d, b1, w2d, b2, r, impl="cuda")
+        # the product-only yardstick: both int8 products on seeded codes
+        xq = torch.randint(-127, 128, (m, c), generator=gen, device="cuda", dtype=torch.int8)
+        hq = torch.randint(-127, 128, (m, hidden), generator=gen, device="cuda", dtype=torch.int8)
+
+        def library():
+            torch._int_mm(xq, q1.t())
+            return torch._int_mm(hq, q2.t())
         work = dict(flops=6 * m * c * hidden, bytes=6 * m * c + 3 * c * hidden + 12 * hidden + 10 * c)
+        if hasattr(ffn, "ffn_q_plan"):
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            plan = ffn.ffn_q_plan(m, c, hidden, sms)
+            cols2, rows2 = plan.grid2(m, c)
+            # the design's own traffic: x read and its codes written once,
+            # read by each G1 split; W1 by each row block; h written once,
+            # read by each G2 column block; W2 by each G2 row block; out and
+            # the residual once
+            work.update(design_bytes=3 * m * c + m * c * plan.nsplit1
+                        + 2 * hidden * c * -(-m // plan.g1[0]) + m * hidden * (1 + cols2)
+                        + c * hidden * rows2 + 4 * m * c + 12 * hidden + 10 * c,
+                        note=f"plan=G1 {plan.g1} nsplit1={plan.nsplit1} G2 {plan.g2}")
     return dict(kernel=lambda: run(*args, impl="cuda"), plain=lambda: run(*args, impl="torch"),
                 ref=lambda: run(*map(f32, args), impl="torch"), library=library, bf16=bf16,
                 plain_once=True, rate=INT8_TC_OPS, args=args, **work)
@@ -1839,6 +1891,134 @@ def k8_sweep() -> bool:
     return ok
 
 
+# (B, H, W, Cin, Cout, prologue) of phase 6's K7 shapes and (M, C, H, LN,
+# residual) of its K9 shapes, with their calls in one W8A8 b4 pass (one b4
+# DDIM step at UNet batch 8: the SD1.5 UNet's 44 GN+SiLU resblock convs and
+# 16 transformer FFNs).
+K7_SWEEP_SHAPES = [((8, 64, 64, 320, 320, True), 7), ((8, 64, 64, 640, 320, True), 2),
+                   ((8, 64, 64, 960, 320, True), 1), ((8, 32, 32, 320, 640, True), 1),
+                   ((8, 32, 32, 640, 640, True), 6), ((8, 32, 32, 960, 640, True), 1),
+                   ((8, 32, 32, 1280, 640, True), 1), ((8, 32, 32, 1920, 640, True), 1),
+                   ((8, 16, 16, 640, 1280, True), 1), ((8, 16, 16, 1280, 1280, True), 6),
+                   ((8, 16, 16, 1920, 1280, True), 1), ((8, 16, 16, 2560, 1280, True), 2),
+                   ((8, 8, 8, 1280, 1280, True), 11), ((8, 8, 8, 2560, 1280, True), 3)]
+K9_SWEEP_SHAPES = [((32768, 320, 1280, True, True), 5), ((8192, 640, 2560, True, True), 5),
+                   ((2048, 1280, 5120, True, True), 5), ((512, 1280, 5120, True, True), 1)]
+
+
+def w8a8_sweep() -> bool:
+    """K7 and K9 at each W8A8 path shape: the entry point (CUDA events, and
+    the host us a call), the raw kernel's device time (CUDA-graph replay),
+    the bf16 route each stands in for (K2 with its prologue, K4) and the
+    product-only torch._int_mm yardstick, device times; then, where the
+    package has the planners (not a --root checkout of the first design),
+    K7's codes launch and GEMM apart and its GEMM at every other column
+    width and K split, K9's quantize, G1 and each G2 variant, each checked
+    through the whole function against plain f32 and timed alone on the
+    device.  Per-pass sums (a variant's over the shapes it runs).  The H100
+    sweep also timed K7's fused form and K8's GEMM as K9's G2 (PERF.md):
+    they lost at every path shape and are not built."""
+    from stable_diffusion_tpu_torch.ops import conv, ffn
+    from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift_kernel
+    from stable_diffusion_tpu_torch.ops.quantize import folded_scales
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"  package: {os.path.dirname(os.path.dirname(conv.__file__))}")
+    ok = True
+    for kernel, table in (("K7", K7_SWEEP_SHAPES), ("K9", K9_SWEEP_SHAPES)):
+        per_pass = {}
+
+        def add(name, calls, ms):
+            per_pass[name] = per_pass.get(name, 0.0) + calls * ms
+
+        for key, calls in table:
+            case = _w8a8_case(kernel, key, gen)
+            ref = case["ref"]().float()
+            refmax = ref.abs().max().item()
+            got = case["kernel"]().float()
+            torch.cuda.synchronize()
+            rel = (got - ref).abs().max().item() / refmax
+            good = bool(torch.isfinite(got).all().item()) and rel <= KERNEL_REL_TOL
+            ok &= good
+            del got
+            if kernel == "K7":
+                x, gw, gb, wq, sc, act, bias = case["args"]
+                ss = gn_scale_shift_kernel(x, gw, gb)
+                s_x, oscale = folded_scales(sc, act, floor=True)
+
+                def raw(**kw):
+                    return conv.conv3x3_w8a8_kernel(x, wq, s_x, oscale, bias, ss, **kw)
+            else:
+                x, lw, lb, q1, s1, b1, act1, q2, s2, b2, act2, r = case["args"]
+                f1, f2 = folded_scales(s1, act1), folded_scales(s2, act2)
+
+                def raw(**kw):
+                    return ffn.geglu_ffn_w8a8_kernel(x, lw, lb, q1, f1[0], f1[1], b1, q2, f2[0],
+                                                     f2[1], b2, r, **kw)
+            entry = cuda_ms(case["kernel"])
+            h_us = host_us(case["kernel"], calls=200)
+            device = graph_ms(raw)
+            route = graph_ms(case["bf16"])
+            lib = graph_ms(case["library"])
+            b_ms, b_by = bound_ms(case["flops"], case["bytes"], case["rate"])
+            d_ms = (bound_ms(case["flops"], case["design_bytes"], case["rate"])[0]
+                    if case.get("design_bytes") is not None else None)
+            say(f"  {kernel.lower()} shape={key} calls={calls} {'ok ' if good else 'BAD'} rel={rel:.3e} "
+                f"{case.get('note', '')} entry_ms={entry:.4f} host_us={h_us:.2f} device_ms={device:.4f} "
+                f"route_device_ms={route:.4f} int_mm_device_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})"
+                + ("" if d_ms is None else f" design_bound_ms={d_ms:.4f}"))
+            for name, ms in (("entry", entry), ("device", device), ("route device", route),
+                             ("int_mm device", lib), ("bound", b_ms)):
+                add(name, calls, ms)
+            if d_ms is not None:
+                add("design bound", calls, d_ms)
+            variants = []
+            if kernel == "K7" and hasattr(conv, "conv3x3_q_plan"):
+                b, h, w, cin, cout, _ = key
+                chosen = conv.conv3x3_q_plan(b, h, w, cin, cout, sms)
+                variants.append(("codes", dict(_plan=chosen, _parts=1), None))
+                variants.append(("gemm", dict(_plan=chosen, _parts=2), None))
+                # the planner's GEMM at other column widths and K splits
+                for bn in (64, 128, 160):
+                    if (chosen.bm, bn) in conv.K7_VARIANTS and bn != chosen.bn:
+                        plan = conv.conv3x3_q_plan(b, h, w, cin, cout, sms, bn=bn)
+                        variants.append((f"gemm bn {bn} ksplit {plan.ksplit}",
+                                         dict(_plan=plan, _parts=2), plan))
+                for ks in range(1, min(-(-cin // conv.K7_CHUNK), 8) + 1):
+                    if ks != chosen.ksplit:
+                        plan = conv.conv3x3_q_plan(b, h, w, cin, cout, sms, ksplit=ks)
+                        variants.append((f"gemm ksplit {ks}", dict(_plan=plan, _parts=2), plan))
+            elif kernel == "K9" and hasattr(ffn, "ffn_q_plan"):
+                m, c, hidden = key[:3]
+                chosen = ffn.ffn_q_plan(m, c, hidden, sms)
+                variants.append(("quantize", dict(_plan=chosen, _parts=1), None))
+                variants.append((f"G1 {chosen.g1} nsplit {chosen.nsplit1}",
+                                 dict(_plan=chosen, _parts=2), None))
+                for v in ffn.FFN_Q_G2_VARIANTS:
+                    plan = ffn.ffn_q_plan(m, c, hidden, sms, g2=v)
+                    variants.append((f"G2 {v}", dict(_plan=plan, _parts=4), plan))
+            for name, kw, plan in variants:
+                if plan is not None:  # the whole function under this plan, against plain f32
+                    full = {k: v for k, v in kw.items() if k != "_parts"}
+                    got = raw(**full).float()
+                    torch.cuda.synchronize()
+                    vrel = (got - ref).abs().max().item() / refmax
+                    vgood = bool(torch.isfinite(got).all().item()) and vrel <= KERNEL_REL_TOL
+                    ok &= vgood
+                    del got
+                else:
+                    vrel, vgood = float("nan"), True
+                raw(**{k: v for k, v in kw.items() if k != "_parts"})  # the scratch this part reads
+                ms = graph_ms(lambda: raw(**kw))
+                add(name if kernel == "K7" else name.split(" nsplit")[0], calls, ms)
+                say(f"    {name} {'ok ' if vgood else 'BAD'} rel={vrel:.3e} device_ms={ms:.4f}")
+            del case, ref
+            torch.cuda.empty_cache()
+        say(f"{kernel.lower()} per W8A8 pass (ms): " + "; ".join(f"{k} {v:.3f}" for k, v in per_pass.items()))
+    return ok
+
+
 # (M, K, N, LN, residual) of phase 8's K10 shapes and (B, rows an image, K,
 # N) of its K11 shapes, with their calls in one switched SD2.1 768^2 CFG
 # step (tests/test_torch_linear_tiles.py enumerates the same from the
@@ -2070,6 +2250,11 @@ def main() -> int:
     for k in (320, 1280):
         say(f"  K8 variants (bm, bn, stages, min blocks) with K={k} resident: "
             + occ(linear.linear_q_occupancy(k)))
+    if hasattr(conv, "conv3x3_q_occupancy"):  # not in a --root checkout older than the redesign
+        say("  K7 variants (bm, bn) at their largest tile: " + occ(conv.conv3x3_q_occupancy()))
+        for c in (320, 640, 1280):
+            say(f"  K9 variants at C={c} (G1 bm, stages, min blocks / G2 bm, bn, stages): "
+                + occ(ffn.ffn_q_occupancy(c)))
     for k in (320, 1280, 2560):
         say(f"  K10/K11 variants (resident, bm, bn, stages, min blocks) at K={k}: "
             + occ(linear.linear_occupancy(k)))
@@ -2078,6 +2263,8 @@ def main() -> int:
         f"bytes, {o['smem_bytes']} smem bytes, {o['blocks_per_sm']} blocks/SM")
     if "--k8-sweep" in sys.argv[1:]:
         return 0 if k8_sweep() else 1
+    if "--w8a8-sweep" in sys.argv[1:]:
+        return 0 if w8a8_sweep() else 1
     if "--k12-sweep" in sys.argv[1:]:
         return 0 if k12_sweep() else 1
     if "--k10-sweep" in sys.argv[1:]:

@@ -3,352 +3,470 @@
 // GeGLU in f32 -> requantize with the second linear's step -> int8 W2
 // product -> dequantize, +b2, +residual.
 //
-// Replaces: stable_diffusion_tpu/ops/ffn.py int8 `_make_q_kernel` (launched
-// by `_ffn_q`, reached through `geglu_ffn` with W8A8 parameters).
+// Replaces: stable_diffusion_tpu/ops/ffn.py:319 int8 `_make_q_kernel`
+// (launched by `_ffn_q`, reached through `geglu_ffn` with W8A8 parameters).
 //
-// What bounds it on Hopper: the three int8 products (2*M*C*2H + 2*M*H*C
-// operations) on the tensor cores, and the int8 weights (3*C*H bytes, 19.7
-// MB at C = 1280), re-read from L2 by every block of rows.  As in K4, the
-// point of fusing is that the (M, 2H) value/gate intermediate and the int8
-// activations never reach device memory.
+// What bounds it on Hopper: the products, 6 M C H operations (x W1 is 4 M C
+// H, h W2 2 M C H; 80.5 GOP at (M, C, H) = (32768, 320, 1280), 41 us at
+// 1979 TOP/s), far above the int8 ridge (~590 operations a byte) at every
+// path shape.  So the products must run at the wgmma rate, with the LN, the
+// quantizers and the GeGLU off their critical path.
 //
-// Design: K4's.  A block owns 64 rows and a contiguous range of the hidden
-// units (at most 512).  It LayerNorms its rows (f32 statistics, two
-// passes) and quantizes the f32 result once into shared memory as int8, as
-// the TPU kernel does (the plain version, JAX's XLA form, casts the LN
-// output and each linear's output to the input dtype; in f32 they agree).
-// Phase A walks its hidden range 64 units at a time: each warp takes 32
-// rows x 16 units of both the value and the gate half, so the two products
-// of one (row, unit) land in the same thread's registers (m16n8k32 s8
-// `mma.sync`, W1 tiles staged through a two-stage ring, the next fetched
-// while the current one is multiplied); the thread dequantizes both, takes
-// (hv + bv) * gelu_erf(hg + bg) in f32 and requantizes it with the second
-// linear's step into the block's int8 (64 x range) slab in shared memory.
-// Phase B multiplies that slab by the matching columns of W2, 128 output
-// columns a pass, and writes each int32 tile once to a workspace slice
-// (nsplit, M, C).
-// The hidden range is split over `nsplit` blocks per row block so the grid
-// fills the card; a second kernel adds the int32 slices (exact in any
-// order), dequantizes, and adds b2 and the residual in f32 before the cast.
-// Simple first: no TMA, no wgmma.
+// Design: K4's two-GEMM structure in s8 (csrc/ffn.cu), with K8's quantize
+// launch in front; three launches:
+// * Launch 1: K8's quantize_rows_kernel (csrc/linear_q.cu, called through
+//   sdtk_q_rows): each row LayerNormed (f32 two-pass statistics) and
+//   quantized once with the first linear's step into an int8 (M, C)
+//   scratch.
+// * Launch 2, G1 (ffn_q_up_kernel): h = quantize(GeGLU(x_q W1^T)).  K8's
+//   GEMM shape: a block owns BM rows (a warpgroup each 64), its int8 rows of
+//   all of C kept in shared memory (C <= 1280: at most 160 KB at BM = 128),
+//   and walks a contiguous range of G1 tiles (the plan's nsplit ranges a
+//   row block); W1 comes through a STAGES-deep cp.async ring of 128-row x
+//   128-byte slabs, one step's products in flight across the next step's
+//   barrier; s8 wgmma reads both operands by descriptor.  W1 stays in
+//   PyTorch's layout; the slab loads pair its rows as K4's G1 does: each 64
+//   slab rows are 32 value rows, then the 32 gate rows of the same hidden
+//   units, so a thread's accumulators hold each value beside its gate.  The
+//   epilogue, in f32: hv = acc_v * os1[j] + b1[j], hg = acc_g * os1[H + j]
+//   + b1[H + j], hv * gelu_erf(hg), quantize_s8_rcp with the second
+//   linear's step; the tile's int8 (64 rows x 64 units a warpgroup) is
+//   staged in a free ring slot and stored in 16-byte rows into an int8
+//   (M, H) scratch.  A tile's os1 and b1 come with its first slab into a
+//   side buffer (K8's).
+// * Launch 3, G2 (ffn_q_down_kernel): out = h_q W2^T * os2 + b2 +
+//   residual, in f32, rounded once.  K4's G2 in s8: both operands, BM rows
+//   of h and BN rows of W2, streamed through one ring, so no K split and no
+//   atomics; one tile a block; the tile staged in the ring and stored in
+//   16-byte rows.  K8's GEMM on the int8 h (its rows of all of H kept in
+//   shared memory where they fit, else K split with int32 atomics and a
+//   ticket) was measured beside it at the four path shapes and lost at all
+//   four, 1.2x at H = 1280 and 2.7-5.7x where it splits K (PERF.md), so it
+//   is not a form of K9.
+// * What is gone: the first design (mma.sync) split the hidden range over
+//   blocks, re-ran the LN and the quantizer in every split (IEEE division),
+//   multiplied on mma.sync m16n8k32 through a two-stage register ring and
+//   wrote int32 (nsplit, M, C) slices (126 MB each way at (32768, 320,
+//   1280)) that a second kernel summed.  Here the int8 x (10.5 MB) and the
+//   int8 h (42 MB) each make one round trip instead.
+// ffn_q_plan (ops/ffn.py) mirrors the dispatch.
+// Not yet: TMA and a producer warp (every thread issues cp.async), a
+// persistent tile loop, G1 blocks that keep their W1 tile and walk rows.
 #include <math.h>
+#include <string.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
+
+// K8's quantize launch (csrc/linear_q.cu).
+extern "C" int sdtk_q_rows(const long long* p);
 
 namespace sdtk {
 namespace {
 
-constexpr int QTHREADS = 256;
-constexpr int QBM = 64;   // rows per block
-constexpr int QHB = 64;   // hidden units per phase-A step
-constexpr int QOC = 128;  // output columns per phase-B pass
-constexpr int QKT = 64;   // K bytes per staged weight tile
-constexpr int QLD = QKT + 16;  // bytes a staged row: 16 mod 32, conflict-free fragments
+constexpr int FQK = 128;   // K bytes a step: one 128-byte swizzled row of int8
+constexpr int G1N = 128;   // W1 rows a G1 tile: (32 values, 32 gates) x 2 = 64 hidden units
+constexpr int kFqMaxSmem = 232448;  // 227 KB a block may use on Hopper
 
-struct FfnQArgs {
-  const bf16* x;        // (M, C)
-  const bf16* ln_w;     // (C) or null
-  const bf16* ln_b;     // (C) or null
-  const int8_t* w1;     // (2H, C): value rows [0, H), gate rows [H, 2H)
-  const float* s1;      // (1) the first linear's activation step
-  const float* os1;     // (2H) s1 * w1 scale
-  const bf16* b1;       // (2H)
-  const int8_t* w2;     // (C, H)
-  const float* s2;      // (1) the second linear's activation step
-  int* ws;              // (nsplit, Mpad, C) int32 partial sums
-  int M, Mpad, C, H, nsplit, rb;
-  float eps;
-};
-
-struct FfnQLayout {
-  int ldx, ldh, off_w1, off_h, off_w2, off_stats, total;
-};
-
-__host__ __device__ inline FfnQLayout ffn_q_layout(int C, int rb) {
-  FfnQLayout L;
-  L.ldx = (C + QKT - 1) / QKT * QKT + 16;  // int8 rows, zero past C to a whole K tile
-  L.ldh = rb * QHB + 16;
-  int off = align128(QBM * L.ldx);
-  L.off_w1 = off;
-  off += 2 * align128(2 * QHB * QLD);
-  L.off_h = off;
-  off += align128(QBM * L.ldh);
-  L.off_w2 = off;
-  off += 2 * align128(QOC * QLD);
-  L.off_stats = off;
-  off += align128(2 * QBM * 4);
-  L.total = off;
-  return L;
+// Byte offset of 16-byte piece j of 128-byte row r in the 128-byte swizzle.
+__device__ __forceinline__ uint32_t fswz(int r, int j) {
+  return (uint32_t)(r * FQK + ((j ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__global__ void __launch_bounds__(QTHREADS) ffn_q_kernel(FfnQArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int W1_STAGE = align128(2 * QHB * QLD);
-  constexpr int W2_STAGE = align128(QOC * QLD);
-  const int C = a.C, H = a.H;
-  const FfnQLayout L = ffn_q_layout(C, a.rb);
-  int8_t* Xq = reinterpret_cast<int8_t*>(smem);
-  int8_t* W1s = reinterpret_cast<int8_t*>(smem + L.off_w1);
-  int8_t* Hq = reinterpret_cast<int8_t*>(smem + L.off_h);
-  int8_t* W2s = reinterpret_cast<int8_t*>(smem + L.off_w2);
-  float* mean_s = reinterpret_cast<float*>(smem + L.off_stats);
-  float* rstd_s = mean_s + QBM;
+// G1's shared bytes: 1024 to align the ring, the ring, the block's int8
+// rows (kch 128-byte chunks), three tiles' side buffers (os1 f32 and b1
+// bf16 of the tile's 128 W1 rows).  G2's: the ring of (BM + BN) rows a
+// step.
+__host__ __device__ constexpr int g1_side() { return G1N * 6; }
+__host__ __device__ constexpr int g1_smem(int BM, int STAGES, int kch) {
+  return 1024 + STAGES * G1N * FQK + BM * kch * FQK + 3 * g1_side();
+}
+__host__ __device__ constexpr int g2_smem(int BM, int BN, int STAGES) {
+  return 1024 + STAGES * (BM + BN) * FQK;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // 2 x 4 warps
-  const int m0 = blockIdx.x * QBM;
-  const int split = blockIdx.y;
-  const int nh = H / QHB;
-  const int hb_begin = (int)((long)split * nh / a.nsplit);
-  const int nhb = (int)((long)(split + 1) * nh / a.nsplit) - hb_begin;
-  const bool ln = a.ln_w != nullptr;
+// The W1 row that slab row r of G1 tile t holds: hidden unit u = 64 t +
+// 32 (r >> 6) + (r & 31), its value row, or its gate row H + u for r & 32.
+__device__ __forceinline__ int w1_row(int t, int r, int H) {
+  const int u = t * 64 + (r >> 6) * 32 + (r & 31);
+  return (r & 32) ? H + u : u;
+}
 
-  // LayerNorm statistics, f32, two passes, one warp a row.
-  for (int r = warp; r < QBM; r += QTHREADS / 32) {
-    const int row = m0 + r;
-    float mean = 0.f, rstd = 1.f;
-    if (ln && row < a.M) {
-      const bf16* src = a.x + (long)row * C;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += to_f(src[c]);
-      mean = warp_sum(s) / C;
-      float q = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = to_f(src[c]) - mean;
-        q += d * d;
-      }
-      rstd = rsqrtf(warp_sum(q) / C + a.eps);
+struct G1Args {
+  const int8_t* q;    // (M, C) the LN'd rows' codes
+  const int8_t* w1;   // (2H, C): value rows [0, H), gate rows [H, 2H)
+  const float* os1;   // (2H) s1 * w1 scale
+  const bf16* b1;     // (2H)
+  const float* s2;    // (1) the second linear's activation step
+  int8_t* h;          // (M, H) the GeGLU output's codes
+  int M, C, H, nsplit;
+};
+
+// G1: BM rows (a warpgroup each 64) x 128 W1 rows a tile; grid (row block, N split).
+template <int BM, int STAGES, int MINB>
+__global__ void __launch_bounds__(2 * BM, MINB) ffn_q_up_kernel(G1Args a) {
+  constexpr int THREADS = 2 * BM, LOOK = STAGES - 2, SLAB = G1N * FQK, SIDE = g1_side();
+  static_assert(STAGES >= 3, "products stay in flight across a barrier: three stages at least");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t abase = ring + STAGES * SLAB;  // chunk j of the rows at abase + j * BM * FQK
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int M = a.M, C = a.C, H = a.H;
+  const int m0 = blockIdx.x * BM;
+  const int ntiles = H / 64, kch = (C + FQK - 1) / FQK;
+  const int t0 = blockIdx.y * ntiles / a.nsplit, t1 = (blockIdx.y + 1) * ntiles / a.nsplit;
+  const int nsteps = (t1 - t0) * kch;
+  const int j8 = tid & 7;
+  const uint32_t sbase = abase + BM * kch * FQK;  // tile i's side buffer at sbase + (i % 3) * SIDE
+  const unsigned char* side = smem_raw + (sbase - raw);
+
+  // Step s's W1 slab (tile t0 + s / kch, chunk s % kch) into stage s %
+  // STAGES, K past C zero-filled; the first tile's steps also bring the
+  // block's int8 rows, a chunk each (rows past M zero-filled); a tile's
+  // first step its os1 and b1 in slab order (16 bytes a copy: 4 scales or 8
+  // biases, which never straddle a 32-row value or gate run) into side
+  // buffer (tile - t0) % 3, read at the tile's last step and rewritten
+  // (tile + 3) only two tiles later (K8's argument).
+  auto load_slab = [&](int s) {
+    const int t = t0 + s / kch, kc = s % kch, k = kc * FQK + j8 * 16;
+    const uint32_t dst = ring + (s % STAGES) * SLAB;
+#pragma unroll
+    for (int i = 0; i < G1N * 8 / THREADS; ++i) {
+      const int r = (tid >> 3) + i * (THREADS / 8);
+      const bool ok = k < C;
+      cp_async16(dst + fswz(r, j8), ok ? a.w1 + (long)w1_row(t, r, H) * C + k : a.w1, ok);
     }
-    if (lane == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rstd;
-    }
-  }
-  __syncthreads();
-
-  // The block's rows, normalized and quantized, as int8.
-  const float s1 = *a.s1, s2 = *a.s2;
-  const int vecs = (L.ldx - 16) / 8;  // 8-channel vectors a row
-  for (int idx = tid; idx < QBM * vecs; idx += QTHREADS) {
-    const int r = idx / vecs, c = (idx - r * vecs) * 8;
-    int code[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (m0 + r < a.M && c < C) {
-      Pack8 v;
-      v.u = *reinterpret_cast<const uint4*>(a.x + (long)(m0 + r) * C + c);
+    if (s < kch) {
+      const uint32_t adst = abase + s * BM * FQK;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float f = to_f(v.h[j]);
-        if (ln) f = (f - mean_s[r]) * rstd_s[r] * to_f(a.ln_w[c + j]) + to_f(a.ln_b[c + j]);
-        code[j] = quantize_s8(f, s1);
+      for (int i = 0; i < BM * 8 / THREADS; ++i) {
+        const int r = (tid >> 3) + i * (THREADS / 8);
+        const bool ok = m0 + r < M && k < C;
+        cp_async16(adst + fswz(r, j8), ok ? a.q + (long)(m0 + r) * C + k : a.q, ok);
       }
     }
-    *reinterpret_cast<uint2*>(Xq + r * L.ldx + c) =
-        make_uint2(pack_s8(code[0], code[1], code[2], code[3]),
-                   pack_s8(code[4], code[5], code[6], code[7]));
-  }
-  __syncthreads();
-
-  int acc[2][4][4];
-  auto zero = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  };
-  // The warp's 32 x 32 product over one staged K tile: A rows from `atile`
-  // (ld bytes), B rows (N) `brow[j]` of the staged weight tile.
-  auto mma_tile = [&](const int8_t* atile, int ld, const int8_t* btile, const int* brow) {
-#pragma unroll
-    for (int ks = 0; ks < QKT; ks += 32) {
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) load_a_s8(fa[i], atile + (wm * 32 + i * 16) * ld + ks, ld, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t b0, b1;
-        load_b_s8(b0, b1, btile + brow[j] * QLD + ks, QLD, lane);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma16832_s8(acc[i][j], fa[i], b0, b1);
-      }
+    if (kc == 0 && tid < G1N / 4 + G1N / 8) {
+      const uint32_t sd = sbase + ((s / kch) % 3) * SIDE;
+      if (tid < G1N / 4)
+        cp_async16(sd + 16 * tid, a.os1 + w1_row(t, 4 * tid, H), true);
+      else
+        cp_async16(sd + G1N * 4 + 16 * (tid - G1N / 4), a.b1 + w1_row(t, 8 * (tid - G1N / 4), H), true);
     }
   };
-
-  // Phase A: Hq = quantize((x W1v + bv) * gelu(x W1g + bg)) for the range.
-  // Tile rows 0..63 are value units, 64..127 the same gate units; the warp
-  // takes value units wn*16 + [0, 16) (n tiles 0, 1) and their gates (2, 3).
-  const int brow_a[4] = {wn * 16, wn * 16 + 8, QHB + wn * 16, QHB + wn * 16 + 8};
-  const int kchunks = (L.ldx - 16) / QKT;
-  for (int hb = 0; hb < nhb; ++hb) {
-    const int j0 = (hb_begin + hb) * QHB;
-    uint4 rw[2];
-    auto fetch_w1 = [&](int kc) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = tid + QTHREADS * i;  // (tile row, 16-byte k vector) over 128 x 4
-        const int n = q >> 2, c = kc * QKT + (q & 3) * 16;
-        const long row = n < QHB ? j0 + n : H + j0 + n - QHB;
-        rw[i] = c < C ? *reinterpret_cast<const uint4*>(a.w1 + row * C + c) : make_uint4(0, 0, 0, 0);
-      }
-    };
-    zero();
-    fetch_w1(0);
-    for (int kc = 0; kc < kchunks; ++kc) {
-      int8_t* w1s = W1s + (kc & 1) * W1_STAGE;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = tid + QTHREADS * i;
-        *reinterpret_cast<uint4*>(w1s + (q >> 2) * QLD + (q & 3) * 16) = rw[i];
-      }
-      __syncthreads();
-      if (kc + 1 < kchunks) fetch_w1(kc + 1);
-      mma_tile(Xq + kc * QKT, L.ldx, w1s, brow_a);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm * 32 + i * 16 + g + 8 * hh;
-#pragma unroll
-        for (int jv = 0; jv < 2; ++jv) {
-          const int u = wn * 16 + jv * 8 + 2 * t;  // units u, u + 1 of this step
-          int code[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int jj = j0 + u + e;
-            const float hv = (float)acc[i][jv][2 * hh + e] * a.os1[jj] + to_f(a.b1[jj]);
-            const float hg = (float)acc[i][jv + 2][2 * hh + e] * a.os1[H + jj] + to_f(a.b1[H + jj]);
-            code[e] = quantize_s8(hv * gelu_erf(hg), s2);
-          }
-          *reinterpret_cast<uint16_t*>(Hq + r * L.ldh + hb * QHB + u) =
-              (uint16_t)((code[0] & 0xff) | ((code[1] & 0xff) << 8));
-        }
-      }
-    __syncthreads();  // the next step restarts the ring; phase B reads Hq
+  for (int s = 0; s < LOOK; ++s) {
+    if (s < nsteps) load_slab(s);
+    cp_async_commit();
   }
 
-  // Phase B: partial out = Hq W2[:, range]^T, int32, 128 columns a pass.
-  const int jb = hb_begin * QHB;
-  int* wsb = a.ws + ((long)split * a.Mpad + m0) * C;
-  const int brow_b[4] = {wn * 32, wn * 32 + 8, wn * 32 + 16, wn * 32 + 24};
-  for (int oc = 0; oc < C; oc += QOC) {
-    uint4 r2[2];
-    auto fetch_w2 = [&](int ks) {
+  const int g = lane >> 2, tq = lane & 3;
+  const float s2 = *a.s2, inv2 = 1.f / s2;
+  int acc[G1N / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = tid + QTHREADS * i;  // (output column, 16-byte k vector)
-        const int n = q >> 2;
-        r2[i] = oc + n < C ? *reinterpret_cast<const uint4*>(a.w2 + (long)(oc + n) * H + jb +
-                                                              ks * QKT + (q & 3) * 16)
-                           : make_uint4(0, 0, 0, 0);
-      }
-    };
-    zero();
-    fetch_w2(0);
-    for (int ks = 0; ks < nhb; ++ks) {
-      int8_t* w2s = W2s + (ks & 1) * W2_STAGE;
+  for (int i = 0; i < G1N / 2; ++i) acc[i] = 0;
+
+  // Tile t's epilogue at its last step s: each 64 columns of the tile are
+  // 32 values (n8 tiles 0-3 of the 64), then their 32 gates (4-7).  The
+  // warpgroup's 64 rows x 64 units of codes go through ring slot (s - wg) %
+  // STAGES (free once both warpgroups' products of steps s - 1 and s are
+  // done: the caller's barrier) and leave in 16-byte rows.
+  auto store = [&](int t, int s) {
+    const float* so = reinterpret_cast<const float*>(side + (t - t0) % 3 * SIDE);
+    const bf16* sb = reinterpret_cast<const bf16*>(side + (t - t0) % 3 * SIDE + G1N * 4);
+    unsigned char* stg = smem_raw + (ring - raw) + (s + STAGES - wg) % STAGES * SLAB;
+    const int lr = (warp & 3) * 16 + g;  // the thread's rows lr, lr + 8 of the warpgroup's 64
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = tid + QTHREADS * i;
-        *reinterpret_cast<uint4*>(w2s + (q >> 2) * QLD + (q & 3) * 16) = r2[i];
-      }
-      __syncthreads();
-      if (ks + 1 < nhb) fetch_w2(ks + 1);
-      mma_tile(Hq + ks * QKT, L.ldh, w2s, brow_b);
-    }
+    for (int pb = 0; pb < 2; ++pb) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = oc + wn * 32 + j * 8 + 2 * t;
-      if (col >= C) continue;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int ni = 0; ni < 4; ++ni) {
+        const int cv = pb * 64 + ni * 8 + 2 * tq, cg = cv + 32;  // a value's column, its gate's
+        const float2 sv = *reinterpret_cast<const float2*>(so + cv);
+        const float2 sg = *reinterpret_cast<const float2*>(so + cg);
+        const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sb + cv));
+        const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sb + cg));
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm * 32 + i * 16 + g + 8 * hh;
-          *reinterpret_cast<int2*>(wsb + (long)r * C + col) =
-              make_int2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+          const int iv = 4 * (pb * 8 + ni) + 2 * hh, ig = iv + 16;
+          const int c0 = quantize_s8_rcp(((float)acc[iv] * sv.x + bv.x) *
+                                             gelu_erf((float)acc[ig] * sg.x + bg.x), s2, inv2);
+          const int c1 = quantize_s8_rcp(((float)acc[iv + 1] * sv.y + bv.y) *
+                                             gelu_erf((float)acc[ig + 1] * sg.y + bg.y), s2, inv2);
+          *reinterpret_cast<uint16_t*>(stg + (lr + 8 * hh) * 64 + pb * 32 + ni * 8 + 2 * tq) =
+              (uint16_t)((c0 & 0xff) | ((c1 & 0xff) << 8));
         }
+      }
     }
-    __syncthreads();  // the next pass refills the ring
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the warpgroup's codes are staged
+    for (int i = tid & 127; i < 64 * 4; i += 128) {
+      const int r = i >> 2, cc = i & 3;
+      const int row = m0 + wg * 64 + r;
+      if (row < M)  // H % 64 == 0: whole 16-byte pieces
+        *reinterpret_cast<uint4*>(a.h + (long)row * H + t * 64 + cc * 16) =
+            *reinterpret_cast<const uint4*>(stg + r * 64 + cc * 16);
+    }
+  };
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<LOOK - 1>();
+    fence_async_shared();  // the landed slab (and rows), for wgmma
+    __syncthreads();       // slab s is in; the stage refilled below was read two steps ago
+    if (s + LOOK < nsteps) load_slab(s + LOOK);
+    cp_async_commit();
+    const int kc = s % kch;
+    const uint64_t da = sw128_desc(abase + kc * BM * FQK + wg * 64 * FQK);
+    const uint64_t db = sw128_desc(ring + (s % STAGES) * SLAB);
+    const int nk32 = min(FQK, C - kc * FQK) / 32;  // k32 steps inside C
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FQK / 32; ++kk)
+      if (kk < nk32) WgmmaS8<G1N>::mma(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    if (kc != kch - 1) {
+      wgmma_wait<1>();
+      continue;
+    }
+    wgmma_wait0();
+    fence_operands(acc);
+    // Two warpgroups read slabs s - 1 and s: both must be done with them
+    // before either stages its codes there.
+    if constexpr (BM > 64) __syncthreads();
+    store(t0 + s / kch, s);
+#pragma unroll
+    for (int i = 0; i < G1N / 2; ++i) acc[i] = 0;
+  }
+  cp_async_wait<0>();
+}
+
+struct G2Args {
+  const int8_t* h;    // (M, H) codes
+  const int8_t* w2;   // (C, H)
+  const float* os2;   // (C) s2 * w2 scale
+  const bf16* b2;     // (C)
+  const bf16* res;    // (M, C) or null
+  bf16* out;          // (M, C)
+  int M, C, H;
+};
+
+// G2: BM rows (a warpgroup each 64) x BN columns, both
+// operands through one ring; grid (column block, row block), so a row
+// block's column blocks run together and read its h from L2.
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(2 * BM) ffn_q_down_kernel(G2Args a) {
+  constexpr int THREADS = 2 * BM, LOOK = STAGES - 2, STAGE = (BM + BN) * FQK;
+  static_assert(STAGES >= 3 && STAGE % 1024 == 0, "whole swizzle atoms, a step in flight");
+  static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile stages in the ring");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int M = a.M, C = a.C, H = a.H;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nsteps = (H + FQK - 1) / FQK;
+  const int j8 = tid & 7;
+
+  // Step s: rows m0.. of h and rows n0.. of W2 at K chunk s.
+  auto load = [&](int s) {
+    const int k = s * FQK + j8 * 16;
+    const uint32_t dst = ring + (s % STAGES) * STAGE;
+#pragma unroll
+    for (int i = 0; i < BM * 8 / THREADS; ++i) {
+      const int r = (tid >> 3) + i * (THREADS / 8);
+      const bool ok = m0 + r < M && k < H;
+      cp_async16(dst + fswz(r, j8), ok ? a.h + (long)(m0 + r) * H + k : a.h, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BN * 8 / THREADS; ++i) {
+      const int r = (tid >> 3) + i * (THREADS / 8);
+      const bool ok = n0 + r < C && k < H;
+      cp_async16(dst + BM * FQK + fswz(r, j8), ok ? a.w2 + (long)(n0 + r) * H + k : a.w2, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < LOOK; ++s) {
+    if (s < nsteps) load(s);
+    cp_async_commit();
+  }
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<LOOK - 1>();
+    fence_async_shared();
+    __syncthreads();
+    if (s + LOOK < nsteps) load(s + LOOK);
+    cp_async_commit();
+    const uint32_t st = ring + (s % STAGES) * STAGE;
+    const uint64_t da = sw128_desc(st + wg * 64 * FQK), db = sw128_desc(st + BM * FQK);
+    const int nk32 = min(FQK, H - s * FQK) / 32;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FQK / 32; ++kk)
+      if (kk < nk32) WgmmaS8<BN>::mma(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait0();
+  fence_operands(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup is done with the ring: the output tile stages there
+
+  // Epilogue: acc[4 ni ..] holds rows g, g + 8 at columns 8 ni + 2 tq, +1;
+  // acc * os2 + b2 (+ residual) in f32, one rounding, staged as the
+  // warpgroup's 64 x BN bf16 rows, stored in 16-byte pieces.
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned char* stg = smem_raw + (ring - raw) + wg * 64 * BN * 2;
+  const int lr = (warp & 3) * 16 + g;
+#pragma unroll
+  for (int ni = 0; ni < BN / 8; ++ni) {
+    const int c = ni * 8 + 2 * tq, col = n0 + c;
+    float2 s2 = make_float2(0.f, 0.f), b2 = s2;
+    if (col < C) {  // C % 8 == 0: col and col + 1 together
+      s2 = *reinterpret_cast<const float2*>(a.os2 + col);
+      b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.b2 + col));
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + wg * 64 + lr + 8 * hh;
+      float v0 = (float)acc[4 * ni + 2 * hh] * s2.x + b2.x;
+      float v1 = (float)acc[4 * ni + 2 * hh + 1] * s2.y + b2.y;
+      if (a.res != nullptr && row < M && col < C) {
+        const float2 r2 =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.res + (long)row * C + col));
+        v0 += r2.x, v1 += r2.y;
+      }
+      *reinterpret_cast<uint32_t*>(stg + (lr + 8 * hh) * BN * 2 + c * 2) = pack_bf16(v0, v1);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the warpgroup's tile is staged
+  for (int i = tid & 127; i < 64 * BN / 8; i += 128) {
+    const int r = i / (BN / 8), cc = i - r * (BN / 8);
+    const int row = m0 + wg * 64 + r, col = n0 + cc * 8;
+    if (row < M && col < C)
+      *reinterpret_cast<uint4*>(a.out + (long)row * C + col) =
+          *reinterpret_cast<const uint4*>(stg + r * BN * 2 + cc * 16);
   }
 }
 
-// out = (sum over splits of ws) * os2 + b2 + residual, in f32, then cast.
-__global__ void ffn_q_finalize(const int* ws, const float* os2, const bf16* b2, const bf16* res,
-                               bf16* out, int M, int Mpad, int C, int nsplit) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)M * C) return;
-  const long m = i / C;
-  const int c = (int)(i - m * C);
-  int s = 0;
-  for (int sp = 0; sp < nsplit; ++sp) s += ws[((long)sp * Mpad + m) * C + c];
-  float v = (float)s * os2[c] + to_f(b2[c]);
-  if (res != nullptr) v += to_f(res[i]);
-  out[i] = to_bf(v);
+template <class F>
+int fq_attrs_of(F fn, int threads, int smem, int* out) {
+  cudaFuncAttributes fa;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kFqMaxSmem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = smem + (int)fa.sharedSizeBytes;
+  out[3] = blocks;
+  return 0;
 }
-
-constexpr int kMaxSmemQ = 232448;  // 227 KB a block may use on Hopper
 
 }  // namespace
 }  // namespace sdtk
 
-// Rows per block: the wrapper pads the workspace's M to a multiple of it.
-extern "C" int sdtk_ffn_q_rows() { return sdtk::QBM; }
+// The compiled variants; ffn_q_plan (ops/ffn.py) chooses among them.  G1
+// (BM, STAGES, blocks an SM for the launch bound), G2 (BM, BN, STAGES).  The
+// H100 sweep (chip_smoke.py --w8a8-sweep, PERF.md) also ran G1 as (128, 4,
+// 1) and (64, 4, 2) and G2 as (64, 160, 3): slower at every path shape.
+#define SDTK_FFN_Q_UP_VARIANTS(X) X(128, 3, 2)
+#define SDTK_FFN_Q_DN_VARIANTS(X) X(128, 160, 4) X(64, 64, 4)
 
-// The launch plan for M rows of width C and H hidden units: the most
-// 64-unit hidden blocks per block (rb) and the number of hidden splits
-// (nsplit); the workspace is (nsplit, ceil(M/64)*64, C) int32.  Returns 0,
-// or cudaErrorInvalidValue when no plan fits shared memory.
-extern "C" int sdtk_ffn_q_plan(int M, int C, int H, int* rb, int* nsplit) {
+// Arguments packed as int64 (p[i]): x, ln_w, ln_b, w1, s1, os1, b1, w2, s2,
+// os2, b2, res, out, xq, hq (pointers), M, C, H, (bm1, st1, minb1) a
+// compiled G1 variant, nsplit1, (bm2, bn2, st2) a compiled G2 variant,
+// parts, eps (its f32 bits), stream.  Shape rules (checked by the Python
+// wrapper, which also plans): C % 32 == 0 and C <= 1280, H % 64 == 0, every
+// tensor contiguous, x, w1, w2, xq and hq 16-byte aligned; xq (M, C) and hq
+// (M, H) int8 scratch; ln_w and ln_b both given or both null; res may be
+// null.  parts & 1 launches the quantize, & 2 G1, & 4 G2: 7 runs the block.
+// An unknown variant returns cudaErrorInvalidValue.
+extern "C" int sdtk_ffn_q(const long long* p) {
   using namespace sdtk;
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int mblocks = (M + QBM - 1) / QBM;
-  const int nh = H / QHB;
-  int r = 8;
-  while (r > 1 && (long)mblocks * ((nh + r - 1) / r) < sms) r /= 2;
-  while (r > 1 && ffn_q_layout(C, r).total > kMaxSmemQ) r /= 2;
-  if (ffn_q_layout(C, r).total > kMaxSmemQ) return (int)cudaErrorInvalidValue;
-  *rb = r;
-  *nsplit = (nh + r - 1) / r;
-  return 0;
+  const long long x = p[0], ln_w = p[1], ln_b = p[2], w1 = p[3], s1 = p[4], os1 = p[5], b1 = p[6],
+                  w2 = p[7], s2 = p[8], os2 = p[9], b2 = p[10], res = p[11], out = p[12], xq = p[13],
+                  hq = p[14];
+  const int M = (int)p[15], C = (int)p[16], H = (int)p[17];
+  const int bm1 = (int)p[18], st1 = (int)p[19], mb1 = (int)p[20], nsplit1 = (int)p[21];
+  const int bm2 = (int)p[22], bn2 = (int)p[23], st2 = (int)p[24], parts = (int)p[25];
+  const long long eps_bits = p[26], stream = p[27];
+  const int kch = (C + FQK - 1) / FQK;
+  if (M < 1 || C % 32 != 0 || C > 1280 || H % 64 != 0 || xq == 0 || hq == 0 || nsplit1 < 1 ||
+      nsplit1 > H / 64 || g1_smem(bm1, st1, kch) > kFqMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (parts & 1) {
+    const long long q[9] = {x, ln_w, ln_b, s1, xq, M, C, eps_bits, stream};
+    const int err = sdtk_q_rows(q);
+    if (err != 0) return err;
+  }
+  cudaError_t err = cudaSuccess;
+  if (parts & 2) {
+    G1Args u{(const int8_t*)xq, (const int8_t*)w1, (const float*)os1, (const bf16*)b1,
+             (const float*)s2, (int8_t*)hq, M, C, H, nsplit1};
+    const int smem = g1_smem(bm1, st1, kch);
+    const dim3 grid((unsigned)((M + bm1 - 1) / bm1), (unsigned)nsplit1);
+    err = cudaErrorInvalidValue;
+#define SDTK_FQ_UP(bm_, st_, mb_)                                                              \
+  if (bm1 == bm_ && st1 == st_ && mb1 == mb_) {                                                \
+    auto fn = ffn_q_up_kernel<bm_, st_, mb_>;                                                  \
+    static bool ready = false; /* the shared-memory limit, set once (one card) */             \
+    err = ready ? cudaSuccess                                                                  \
+                : cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kFqMaxSmem); \
+    ready = err == cudaSuccess;                                                                \
+    if (err == cudaSuccess) {                                                                  \
+      fn<<<grid, 2 * bm_, smem, st>>>(u);                                                      \
+      err = cudaGetLastError();                                                                \
+    }                                                                                          \
+  }
+    SDTK_FFN_Q_UP_VARIANTS(SDTK_FQ_UP)
+#undef SDTK_FQ_UP
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(parts & 4)) return 0;
+  G2Args d{(const int8_t*)hq, (const int8_t*)w2, (const float*)os2, (const bf16*)b2,
+           (const bf16*)res, (bf16*)out, M, C, H};
+  const dim3 grid((unsigned)((C + bn2 - 1) / bn2), (unsigned)((M + bm2 - 1) / bm2));
+  const int smem = g2_smem(bm2, bn2, st2);
+  err = cudaErrorInvalidValue;
+#define SDTK_FQ_DN(bm_, bn_, st_)                                                              \
+  if (bm2 == bm_ && bn2 == bn_ && st2 == st_) {                                                \
+    auto fn = ffn_q_down_kernel<bm_, bn_, st_>;                                                \
+    static bool ready = false;                                                                 \
+    err = ready ? cudaSuccess                                                                  \
+                : cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kFqMaxSmem); \
+    ready = err == cudaSuccess;                                                                \
+    if (err == cudaSuccess) {                                                                  \
+      fn<<<grid, 2 * bm_, smem, st>>>(d);                                                      \
+      err = cudaGetLastError();                                                                \
+    }                                                                                          \
+  }
+  SDTK_FFN_Q_DN_VARIANTS(SDTK_FQ_DN)
+#undef SDTK_FQ_DN
+  return (int)err;
 }
 
-// Shape rules (checked by the Python wrapper): C % 32 == 0, H % 64 == 0,
-// x, w1 and w2 16-byte aligned, every tensor contiguous, (rb, nsplit) from
-// sdtk_ffn_q_plan and ws sized from them; ln_w/ln_b both given or both
-// null, res may be null.
-extern "C" int sdtk_ffn_q(const void* x, const void* ln_w, const void* ln_b, const void* w1,
-                          const void* s1, const void* os1, const void* b1, const void* w2,
-                          const void* s2, const void* os2, const void* b2, const void* res,
-                          void* ws, void* out, int M, int C, int H, int rb, int nsplit, float eps,
-                          void* stream) {
+// A compiled variant from the runtime: kernel 0 is G1 (bm, stages, minb;
+// shared memory for width C), kernel 1 G2 (bm, bn, stages);
+// out = {registers a thread, local (spill) bytes a thread, shared bytes a
+// block, resident blocks an SM}.
+extern "C" int sdtk_ffn_q_attrs(int kernel, int bm, int bn, int stages, int minb, int C, int* out) {
   using namespace sdtk;
-  const int Mpad = (M + QBM - 1) / QBM * QBM;
-  const int smem = ffn_q_layout(C, rb).total;
-  cudaError_t err =
-      cudaFuncSetAttribute(ffn_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FfnQArgs a{static_cast<const bf16*>(x),    static_cast<const bf16*>(ln_w),
-             static_cast<const bf16*>(ln_b), static_cast<const int8_t*>(w1),
-             static_cast<const float*>(s1),  static_cast<const float*>(os1),
-             static_cast<const bf16*>(b1),   static_cast<const int8_t*>(w2),
-             static_cast<const float*>(s2),  static_cast<int*>(ws),
-             M, Mpad, C, H, nsplit, rb, eps};
-  ffn_q_kernel<<<dim3(Mpad / QBM, nsplit), QTHREADS, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long n = (long)M * C;
-  ffn_q_finalize<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const int*>(ws), static_cast<const float*>(os2), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(res), static_cast<bf16*>(out), M, Mpad, C, nsplit);
-  return (int)cudaGetLastError();
+#define SDTK_FQ_UP_ATTRS(b_, s_, m_)                                                       \
+  if (kernel == 0 && bm == b_ && stages == s_ && minb == m_)                               \
+    return fq_attrs_of(ffn_q_up_kernel<b_, s_, m_>, 2 * b_, g1_smem(b_, s_, (C + FQK - 1) / FQK), out);
+  SDTK_FFN_Q_UP_VARIANTS(SDTK_FQ_UP_ATTRS)
+#undef SDTK_FQ_UP_ATTRS
+#define SDTK_FQ_DN_ATTRS(b_, n_, s_)                                                       \
+  if (kernel == 1 && bm == b_ && bn == n_ && stages == s_)                                 \
+    return fq_attrs_of(ffn_q_down_kernel<b_, n_, s_>, 2 * b_, g2_smem(b_, n_, s_), out);
+  SDTK_FFN_Q_DN_VARIANTS(SDTK_FQ_DN_ATTRS)
+#undef SDTK_FQ_DN_ATTRS
+  return (int)cudaErrorInvalidValue;
 }

@@ -90,12 +90,6 @@ __device__ __forceinline__ uint32_t qswz(int r, int j) {
   return (uint32_t)(r * QKC + ((j ^ (r & 7)) << 4));
 }
 
-template <int N>
-__device__ __forceinline__ void fence_operands_s32(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // The first launch: (LN ->) quantize x into the int8 rows q.
 struct QuantArgs {
   const bf16* x;         // (M, K)
@@ -412,7 +406,7 @@ __global__ void __launch_bounds__(2 * BM, MINB) linear_q_kernel(LqArgs a) {
     const int t = t0 + s / nkc;
     if (a.res != nullptr) fetch_res(t);
     wgmma_wait0();
-    fence_operands_s32(acc);
+    fence_operands(acc);
     if (a.ksplit == 1) {
       // Two warpgroups read slabs s - 1 and s: both must be done with them
       // before either stages its tile there (merge's barriers do this under
@@ -426,6 +420,21 @@ __global__ void __launch_bounds__(2 * BM, MINB) linear_q_kernel(LqArgs a) {
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   }
   cp_async_wait<0>();
+}
+
+// The first launch: one warp a row, the variant that holds the row in
+// registers where K allows.
+cudaError_t launch_q_rows(const QuantArgs& qa, cudaStream_t st) {
+  const unsigned qgrid = (unsigned)((qa.M + 7) / 8);
+  if (qa.K <= 512)
+    quantize_rows_kernel<2><<<qgrid, 256, 0, st>>>(qa);
+  else if (qa.K <= 768)
+    quantize_rows_kernel<3><<<qgrid, 256, 0, st>>>(qa);
+  else if (qa.K <= QREG_K)
+    quantize_rows_kernel<5><<<qgrid, 256, 0, st>>>(qa);
+  else
+    quantize_rows_kernel<0><<<qgrid, 256, 0, st>>>(qa);
+  return cudaGetLastError();
 }
 
 template <class F>
@@ -493,16 +502,7 @@ extern "C" int sdtk_linear_q(const long long* p) {
       (a.ksplit > 1 && (a.ws == nullptr || a.tickets == nullptr)) ||
       (qa.ln_w == nullptr) != (qa.ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
-  const unsigned qgrid = (unsigned)((a.M + 7) / 8);
-  if (a.K <= 512)
-    quantize_rows_kernel<2><<<qgrid, 256, 0, st>>>(qa);
-  else if (a.K <= 768)
-    quantize_rows_kernel<3><<<qgrid, 256, 0, st>>>(qa);
-  else if (a.K <= QREG_K)
-    quantize_rows_kernel<5><<<qgrid, 256, 0, st>>>(qa);
-  else
-    quantize_rows_kernel<0><<<qgrid, 256, 0, st>>>(qa);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_q_rows(qa, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((a.M + bm - 1) / bm), (unsigned)a.nsplit, (unsigned)a.ksplit);
   err = cudaErrorInvalidValue;
@@ -521,6 +521,27 @@ extern "C" int sdtk_linear_q(const long long* p) {
   SDTK_LQ_VARIANTS(SDTK_LQ)
 #undef SDTK_LQ
   return (int)err;
+}
+
+// The first launch alone (K9's: its LayerNorm and first quantize), its
+// arguments packed as int64: x, ln_w, ln_b, sx, q (pointers), M, K, eps
+// (its f32 bits), stream.  K % 8 == 0, x and q 16-byte aligned; ln_w and
+// ln_b both given or both null.
+extern "C" int sdtk_q_rows(const long long* p) {
+  using namespace sdtk;
+  QuantArgs qa;
+  qa.x = (const bf16*)p[0];
+  qa.ln_w = (const bf16*)p[1];
+  qa.ln_b = (const bf16*)p[2];
+  qa.sx = (const float*)p[3];
+  qa.q = (int8_t*)p[4];
+  qa.M = (int)p[5], qa.K = (int)p[6];
+  const int eps_bits = (int)p[7];
+  memcpy(&qa.eps, &eps_bits, sizeof qa.eps);
+  if (qa.M < 1 || qa.K % 8 != 0 || qa.x == nullptr || qa.q == nullptr ||
+      (qa.ln_w == nullptr) != (qa.ln_b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_q_rows(qa, (cudaStream_t)p[8]);
 }
 
 // A compiled variant from the runtime, its shared memory for nkc resident

@@ -1,8 +1,8 @@
 // Warp-level tensor-core helpers shared by the attention kernels (K3, K5, K6):
 // `mma.sync` m16n8k16 (bf16 in, f32 accumulate) with fragments taken from
 // shared memory by 32-bit loads or `ldmatrix`; and by the W8A8 kernels
-// (K7, K8, K9): `mma.sync` m16n8k32 (s8 in, s32 accumulate) and the int8
-// quantizer.
+// (K7, K8, K9): the int8 quantizer and the s8 fragment layout (their
+// products are `wgmma`, wgmma.cuh).
 //
 // Fragment layout of one m16n8k16 product, lane = 4 g + t (g = lane / 4,
 // t = lane % 4): the A fragment holds A[g][2t..2t+1], A[g+8][2t..2t+1],
@@ -35,58 +35,21 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D += A(16x32, row) * B(32x8, col), s8 in, s32 accumulate (the W8A8
-// kernels K7-K9).  Fragments, lane = 4 g + t: A a0 = A[g][4t..4t+3], a1 =
-// A[g+8][4t..4t+3], a2 = A[g][4t+16..4t+19], a3 = A[g+8][4t+16..4t+19]; B
-// b0 = B[4t..4t+3][g], b1 = B[4t+16..4t+19][g]; D as the f32 accumulator
-// above.  So with both operands K-contiguous in shared memory (A row-major,
-// B as rows of N), each register is one aligned 32-bit load.
-__device__ __forceinline__ void mma16832_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The s8 A fragment of 16 rows x 32 bytes (the register operand of K7's
+// s8 wgmma, wgmma.cuh WgmmaS8RS), lane = 4 g + t: a0 = A[g][4t..4t+3], a1
+// = A[g+8][4t..4t+3], a2 = A[g][4t+16..4t+19], a3 = A[g+8][4t+16..4t+19]:
+// byte for byte the bf16 m16n8k16 A fragment, so `ldmatrix.x4` gives it.
 
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [0, 16) and k [0, 32) of a row-major int8 tile
-// (ld bytes a row, a multiple of 4).
-__device__ __forceinline__ void load_a_s8(uint32_t* a, const int8_t* tile, int ld, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  a[0] = lds32(tile + g * ld + 4 * t);
-  a[1] = lds32(tile + (g + 8) * ld + 4 * t);
-  a[2] = lds32(tile + g * ld + 4 * t + 16);
-  a[3] = lds32(tile + (g + 8) * ld + 4 * t + 16);
-}
-
-// The B fragment of columns [0, 8) and k [0, 32) of an int8 tile stored as
-// rows of N (row n holds B[., n], K-contiguous, ld bytes a row).
-__device__ __forceinline__ void load_b_s8(uint32_t& b0, uint32_t& b1, const int8_t* tile, int ld,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  b0 = lds32(tile + g * ld + 4 * t);
-  b1 = lds32(tile + g * ld + 4 * t + 16);
-}
-
-// An activation quantized with the static step s: clip(rint(v / s), +-127).
-// The division is IEEE (nvcc's default -prec-div=true) and __float2int_rn
-// rounds half to even, as torch.round and jnp.round, so the codes match the
-// plain versions' for the same f32 input.
-__device__ __forceinline__ int quantize_s8(float v, float s) {
-  return max(-127, min(127, __float2int_rn(v / s)));
-}
-
-// The same codes from inv = 1 / s (rounded once, IEEE): q0 = v * inv is
-// within an ulp of v / s, and one FMA correction, q0 + (v - q0 s) inv with
-// the residual exact, gives the correctly rounded quotient (Markstein's
-// theorem, for a correctly rounded reciprocal and no underflow; a quotient
-// small enough to underflow rounds to code 0 either way).  Five
-// instructions where the IEEE division's inlined slow-path check costs
-// ~25 and a call site (K8 quantizes every value of its rows with it).
+// An activation quantized with the static step s: clip(rint(v / s), +-127),
+// from inv = 1 / s (rounded once, IEEE): q0 = v * inv is within an ulp of
+// v / s, and one FMA correction, q0 + (v - q0 s) inv with the residual
+// exact, gives the correctly rounded quotient (Markstein's theorem, for a
+// correctly rounded reciprocal and no underflow; a quotient small enough
+// to underflow rounds to code 0 either way), and __float2int_rn rounds half
+// to even, as torch.round and jnp.round: the plain versions' codes for the
+// same f32 input.  Five instructions where the IEEE division's inlined
+// slow-path check costs ~25 and a call site (K7, K8 and K9 quantize every
+// value with it; their first designs divided, 45-90 times a value in K7).
 __device__ __forceinline__ int quantize_s8_rcp(float v, float s, float inv) {
   const float q0 = v * inv;
   const float q = fmaf(fmaf(-q0, s, v), inv, q0);

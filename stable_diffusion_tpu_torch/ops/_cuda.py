@@ -104,13 +104,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_attention_attrs.argtypes = [I] * 5 + [IP]
     lib.sdtk_ffn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_ffn_attrs.argtypes = [I] * 6 + [IP]
-    lib.sdtk_conv3x3_q_ksplit.argtypes = [I, I, I, I, I]
-    lib.sdtk_conv3x3_q.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.sdtk_conv3x3_q.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_conv3x3_q_attrs.argtypes = [I] * 4 + [IP]
     lib.sdtk_linear_q.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_linear_q_attrs.argtypes = [I] * 5 + [IP]
-    lib.sdtk_ffn_q_rows.argtypes = []
-    lib.sdtk_ffn_q_plan.argtypes = [I, I, I, IP, IP]
-    lib.sdtk_ffn_q.argtypes = [P] * 14 + [I] * 5 + [F, P]
+    lib.sdtk_q_rows.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_ffn_q.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_ffn_q_attrs.argtypes = [I] * 6 + [IP]
     lib.sdtk_linear.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_linear_attrs.argtypes = [I] * 6 + [IP]
     lib.sdtk_winograd.argtypes = [ctypes.POINTER(ctypes.c_int64)]
@@ -120,9 +120,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
                lib.sdtk_attention_bwd_attrs, lib.sdtk_attention_attrs, lib.sdtk_ffn,
                lib.sdtk_ffn_attrs,
-               lib.sdtk_conv3x3_q_ksplit, lib.sdtk_conv3x3_q, lib.sdtk_linear_q,
-               lib.sdtk_linear_q_attrs,
-               lib.sdtk_ffn_q_rows, lib.sdtk_ffn_q_plan, lib.sdtk_ffn_q, lib.sdtk_linear,
+               lib.sdtk_conv3x3_q, lib.sdtk_conv3x3_q_attrs, lib.sdtk_linear_q,
+               lib.sdtk_linear_q_attrs, lib.sdtk_q_rows,
+               lib.sdtk_ffn_q, lib.sdtk_ffn_q_attrs, lib.sdtk_linear,
                lib.sdtk_linear_attrs,
                lib.sdtk_winograd, lib.sdtk_winograd_attrs):
         fn.restype = ctypes.c_int

@@ -28,8 +28,13 @@ scale, an int8 x int8 -> int32 implicit GEMM, and the epilogue
 ``acc * (s_x * weight_scale) + bias`` in f32.  The activation is cast to
 its own dtype (bf16 on the card) before the quantizer, as JAX's W8A8
 branch casts it (``ops/conv.py`` ``xn.astype(x.dtype)``); K7 and its plain
-version both do.  Inference only: the W8A8 entry raises
-NotImplementedError when an input wants a gradient.
+version both do.  It runs as two launches: the codes, once a value, into a
+per-device int8 scratch; then K2's halo-tile GEMM on them with s8 ``wgmma``
+(split K merged by atomics and a ticket in a per-device workspace left
+zero).  :func:`conv3x3_q_plan` mirrors the C dispatch (K2's tiles, 128-channel
+chunks); the CPU tests hold it and an emulation of both launches.
+Inference only: the W8A8 entry raises NotImplementedError when an input
+wants a gradient.
 """
 
 from __future__ import annotations
@@ -156,6 +161,19 @@ def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132) ->
     128 rows, else 64.  ``ksplit``: enough blocks for two per SM when the
     output tiles alone are fewer, whole 64-channel chunks per split, at
     most 16."""
+    th, tw, bm = _halo_tile(h, w)
+    bn = 128 if cout % 128 == 0 else 160 if cout % 160 == 0 and bm == 128 else 64
+    plan = Conv3x3Plan(th, tw, bm, bn, K2_VARIANTS[(bm, bn)], 1)
+    tiles, cols, _ = plan.grid(b, h, w, cout)
+    nchunks = -(-cin // K2_CHUNK)
+    ksplit = max(1, min(-(-2 * sms // (tiles * cols)), nchunks, K2_MAX_KSPLIT))
+    return plan._replace(ksplit=ksplit)
+
+
+@functools.lru_cache(maxsize=None)
+def _halo_tile(h: int, w: int):
+    """(th, tw, bm): the output rectangle and GEMM rows of K2's and K7's
+    halo tiles for an h x w image (see :func:`conv3x3_plan`)."""
     best = {}
     for bm in (128, 64):
         for tw in sorted({min(t, w, bm) for t in (8, 16, 24, 32, w)}):
@@ -166,12 +184,7 @@ def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132) ->
                 best[bm] = (score, th, tw)
     bm = 64 if 4 * best[64][0][0] <= 3 * best[128][0][0] else 128
     _, th, tw = best[bm]
-    bn = 128 if cout % 128 == 0 else 160 if cout % 160 == 0 and bm == 128 else 64
-    plan = Conv3x3Plan(th, tw, bm, bn, K2_VARIANTS[(bm, bn)], 1)
-    tiles, cols, _ = plan.grid(b, h, w, cout)
-    nchunks = -(-cin // K2_CHUNK)
-    ksplit = max(1, min(-(-2 * sms // (tiles * cols)), nchunks, K2_MAX_KSPLIT))
-    return plan._replace(ksplit=ksplit)
+    return th, tw, bm
 
 
 def k2_taps(weight: torch.Tensor, *, transposed: bool = False) -> torch.Tensor:
@@ -242,19 +255,120 @@ def conv3x3_occupancy() -> dict:
     return out
 
 
+# The compiled variants of K7, (BM, BN) -> ring stages (csrc/conv3x3_q.cu
+# SDTK_CONV3X3_Q_VARIANTS): K2's tiles, a chunk 128 int8 channels (a
+# pixel's halo row 128 bytes, as K2's 64 bf16).
+K7_VARIANTS = {(128, 128): 4, (128, 160): 3, (128, 64): 6, (64, 128): 4, (64, 64): 6}
+K7_CHUNK = 128  # input channels per halo tile and weight slab
+K7_MAX_KSPLIT = 16
+
+
+class Conv3x3QPlan(NamedTuple):
+    """K7's launch: K2's halo tile (``th`` x ``tw`` outputs of one image,
+    ``bm`` GEMM rows) by ``bn`` output channels, a ring of ``stages`` weight
+    slabs, the input channels split over ``ksplit`` blocks (int32 partials
+    merged by atomics and a ticket)."""
+    th: int
+    tw: int
+    bm: int
+    bn: int
+    stages: int
+    ksplit: int
+
+    def grid(self, b: int, h: int, w: int, cout: int):
+        """(output tiles, column blocks, splits): the GEMM's launch grid."""
+        return b * -(-h // self.th) * -(-w // self.tw), -(-cout // self.bn), self.ksplit
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared bytes of the GEMM: 1024 to align the ring, the ring
+        of 128-byte weight rows, two int8 halo buffers of (th + 2) x (tw +
+        2) rows of 128 bytes, 16 for the ticket's flag."""
+        halo = (self.th + 2) * (self.tw + 2) * K7_CHUNK
+        return 1024 + self.stages * self.bn * K7_CHUNK + 2 * halo + 16
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_q_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = 132,
+                   bn: int = None, ksplit: int = None) -> Conv3x3QPlan:
+    """K7's launch for a (b, h, w, cin) -> cout conv on a card of ``sms``
+    SMs, as csrc/conv3x3_q.cu's entry takes it (``bn`` and ``ksplit`` name
+    another variant, for measuring).
+
+    K2's tile (:func:`conv3x3_plan`: 8 x 16 outputs at most shapes, 8 x 8
+    in 64 rows at 8^2); the column width, of 128 and 160 those that divide
+    Cout (else 64; 128 rows only take 160), that finishes in the fewest
+    waves of two blocks an SM x columns a block, 128 on a tie: 160 at Cout
+    = 320 and at 32^2 x 640 (one wave of 256 blocks where 128 columns give
+    320), 128 at 16^2 x 1280 and in 64 rows; ``ksplit``: only where the
+    output tiles give fewer blocks
+    than the card has SMs (the 8^2 stage), the most parts that still fit in
+    one wave of two blocks an SM, whole 128-channel chunks a part, at most
+    16.  The int32 atomic merge
+    costs more than idle SMs elsewhere: on an NVIDIA H100 80GB HBM3 at 700
+    W, two parts took 1.25-2.35x one part's time at 16^2 and 1.4-5.7x at
+    32^2 and 64^2, three parts 0.77x at (8, 8, 8, 2560) (PERF.md,
+    chip_smoke.py --w8a8-sweep)."""
+    require(cin % 32 == 0 and cout % 8 == 0,
+            f"K7 takes Cin % 32 == 0 and Cout % 8 == 0, got {cin}->{cout}")
+    th, tw, bm = _halo_tile(h, w)
+    if bn is None:
+        tiles = b * -(-h // th) * -(-w // tw)
+        widths = [n for n in (128, 160) if cout % n == 0 and (bm, n) in K7_VARIANTS] or [64]
+        bn = min(widths, key=lambda n: (-(-tiles * -(-cout // n) // (2 * sms)) * n, n))
+    require((bm, bn) in K7_VARIANTS, f"K7: no variant ({bm}, {bn})")
+    plan = Conv3x3QPlan(th, tw, bm, bn, K7_VARIANTS[(bm, bn)], 1)
+    tiles, cols, _ = plan.grid(b, h, w, cout)
+    nchunks = -(-cin // K7_CHUNK)
+    if ksplit is None:
+        ksplit = 1
+        if tiles * cols < sms:
+            ksplit = max(1, min(2 * sms // (tiles * cols), nchunks, K7_MAX_KSPLIT))
+    require(1 <= ksplit <= min(nchunks, K7_MAX_KSPLIT), f"K7: no split {ksplit} of {nchunks} chunks")
+    return plan._replace(ksplit=ksplit)
+
+
 def taps_q(weight_q: torch.Tensor) -> torch.Tensor:
     """The int8 OIHW weight as (3, 3, Cout, Cin) contiguous, each tap's
-    (Cout, Cin) slab K-contiguous for the int8 MMA; cached on the tensor."""
+    (Cout, Cin) slab K-contiguous for the int8 products; cached on the tensor."""
     return cached(weight_q, "_sdtk_taps", [weight_q],
                   lambda: weight_q.permute(2, 3, 0, 1).contiguous())
 
 
-def conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, scale_shift=None):
-    """Launch K7.  x (B,H,W,Cin) bf16 contiguous; weight_q OIHW (Cout,Cin,3,3)
-    int8; s_x (1,) and out_scale = s_x * weight_scale (Cout,) f32
-    (``folded_scales(..., floor=True)``); scale_shift (B, 2, Cin) f32
-    applies GroupNorm+SiLU to x first."""
-    require_no_grad("K7", x, bias, scale_shift)
+_Q_CODES = {}  # device index -> int8 scratch: launch 1's codes
+_Q_WS = {}     # device index -> zero int32: split-K sums, then tickets; left zero
+
+
+def _q_scratch(x: torch.Tensor, nbytes: int) -> int:
+    """The pointer of at least ``nbytes`` of scratch on ``x``'s device for
+    K7's codes, reused call after call (calls on one stream are ordered, so
+    two streams must not run K7 on one device at once)."""
+    buf = _Q_CODES.get(x.get_device())
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), device=x.device, dtype=torch.uint8)
+        _Q_CODES[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def _q_workspace(x: torch.Tensor, ints: int) -> int:
+    """The pointer of at least ``ints`` zero int32 on ``x``'s device (K7
+    leaves what it used zero)."""
+    buf = _Q_WS.get(x.get_device())
+    if buf is None or buf.numel() < ints:
+        buf = torch.zeros(max(ints, 1 << 18), device=x.device, dtype=torch.int32)
+        _Q_WS[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def k7_codes(x: torch.Tensor) -> torch.Tensor:
+    """The int8 codes K7's first launch wrote for ``x`` (B, H, W, Cin), as a
+    view of the scratch (for tests: valid until the next K7 call)."""
+    return _Q_CODES[x.get_device()][:x.numel()].view(torch.int8).view(x.shape)
+
+
+def _k7_refuse(x, weight_q, s_x, out_scale, bias, scale_shift):
+    """Raise the ValueError that names what K7 does not take (its shape
+    rules, checked in one expression on the launch path)."""
     require(x.is_cuda, f"K7 needs a CUDA tensor, got {x.device}")
     require(x.dtype == torch.bfloat16, f"K7 takes bf16, got {x.dtype}")
     require(x.dim() == 4 and x.is_contiguous(), "K7 needs a contiguous NHWC tensor")
@@ -267,28 +381,72 @@ def conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, scale_shift=None
     require(s_x.shape == (1,) and out_scale.shape == (cout,)
             and all(t.dtype == torch.float32 and t.is_contiguous() for t in (s_x, out_scale)),
             "K7: s_x (1,) and out_scale (Cout,) must be contiguous f32")
-    if bias is not None:
-        require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
-                "K7: bias must be contiguous bf16 (Cout,)")
-    if scale_shift is not None:
-        require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
-                and scale_shift.is_contiguous(), "K7: scale_shift must be contiguous f32 (B, 2, Cin)")
-    wk = taps_q(weight_q)
-    require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0, "K7 needs 16-byte aligned tensors")
-    lib = _cuda.library()
-    ksplit = lib.sdtk_conv3x3_q_ksplit(b, h, w, cin, cout)
-    ws = (torch.empty((ksplit, b * h * w, cout), device=x.device, dtype=torch.int32)
-          if ksplit > 1 else None)
+    require(bias is None or (bias.shape == (cout,) and bias.dtype == torch.bfloat16
+                             and bias.is_contiguous()), "K7: bias must be contiguous bf16 (Cout,)")
+    require(scale_shift is None or (scale_shift.shape == (b, 2, cin)
+                                    and scale_shift.dtype == torch.float32
+                                    and scale_shift.is_contiguous()),
+            "K7: scale_shift must be contiguous f32 (B, 2, Cin)")
+    raise ValueError("K7 needs 16-byte aligned tensors")
+
+
+def conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, scale_shift=None, *,
+                        _plan: Conv3x3QPlan = None, _parts: int = 3):
+    """Launch K7.  x (B,H,W,Cin) bf16 contiguous; weight_q OIHW (Cout,Cin,3,3)
+    int8; s_x (1,) and out_scale = s_x * weight_scale (Cout,) f32
+    (``folded_scales(..., floor=True)``); scale_shift (B, 2, Cin) f32
+    applies GroupNorm+SiLU to x first.  For measuring: ``_plan`` runs
+    another plan; ``_parts`` 1 launches the codes alone, 2 the GEMM alone
+    (on whatever codes the scratch holds)."""
+    require_no_grad("K7", x, bias, scale_shift)
+    cout = weight_q.shape[0]
+    wk = taps_q(weight_q) if weight_q.dim() == 4 else weight_q
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
+            and weight_q.dtype == torch.int8 and weight_q.shape[1:] == (x.shape[3], 3, 3)
+            and x.shape[3] % 32 == 0 and cout % 8 == 0
+            and s_x.shape == (1,) and out_scale.shape == (cout,)
+            and s_x.dtype == out_scale.dtype == torch.float32
+            and s_x.is_contiguous() and out_scale.is_contiguous()
+            and (bias is None or (bias.shape == (cout,) and bias.dtype == torch.bfloat16
+                                  and bias.is_contiguous()))
+            and (scale_shift is None or (scale_shift.shape == (x.shape[0], 2, x.shape[3])
+                                         and scale_shift.dtype == torch.float32
+                                         and scale_shift.is_contiguous()))
+            and x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0):
+        _k7_refuse(x, weight_q, s_x, out_scale, bias, scale_shift)
+    b, h, w, cin = x.shape
+    plan = _plan or conv3x3_q_plan(b, h, w, cin, cout, _cuda.sm_count(x.get_device()))
+    ws = tickets = None
+    if plan.ksplit > 1:
+        tiles, cols, _ = plan.grid(b, h, w, cout)
+        ws = _q_workspace(x, b * h * w * cout + tiles * cols)
+        tickets = ws + 4 * b * h * w * cout
+    xq = _q_scratch(x, x.numel())
     y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    code = lib.sdtk_conv3x3_q(
-        x.data_ptr(), wk.data_ptr(), s_x.data_ptr(), out_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, h, w, cin, cout, ksplit,
-        _cuda.stream_handle(x))
-    _cuda.check(code, "K7 conv3x3_q")
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_conv3x3_q, x.data_ptr(), xq, wk.data_ptr(), s_x.data_ptr(),
+        out_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), ws, tickets,
+        b, h, w, cin, cout, plan.th, plan.tw, plan.bm, plan.bn, plan.stages, plan.ksplit, _parts,
+        _cuda.stream_handle(x)), "K7 conv3x3_q")
     K7.launched((b, h, w, cin, cout, scale_shift is not None))
     return y
+
+
+def conv3x3_q_occupancy() -> dict:
+    """Each compiled K7 variant on the current card, at the largest tile
+    its plans take (8 x 16 for 128 rows, 8 x 8 for 64): ``{(bm, bn): {...}}``
+    with registers a thread, spill (local) bytes a thread, shared bytes a
+    block and resident blocks an SM, from the runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    out = {}
+    for (bm, bn), stages in K7_VARIANTS.items():
+        plan = Conv3x3QPlan(8, 16 if bm == 128 else 8, bm, bn, stages, 1)
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_conv3x3_q_attrs(bm, bn, stages, plan.smem, got),
+                    "K7 attributes")
+        out[(bm, bn)] = dict(zip(keys, got))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,14 @@ version, recomputed (JAX ``_ln_ffn_res_bwd``).
 K9 (csrc/ffn_q.cu) is the static-W8A8 form, replacing ffn.py's int8
 ``_make_q_kernel`` (``_ffn_q``): LN -> quantize with the first linear's
 act_scale -> int8 value and gate products -> dequantize -> GeGLU in f32 ->
-requantize with the second linear's act_scale -> int8 W2 product, its int32
-partial sums added over the hidden blocks -> dequantize, +b2, +residual.
-The plain version follows JAX ``_ffn_q_xla`` (the layer path: the LN and
-each linear's output cast to the input dtype); K9 keeps the LN output and
-the GeGLU intermediate in f32 as the TPU kernel does, so in f32 the two are
-one function.  Inference only.
+requantize with the second linear's act_scale -> int8 W2 product ->
+dequantize, +b2, +residual.  It runs as K4's two GEMMs in s8 behind K8's
+quantize launch: the LN'd rows' codes and G1's int8 GeGLU output live in a
+per-device scratch; :func:`ffn_q_plan` mirrors the C dispatch.  The plain
+version follows JAX ``_ffn_q_xla`` (the layer path: the LN and each
+linear's output cast to the input dtype); K9 keeps the LN output and the
+GeGLU intermediate in f32 as the TPU kernel does, so in f32 the two are one
+function.  Inference only.
 """
 
 from __future__ import annotations
@@ -264,19 +266,123 @@ def geglu_ffn_w8a8_plain(x, ln_weight, ln_bias, w1_q, w1_scale, b1, act1, w2_q, 
     return out if residual is None else out + residual
 
 
-def geglu_ffn_w8a8_kernel(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
-                          residual=None, *, eps: float = 1e-5):
-    """Launch K9.  x (..., C) bf16 contiguous on CUDA; w1_q (2H, C) and w2_q
-    (C, H) int8; (s1, out_scale1) and (s2, out_scale2) the two linears'
-    ``folded_scales``; b1 (2H,), b2 (C,), the LN affine (C,) and the
-    residual bf16."""
-    require_no_grad("K9", x, ln_weight, ln_bias, b1, b2, residual)
-    require(x.is_cuda, f"K9 needs a CUDA tensor, got {x.device}")
+# K9's compiled variants (csrc/ffn_q.cu SDTK_FFN_Q_UP_VARIANTS /
+# _DN_VARIANTS): G1 (rows a block, ring stages, blocks an SM for the launch
+# bound), a tile 128 W1 rows (32 values then their 32 gates, twice: 64
+# hidden units); G2 (rows a block, columns a block, ring stages).
+FFN_Q_KC = 128          # K bytes a step: one 128-byte row of int8
+FFN_Q_G1_VARIANTS = ((128, 3, 2),)
+FFN_Q_G2_VARIANTS = ((128, 160, 4), (64, 64, 4))
+FFN_Q_MAX_C = 1280
+
+
+class FfnQPlan(NamedTuple):
+    """K9's launch at (m, c, hidden): G1 variant ``g1`` = (rows a block,
+    stages, blocks an SM), its hidden tiles split over ``nsplit1`` blocks a
+    row block; G2 variant ``g2`` = (rows, columns, stages), one tile a block
+    over all of the hidden width.  ``smem1``, ``smem2``: each GEMM's dynamic
+    shared bytes."""
+    g1: tuple
+    nsplit1: int
+    g2: tuple
+    smem1: int
+    smem2: int
+
+    def grid1(self, m: int):
+        """(row blocks, hidden splits): G1's launch grid."""
+        return -(-m // self.g1[0]), self.nsplit1
+
+    def grid2(self, m: int, c: int):
+        """(column blocks, row blocks): G2's launch grid."""
+        return -(-c // self.g2[1]), -(-m // self.g2[0])
+
+
+def g1_smem(bm: int, stages: int, c: int) -> int:
+    """1024 bytes to align the ring, ``stages`` slabs of 128 W1 rows x 128
+    bytes, the block's int8 rows of all of C (128-byte chunks), three tiles'
+    os1 (f32) and b1 (bf16) for their epilogues."""
+    return 1024 + stages * 128 * FFN_Q_KC + bm * -(-c // FFN_Q_KC) * FFN_Q_KC + 3 * 128 * 6
+
+
+def g2_smem(bm: int, bn: int, stages: int) -> int:
+    """1024 bytes to align the ring, ``stages`` steps of bm rows of h and bn
+    rows of W2, 128 bytes each."""
+    return 1024 + stages * (bm + bn) * FFN_Q_KC
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_q_plan(m: int, c: int, hidden: int, sms: int = 132, g2: tuple = None) -> FfnQPlan:
+    """K9's launch for an (m, c, hidden) call on a card of ``sms`` SMs, as
+    csrc/ffn_q.cu's entry takes it (``g2`` names another G2 variant, for
+    measuring).
+
+    G1: 128 rows a block and a three-slab ring (two blocks an SM where
+    shared memory allows, C = 320); its H / 64 tiles split over
+    ``nsplit1`` blocks a row block, the count that finishes in the fewest
+    waves x (tiles a block + the block's own rows, about one tile's loads),
+    the fewest splits on a tie (K4's G1 rule).  G2: 128 x 160 tiles where
+    their blocks reach half the SMs (M >= 2048 at C = 1280), else 64 x 64.
+    The H100 sweep (chip_smoke.py --w8a8-sweep) found these the fastest at
+    the four path shapes."""
+    require(c % 32 == 0 and c <= FFN_Q_MAX_C and hidden % 64 == 0 and m >= 1,
+            f"K9 takes C % 32 == 0, C <= {FFN_Q_MAX_C} and a hidden width % 64 == 0, "
+            f"got C={c}, H={hidden}")
+    g1 = FFN_Q_G1_VARIANTS[0]
+    smem1 = g1_smem(*g1[:2], c)
+    resident = max(1, min(g1[2], SMEM_SM // (smem1 + 1024)))
+    ntiles, mb = hidden // 64, -(-m // g1[0])
+    best = None
+    for ns in range(1, ntiles + 1):
+        cost = -(-mb * ns // (sms * resident)) * (-(-ntiles // ns) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, ns)
+    if g2 is None:
+        g2 = next((v for v in FFN_Q_G2_VARIANTS if 2 * -(-m // v[0]) * -(-c // v[1]) >= sms),
+                  FFN_Q_G2_VARIANTS[-1])
+    require(g2 in FFN_Q_G2_VARIANTS, f"K9: no G2 variant {g2}")
+    return FfnQPlan(g1, best[1], g2, smem1, g2_smem(*g2))
+
+
+_Q_SCRATCH = {}  # device index -> int8 scratch: the LN'd rows' codes, then G1's codes
+
+
+def _q_scratch(x: torch.Tensor, nbytes: int) -> int:
+    """The pointer of at least ``nbytes`` of scratch on ``x``'s device,
+    reused call after call (calls on one stream are ordered, so two streams
+    must not run K9 on one device at once)."""
+    buf = _Q_SCRATCH.get(x.get_device())
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), device=x.device, dtype=torch.uint8)
+        _Q_SCRATCH[x.get_device()] = buf
+    return buf.data_ptr()
+
+
+def _h_offset(m: int, c: int) -> int:
+    """Byte offset of G1's int8 (M, H) codes in the scratch, after the x codes."""
+    return -(-m * c // 256) * 256
+
+
+def k9_codes(x: torch.Tensor, hidden: int):
+    """(x codes (M, C), h codes (M, H)): what K9's two quantize points wrote
+    for ``x`` (..., C), as views of the scratch (for tests: valid until the
+    next K9 call)."""
     c = x.shape[-1]
     m = x.numel() // c
+    buf = _Q_SCRATCH[x.get_device()].view(torch.int8)
+    off = _h_offset(m, c)
+    return buf[:m * c].view(m, c), buf[off:off + m * hidden].view(m, hidden)
+
+
+def _k9_refuse(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
+               residual):
+    """Raise the ValueError that names what K9 does not take (its shape
+    rules, checked in one expression on the launch path)."""
+    require(x.is_cuda, f"K9 needs a CUDA tensor, got {x.device}")
+    c = x.shape[-1]
     hidden = w2_q.shape[-1]
-    require(c % 32 == 0 and hidden % 64 == 0,
-            f"K9 takes C % 32 == 0 and a hidden width % 64 == 0, got C={c}, H={hidden}")
+    require(c % 32 == 0 and c <= FFN_Q_MAX_C and hidden % 64 == 0,
+            f"K9 takes C % 32 == 0, C <= {FFN_Q_MAX_C} and a hidden width % 64 == 0, "
+            f"got C={c}, H={hidden}")
     require(w1_q.shape == (2 * hidden, c) and w2_q.shape == (c, hidden)
             and all(t.dtype == torch.int8 and t.is_contiguous() for t in (w1_q, w2_q)),
             f"K9: w1_q {tuple(w1_q.shape)} / w2_q {tuple(w2_q.shape)} for C={c}, H={hidden}")
@@ -291,24 +397,72 @@ def geglu_ffn_w8a8_kernel(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q,
             and (ln_weight is None or ln_weight.shape == ln_bias.shape == (c,)),
             "K9: LN weight and bias must both be (C,) or both None")
     require(residual is None or residual.shape == x.shape, "K9: residual shape differs from x")
-    require(x.data_ptr() % 16 == 0 and w1_q.data_ptr() % 16 == 0 and w2_q.data_ptr() % 16 == 0,
-            "K9 needs 16-byte aligned tensors")
-    lib = _cuda.library()
-    rb, nsplit = ctypes.c_int(), ctypes.c_int()
-    _cuda.check(lib.sdtk_ffn_q_plan(m, c, hidden, ctypes.byref(rb), ctypes.byref(nsplit)),
-                f"K9 has no launch plan for C={c}, H={hidden}")
-    bm = lib.sdtk_ffn_q_rows()
-    ws = torch.empty((nsplit.value, (m + bm - 1) // bm * bm, c), device=x.device,
-                     dtype=torch.int32)
+    raise ValueError("K9 needs 16-byte aligned tensors")
+
+
+def geglu_ffn_w8a8_kernel(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
+                          residual=None, *, eps: float = 1e-5, _plan: FfnQPlan = None,
+                          _parts: int = 7):
+    """Launch K9.  x (..., C) bf16 contiguous on CUDA; w1_q (2H, C) and w2_q
+    (C, H) int8; (s1, out_scale1) and (s2, out_scale2) the two linears'
+    ``folded_scales``; b1 (2H,), b2 (C,), the LN affine (C,) and the
+    residual bf16.  For measuring: ``_plan`` runs another plan; ``_parts``
+    (1 the quantize, 2 G1, 4 G2, summed) launches a subset, on whatever the
+    scratch holds."""
+    require_no_grad("K9", x, ln_weight, ln_bias, b1, b2, residual)
+    c = x.shape[-1]
+    hidden = w2_q.shape[-1]
+    f32 = (s1, out_scale1, s2, out_scale2)
+    bf = [t for t in (x, b1, b2, ln_weight, ln_bias, residual) if t is not None]
+    if not (x.is_cuda and c % 32 == 0 and c <= FFN_Q_MAX_C and hidden % 64 == 0
+            and w1_q.shape == (2 * hidden, c) and w2_q.shape == (c, hidden)
+            and w1_q.dtype == w2_q.dtype == torch.int8
+            and w1_q.is_contiguous() and w2_q.is_contiguous()
+            and s1.shape == s2.shape == (1,) and out_scale1.shape == (2 * hidden,)
+            and out_scale2.shape == (c,)
+            and all(t.dtype == torch.float32 and t.is_contiguous() for t in f32)
+            and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
+            and b1.shape == (2 * hidden,) and b2.shape == (c,)
+            and (ln_weight is None) == (ln_bias is None)
+            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (c,))
+            and (residual is None or residual.shape == x.shape)
+            and x.data_ptr() % 16 == 0 and w1_q.data_ptr() % 16 == 0
+            and w2_q.data_ptr() % 16 == 0):
+        _k9_refuse(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
+                   residual)
+    m = x.numel() // c
+    plan = _plan or ffn_q_plan(m, c, hidden, _cuda.sm_count(x.get_device()))
+    off = _h_offset(m, c)
+    xq = _q_scratch(x, off + m * hidden)
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    code = lib.sdtk_ffn_q(
-        x.data_ptr(), ptr(ln_weight), ptr(ln_bias), w1_q.data_ptr(), s1.data_ptr(),
-        out_scale1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
-        out_scale2.data_ptr(), b2.data_ptr(), ptr(residual), ws.data_ptr(), out.data_ptr(),
-        m, c, hidden, rb, nsplit, float(eps), _cuda.stream_handle(x))
-    _cuda.check(code, "K9 ffn_q")
+    _cuda.check(_cuda.call_packed(
+        _cuda.library().sdtk_ffn_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), w1_q.data_ptr(),
+        s1.data_ptr(), out_scale1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
+        out_scale2.data_ptr(), b2.data_ptr(), ptr(residual), out.data_ptr(), xq, xq + off,
+        m, c, hidden, *plan.g1, plan.nsplit1, *plan.g2, _parts, _cuda.f32_bits(eps),
+        _cuda.stream_handle(x)), "K9 ffn_q")
     K9.launched((m, c, hidden, ln_weight is not None, residual is not None))
+    return out
+
+
+def ffn_q_occupancy(c: int = 320) -> dict:
+    """Each compiled K9 variant on the current card: ``{("G1", *variant) |
+    ("G2", *variant): {...}}`` (G1's shared bytes for width ``c``, variants
+    that do not fit it left out) with registers a thread, spill (local)
+    bytes a thread, shared bytes a block and resident blocks an SM, from the
+    runtime."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    out = {}
+    for bm, st, mb in FFN_Q_G1_VARIANTS:
+        if g1_smem(bm, st, c) <= SMEM_BLOCK:
+            got = (ctypes.c_int * 4)()
+            _cuda.check(_cuda.library().sdtk_ffn_q_attrs(0, bm, 0, st, mb, c, got), "K9 attributes")
+            out[("G1", bm, st, mb)] = dict(zip(keys, got))
+    for bm, bn, st in FFN_Q_G2_VARIANTS:
+        got = (ctypes.c_int * 4)()
+        _cuda.check(_cuda.library().sdtk_ffn_q_attrs(1, bm, bn, st, 0, c, got), "K9 attributes")
+        out[("G2", bm, bn, st)] = dict(zip(keys, got))
     return out
 
 

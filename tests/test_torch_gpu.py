@@ -587,10 +587,9 @@ def _act(x):
     return x.float().abs().amax() * 0.9  # a calibrated range that clips the largest few
 
 
-@pytest.mark.parametrize("shape", [(1, 16, 16, 320, 320), (8, 32, 32, 640, 640), (8, 8, 8, 2560, 1280),
-                                   (2, 64, 64, 320, 320), (1, 5, 7, 64, 40), (2, 6, 6, 96, 32)])
-@pytest.mark.parametrize("prologue", [True, False])
-def test_k7_conv3x3_q(gen, shape, prologue):
+def _k7_inputs(gen, shape, prologue):
+    """x, the OIHW int8 weight and its scales, bias, scale_shift and the
+    calibrated act_scale of a K7 case."""
     b, h, w, cin, cout = shape
     x = _rn(gen, b, h, w, cin)
     q, scale = _q8(gen, cout, 9 * cin)
@@ -601,11 +600,76 @@ def test_k7_conv3x3_q(gen, shape, prologue):
         gw, gb = 1 + _rn(gen, cin, scale=0.1), _rn(gen, cin, scale=0.1)
         ss = groupnorm.gn_scale_shift_plain(x, gw, gb)
     act = _act(x if ss is None else conv.gn_silu_prologue(x.float(), ss))
+    return x, wq, scale, bias, ss, act
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 320, 320), (8, 32, 32, 640, 640), (8, 8, 8, 2560, 1280),
+                                   (2, 64, 64, 320, 320), (1, 5, 7, 64, 40), (2, 6, 6, 96, 32),
+                                   (8, 16, 16, 1920, 1280), (8, 64, 64, 960, 320),
+                                   (3, 10, 21, 352, 136)])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k7_conv3x3_q(gen, shape, prologue):
+    """The planner's launch at the W8A8 path's classes (64^2 at Cin = 960, a
+    ragged last chunk; the split-K 16^2 and 8^2 stages) and ragged shapes
+    (rectangles past the image, Cout past a column block, Cin = 352)."""
+    x, wq, scale, bias, ss, act = _k7_inputs(gen, shape, prologue)
     before = conv.K7.launches
     s_x, out_scale = folded_scales(scale, act, floor=True)
     got = conv.conv3x3_w8a8_kernel(x, wq, s_x, out_scale, bias, ss)
     assert conv.K7.launches == before + 1
     _check(got, conv.conv3x3_w8a8_plain(x.float(), wq, scale, act, bias.float(), ss))
+
+
+@pytest.mark.parametrize("variant", sorted(conv.K7_VARIANTS))
+@pytest.mark.parametrize("ksplit", [1, 3])
+def test_k7_every_variant(gen, variant, ksplit):
+    """Each compiled K7 variant with one and three K parts (the ticketed
+    split-K merge) on a ragged shape (rectangles past the image, Cout past
+    a column block, a 96-channel last chunk); called twice, so the second
+    finds the workspace the first left zero."""
+    shape = (2, 9, 19, 352, 200)
+    x, wq, scale, bias, ss, act = _k7_inputs(gen, shape, True)
+    bm, bn = variant
+    tw = 16 if bm == 128 else 8
+    plan = conv.Conv3x3QPlan(8, tw, bm, bn, conv.K7_VARIANTS[variant], ksplit)
+    s_x, out_scale = folded_scales(scale, act, floor=True)
+    want = conv.conv3x3_w8a8_plain(x.float(), wq, scale, act, bias.float(), ss)
+    for _ in range(2):
+        _check(conv.conv3x3_w8a8_kernel(x, wq, s_x, out_scale, bias, ss, _plan=plan), want)
+    ws = conv._Q_WS.get(x.get_device())
+    assert ws is None or not ws.any()
+
+
+@pytest.mark.parametrize("act_scale", [12.7, 3.3, 0.077, 15.875])
+def test_k7_codes_equal_the_plain_quantizer(gen, act_scale):
+    """Through a weight whose centre tap is the identity K7 returns each
+    activation's code times s_x: every code, ties and values an ulp from a
+    half step included, must equal quantize_act's (x / s_x rounded half to
+    even, clipped), in the scratch and in the output."""
+    c = 128
+    s_x = act_step(torch.tensor(act_scale, device="cuda"), floor=True)
+    steps = torch.randn(4, 16, 16, c, generator=gen, device="cuda") * 60
+    x = (steps.round() + 0.5 * (torch.rand(steps.shape, generator=gen, device="cuda") < 0.5)) * s_x
+    x = torch.cat([x.bfloat16(), (torch.randn(x.shape, generator=gen, device="cuda") * 200 * s_x)
+                   .bfloat16()])
+    wq = torch.zeros(c, c, 3, 3, device="cuda", dtype=torch.int8)
+    wq[:, :, 1, 1] = torch.eye(c, device="cuda", dtype=torch.int8)
+    s, out_scale = folded_scales(torch.ones(c, device="cuda"), torch.tensor(act_scale, device="cuda"),
+                                 floor=True)
+    got = conv.conv3x3_w8a8_kernel(x, wq, s, out_scale)
+    want = quantize_act(x, s_x)
+    torch.cuda.synchronize()
+    assert torch.equal(conv.k7_codes(x), want)
+    assert torch.equal(got, (want.float() * s_x).bfloat16())
+
+
+def test_k7_occupancy(gen):
+    """Every compiled K7 variant: no spills, two blocks an SM (the
+    planner's split counts on it), the shared memory the planner computes."""
+    for (bm, bn), o in conv.conv3x3_q_occupancy().items():
+        assert o["spill_bytes"] == 0 and o["blocks_per_sm"] == 2, (bm, bn, o)
+        plan = conv.Conv3x3QPlan(8, 16 if bm == 128 else 8, bm, bn, conv.K7_VARIANTS[(bm, bn)], 1)
+        assert o["smem_bytes"] == plan.smem, (bm, bn, o)
 
 
 @pytest.mark.parametrize("shape", [(32768, 320, 960, True, False), (32768, 320, 320, False, True),
@@ -695,10 +759,7 @@ def test_k8_occupancy(gen):
         assert plan.smem == linear.lq_smem(*plan.variant[:3], plan.nkc) <= linear.SMEM_BLOCK
 
 
-@pytest.mark.parametrize("shape", [(32768, 320), (8192, 640), (2048, 1280), (512, 1280), (100, 64)])
-def test_k9_ffn_q(gen, shape):
-    m, c = shape
-    hidden = 4 * c
+def _k9_inputs(gen, m, c, hidden):
     x = _rn(gen, m, c)
     lw, lb = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
     q1, s1 = _q8(gen, 2 * hidden, c)
@@ -708,12 +769,89 @@ def test_k9_ffn_q(gen, shape):
     act1 = _act(hn)
     hh = linear.matmul_w8a8_plain(hn, q1, s1, act1, b1.float())
     act2 = _act(hh[:, :hidden] * torch.nn.functional.gelu(hh[:, hidden:]))
-    args = [x, lw, lb, q1, s1, b1, act1, q2, s2, b2, act2, r]
+    return [x, lw, lb, q1, s1, b1, act1, q2, s2, b2, act2, r]
+
+
+def _k9_want(args):
+    return ffn.geglu_ffn_w8a8_plain(*(t.float() if t is not None and t.dtype == torch.bfloat16 else t
+                                      for t in args))
+
+
+@pytest.mark.parametrize("shape", [(32768, 320), (8192, 640), (2048, 1280), (512, 1280), (100, 64),
+                                   (300, 160), (77, 1280)])
+def test_k9_ffn_q(gen, shape):
+    """The planner's launch at the four W8A8 path shapes and ragged M."""
+    m, c = shape
+    args = _k9_inputs(gen, m, c, 4 * c)
     before = ffn.K9.launches
     got = ffn.geglu_ffn_w8a8(*args, impl="cuda")
     assert ffn.K9.launches == before + 1
-    _check(got, ffn.geglu_ffn_w8a8_plain(*(t.float() if t.dtype == torch.bfloat16 else t
-                                           for t in args)))
+    _check(got, _k9_want(args))
+
+
+@pytest.mark.parametrize("shape", [(300, 320, 1280), (200, 1280, 5120), (70, 96, 256)])
+@pytest.mark.parametrize("variant", ffn.FFN_Q_G2_VARIANTS)
+def test_k9_every_variant(gen, shape, variant):
+    """Each compiled G2 variant behind the planner's G1 at ragged M (rows
+    past a block) and at C = 96 (a partial K step, G2 columns past C);
+    twice, so the second call runs on the scratch the first left."""
+    m, c, hidden = shape
+    plan = ffn.ffn_q_plan(m, c, hidden, g2=variant)
+    args = _k9_inputs(gen, m, c, hidden)
+    want = _k9_want(args)
+    s1, os1 = folded_scales(args[4], args[6])
+    s2, os2 = folded_scales(args[8], args[10])
+    for _ in range(2):
+        _check(ffn.geglu_ffn_w8a8_kernel(args[0], args[1], args[2], args[3], s1, os1, args[5],
+                                         args[7], s2, os2, args[9], args[11], _plan=plan), want)
+
+
+@pytest.mark.parametrize("act_scale", [12.7, 3.3, 0.077])
+def test_k9_codes_equal_the_plain_quantizer(gen, act_scale):
+    """Both quantize points give the plain quantizer's codes exactly.  The
+    first: x (no LayerNorm) with ties and values an ulp from a half step.
+    The second: a W1 whose value rows are the identity on x's codes and
+    whose gate rows are zero with gate bias 8 (gelu(8) == 8 in f32), and a
+    second step 16 x the first, so each GeGLU value over the second step is
+    within an ulp of half an x code: every odd x code is a near-tie."""
+    m, c, hidden = 2048, 128, 256
+    s_x = act_step(torch.tensor(act_scale, device="cuda"))
+    steps = torch.randn(m // 2, c, generator=gen, device="cuda") * 60
+    x = (steps.round() + 0.5 * (torch.rand(steps.shape, generator=gen, device="cuda") < 0.5)) * s_x
+    x = torch.cat([x.bfloat16(), (torch.randn(m // 2, c, generator=gen, device="cuda") * 200 * s_x)
+                   .bfloat16()])
+    w1 = torch.zeros(2 * hidden, c, device="cuda", dtype=torch.int8)
+    w1[:c] = torch.eye(c, device="cuda", dtype=torch.int8)
+    b1 = torch.zeros(2 * hidden, device="cuda", dtype=torch.bfloat16)
+    b1[hidden:] = 8.0
+    w2, sc2 = _q8(gen, c, hidden)
+    b2 = _rn(gen, c, scale=0.1)
+    act1 = torch.tensor(act_scale, device="cuda")
+    act2 = act1 * 16
+    ones = torch.ones(2 * hidden, device="cuda")
+    args = [x, None, None, w1, ones, b1, act1, w2, sc2, b2, act2, None]
+    got = ffn.geglu_ffn_w8a8(*args, impl="cuda")
+    xq, hq = ffn.k9_codes(x, hidden)
+    want_x = quantize_act(x, s_x)
+    hv = linear.matmul_w8a8_plain(x.float(), w1, ones, act1, b1.float())
+    want_h = quantize_act(hv[:, :hidden] * torch.nn.functional.gelu(hv[:, hidden:]), act_step(act2))
+    torch.cuda.synchronize()
+    assert torch.equal(xq, want_x)
+    assert torch.equal(hq, want_h)
+    assert (want_x.abs() % 2 == 1).any()  # near-ties were there to be rounded
+    _check(got, _k9_want(args))
+
+
+def test_k9_occupancy(gen):
+    """Every compiled K9 variant: no spills, at least one block an SM, G1's
+    shared memory the planner computes."""
+    for c in (320, 640, 1280):
+        for key, o in ffn.ffn_q_occupancy(c).items():
+            assert o["spill_bytes"] == 0 and o["blocks_per_sm"] >= 1, (c, key, o)
+            if key[0] == "G1":
+                assert o["smem_bytes"] == ffn.g1_smem(key[1], key[2], c), (c, key, o)
+            else:
+                assert o["smem_bytes"] == ffn.g2_smem(*key[1:]), (c, key, o)
 
 
 def test_w8a8_kernels_raise_on_shapes_they_do_not_take(gen):
