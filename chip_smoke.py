@@ -1,6 +1,7 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the eight phases below
+    python3 chip_smoke.py                  # the nine phases below
+    python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -31,7 +32,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Eight phases, one line each (plus detail lines); any failure exits non-zero
+Nine phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -114,6 +115,20 @@ and the final line is printed only when every phase passed:
                  768^2 DDIM-50 CFG-7.5 requests with the switches off (K1-K4
                  launched, K10-K12 not) and one with them on (K1-K4 and K10-K12
                  launched), same ids and seed, and reports the image drift.
+  9. img2img  -- SD1.5 img2img and inpaint at 512^2 (BASELINE config 2:
+                 DDPM on the cosine schedule, strength 0.8 of 50 steps, CFG
+                 7.5): holds the full-width VAE encoder to
+                 tests/golden/full_vae_encode.npz (plain f32, then the
+                 kernels in bf16 against it); runs DDPM-4 at strength 0.5
+                 (2 steps) at b4 on injected noise, the kernels in bf16
+                 against the plain f32 path; records the shapes K1-K4 get
+                 in one img2img b4 pass (the encoder at b1, one CFG UNet
+                 step at batch 8, the decoder at b4) and checks and times
+                 each kernel there; serves two img2img b4 requests (one
+                 numpy image each, their own ids and seeds) and one b1
+                 inpaint request (a rectangle mask), which must launch
+                 K1-K4 and no other kernel; repeats request 0 for the same
+                 uint8 image; times one 512^2 encode.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds).
 """
@@ -175,6 +190,13 @@ TRAIN_BATCH = 4         # 2 instance + 2 prior, as bench.py's train config
 TRAIN_STEPS = 12        # timed, after two warm-up steps
 TRAIN_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj")
 SD21_SIZE = (768, 768)
+IMG2IMG_BATCH = 4       # BASELINE config 2: img2img b4 (UNet batch 8 with CFG)
+IMG2IMG_STRENGTH = 0.8  # 40 of 50 DDPM steps run
+# The full-width VAE encoder, plain f32 (TF32 off), against the CPU-made JAX
+# golden: the same f32 maths summed in another order through ~30 layers at
+# activations below 1; the golden's mean spreads 1.0e-2 about its channel
+# averages and its std is 0.994 +- 0.011, so 2e-5 is 0.2% of that spread.
+VAE_GOLDEN_ATOL = 2e-5
 # K12 against the f32 direct conv (TF32 off), relative max: within this
 # factor of K2's own error on the same inputs (tests/test_winograd.py's
 # bar: V and U are rounded to bf16 after transforms that grow magnitudes).
@@ -1445,6 +1467,211 @@ def phase_sd21(counters):
                     peak_gib=peak)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: img2img and inpaint (BASELINE config 2)
+# ---------------------------------------------------------------------------
+
+
+def request_image(seed: int) -> np.ndarray:
+    """A (512, 512, 3) uint8 input image: smooth colour fields, two
+    hard-edged rectangles and a little noise, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    h = w = 512
+    yy, xx = np.mgrid[0:h, 0:w] / np.float32(h)
+    img = np.stack([128 + 100 * np.sin(6 * xx + seed), 128 + 100 * np.cos(5 * yy),
+                    255 * xx * yy], axis=-1)
+    for _ in range(2):
+        y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+        img[y0:y0 + h // 3, x0:x0 + w // 4] = rng.integers(0, 256, 3)
+    img += rng.standard_normal(img.shape) * 8
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def request_mask() -> np.ndarray:
+    """A 200 x 250 rectangle to regenerate, (512, 512) uint8."""
+    mask = np.zeros((512, 512), np.uint8)
+    mask[150:350, 130:380] = 255
+    return mask
+
+
+def phase_vae_golden():
+    """The full-width VAE encoder against tests/golden/full_vae_encode.npz
+    (the JAX package's encode_moments on the CPU): plain f32 (TF32 off),
+    then the kernels in bf16 against that f32 result (mean and std)."""
+    from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
+    from stable_diffusion_tpu_torch.utils import weights as W
+
+    g = np.load(os.path.join(REPO, "tests", "golden", "full_vae_encode.npz"))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vae = W.build(VAE, VAEConfig(), device="cuda", dtype=torch.float32)
+    vae.load_state_dict(W.from_jax_params(W.unflatten(W.philox_jax_params(vae, seed=7))),
+                        strict=True)
+    rng = np.random.Generator(np.random.Philox(11))
+    x = rng.random((1, 256, 256, 3), dtype=np.float32) * 2 - 1
+    ok = bool(np.array_equal(x[0, 0, :8], g["image_head"]))
+    xt = torch.tensor(x, device="cuda")
+    with torch.no_grad():
+        m, s = (t.float().cpu().numpy() for t in vae.encode_moments(xt, impl="torch"))
+        vae = vae.to(torch.bfloat16)
+        m16, s16 = (t.float().cpu().numpy() for t in vae.encode_moments(xt.bfloat16(), impl="cuda"))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    err = max(float(np.abs(m - g["mean"]).max()), float(np.abs(s - g["std"]).max()))
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    centre = lambda a: a - a.mean(axis=(0, 1, 2))  # noqa: E731  the part the image drives
+    rels = {"mean": rel(m16, m), "std": rel(s16, s), "mean_centred": rel(centre(m16), centre(m))}
+    ok &= (err <= VAE_GOLDEN_ATOL and rels["mean"] <= GOLDEN_BF16_REL_L2
+           and rels["std"] <= GOLDEN_BF16_REL_L2 and bool(np.isfinite(m16).all())
+           and bool(np.isfinite(s16).all()))
+    say(f"  golden VAE encoder f32 plain: max_abs_err={err:.3e} (tol {VAE_GOLDEN_ATOL}; golden mean "
+        f"spread {float(g['mean'].std()):.4f}, std {float(g['std'].mean()):.4f} +- "
+        f"{float(g['std'].std()):.4f}); bf16 kernels vs f32 plain: rel_l2 mean {rels['mean']:.3e}, "
+        f"std {rels['std']:.3e} (tol {GOLDEN_BF16_REL_L2}), mean about its channel averages "
+        f"{rels['mean_centred']:.3e} (not gated)")
+    del vae
+    torch.cuda.empty_cache()
+    return ok, err, rels
+
+
+def img2img_kwargs(**kw):
+    """BASELINE config 2: 512^2, DDPM on the cosine schedule, strength 0.8 of
+    50 steps, CFG 7.5."""
+    return dict(dict(img_size=(512, 512), cfg_scale=7.5, strength=IMG2IMG_STRENGTH,
+                     inference_steps=SERVE_STEPS, sampler="ddpm", use_cosine_schedule=True), **kw)
+
+
+def check_img2img_short(pipe):
+    """DDPM-4 at strength 0.5 (2 steps) at b4 on injected noise: the kernels
+    in bf16 against the plain f32 path (TF32 off) on the same weights,
+    relative L2 of the final latents.  ``pipe`` is f32 and leaves in bf16."""
+    rng = np.random.default_rng(77)
+    lat = (IMG2IMG_BATCH, 64, 64, 4)
+    draws = dict(encode_noise=rng.standard_normal((1, *lat[1:]), dtype=np.float32),
+                 latent_noise=rng.standard_normal(lat, dtype=np.float32),
+                 step_noise=rng.standard_normal((2, *lat), dtype=np.float32))
+    cond, uncond = request_ids(40, IMG2IMG_BATCH)
+    kw = img2img_kwargs(input_image=request_image(40), inference_steps=4, strength=0.5,
+                        return_latents=True, **draws)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe.impl = "torch"
+    want = pipe.generate(cond, uncond, **kw)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for m in (pipe.unet, pipe.text_encoder, pipe.vae):
+        m.to(torch.bfloat16)
+    pipe.impl = "cuda"
+    got = pipe.generate(cond, uncond, **kw)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    ok = rel <= GOLDEN_BF16_REL_L2 and bool(np.isfinite(got).all())
+    say(f"  img2img DDPM-4 strength 0.5 (2 steps) b{IMG2IMG_BATCH}, bf16 kernels vs plain f32: "
+        f"rel_l2={rel:.3e} (tol {GOLDEN_BF16_REL_L2}) max_abs_err={float(np.abs(got - want).max()):.3e} "
+        f"latent std={float(want.std()):.4f}")
+    return ok, rel
+
+
+def record_img2img_shapes(pipe, counters):
+    """One img2img b4 pass with per-shape launch counting on: the text
+    encode, the encoder at b1, one CFG UNet step at batch 8 (2 steps at
+    strength 0.5: one runs), the decoder at b4."""
+    for c in counters.values():
+        c.record()
+    cond, uncond = request_ids(98, IMG2IMG_BATCH)
+    pipe.generate(cond, uncond, **img2img_kwargs(input_image=request_image(98), inference_steps=2,
+                                                 strength=0.5, seed=98, output_dtype="uint8"))
+    torch.cuda.synchronize()
+    return {k: c.stop_recording() for k, c in counters.items()}
+
+
+def phase_img2img(counters, card: str):
+    from stable_diffusion_tpu_torch.pipeline import preprocess_mask
+
+    ok_g, g_err, g_rels = phase_vae_golden()
+    pipe = build_pipeline(torch.float32, "torch", seed=20)
+    ok_short, short_rel = check_img2img_short(pipe)   # leaves pipe in bf16, impl "cuda"
+    # (a) every K1-K4 shape of one img2img b4 pass, against plain f32
+    shapes = record_img2img_shapes(pipe, counters)
+    say("  img2img pass shapes: " + ", ".join(
+        f"{k} {len(v)} shapes {sum(v.values())} calls" for k, v in shapes.items() if v))
+    ok_k = no_general_body(shapes, "img2img path (one b4 pass)")
+    ok_c, summary = check_kernels(shapes, SERVING_KERNELS, "img2img")
+    ok_k &= ok_c
+    # (b) the main path: two img2img b4 requests and one inpaint request
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    secs, imgs, ok_r = [], [], True
+    for r in range(SERVE_REQUESTS):
+        cond, uncond = request_ids(r, IMG2IMG_BATCH)
+        image = request_image(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pipe.generate(cond, uncond, **img2img_kwargs(input_image=image, seed=4000 + r,
+                                                           output_dtype="uint8"))
+        secs.append(time.perf_counter() - t0)
+        good = (img.shape == (IMG2IMG_BATCH, 512, 512, 3) and img.dtype == np.uint8
+                and int(img.max()) > int(img.min()))
+        ok_r &= good
+        imgs.append(img)
+        say(f"  img2img request {r}: {secs[-1]:.3f} s shape={img.shape} min={int(img.min())} "
+            f"max={int(img.max())} mean={float(img.mean()):.2f} {'ok' if good else 'BAD'}")
+    cond, uncond = request_ids(7)
+    image, mask = request_image(7), request_mask()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    painted = pipe.inpaint(cond, uncond, image, mask, **img2img_kwargs(seed=4100))
+    inpaint_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    good = (painted.shape == (512, 512, 3) and painted.dtype == np.uint8
+            and int(painted.max()) > int(painted.min()))
+    # the latent cells outside the dilated mask keep the image's content
+    # through the blend, so the output differs from the input most inside
+    cells = preprocess_mask(mask, mask.shape)[0, :, :, 0]
+    keep = np.repeat(np.repeat(~cells, 8, axis=0), 8, axis=1)
+    d = np.abs(painted.astype(np.float32) - image.astype(np.float32))
+    say(f"  inpaint request: {inpaint_s:.3f} s shape={painted.shape} min={int(painted.min())} "
+        f"max={int(painted.max())}; |output - input| mean inside the mask's cells "
+        f"{float(d[~keep].mean()):.2f}, outside {float(d[keep].mean()):.2f} {'ok' if good else 'BAD'}")
+    ok_r &= good and all(launches[k] > 0 for k in SERVING_KERNELS) and all(
+        launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS)
+    ok_r &= no_general_body(launches, "phase 9 requests")
+    say(f"  img2img launches over the requests: {launches}")
+    # (c) repeatable: request 0 again, same ids, image and seed
+    cond, uncond = request_ids(0, IMG2IMG_BATCH)
+    again = pipe.generate(cond, uncond, **img2img_kwargs(input_image=request_image(0), seed=4000,
+                                                         output_dtype="uint8"))
+    same = bool(np.array_equal(again, imgs[0]))
+    ok_r &= same
+    say(f"  img2img request 0 repeated: {'the same uint8 image' if same else 'BAD: another image'}")
+    # (d) one encode: the 512^2 b1 image to its latent (K1, K2, K3 and plain convs)
+    x = torch.tensor(request_image(5)[None], device="cuda").bfloat16() / 127.5 - 1
+    noise = torch.randn((1, 64, 64, 4), device="cuda").bfloat16()
+    with torch.no_grad():
+        encode_ms = cuda_ms(lambda: pipe.vae.encode(x, noise=noise, impl="cuda"), reps=3)
+    say(f"  {card}: img2img b{IMG2IMG_BATCH} s/request {[round(t, 3) for t in secs]}, inpaint b1 "
+        f"{inpaint_s:.3f} s, encode 512^2 b1 {encode_ms:.3f} ms, peak_mem {peak:.2f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+    ok = ok_g and ok_short and ok_k and ok_r
+    return ok, dict(summary=summary, launches=launches, secs=secs, inpaint_s=inpaint_s,
+                    encode_ms=encode_ms, golden_err=g_err, golden_rels=g_rels,
+                    short_rel=short_rel, peak_gib=peak)
+
+
+def img2img_line(i2) -> str:
+    return (f"512^2 DDPM cosine strength {IMG2IMG_STRENGTH} of {SERVE_STEPS}, CFG 7.5: b"
+            f"{IMG2IMG_BATCH} s/request {[round(x, 3) for x in i2['secs']]}, inpaint b1 "
+            f"{i2['inpaint_s']:.3f} s, encode {i2['encode_ms']:.3f} ms; encoder golden f32 "
+            f"max_abs_err={i2['golden_err']:.3e}, bf16 rel_l2 mean {i2['golden_rels']['mean']:.3e} "
+            f"std {i2['golden_rels']['std']:.3e}; short run rel_l2={i2['short_rel']:.3e}; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, bound {v['bound_ms']:.2f}"
+                        for k, v in i2["summary"].items())
+            + f" per pass; peak_mem {i2['peak_gib']:.2f} GiB")
+
+
 def _kernel_group(name: str) -> str:
     if name in ("partial_stats", "finalize", "apply"):  # an older checkout's Triton K1 (--root)
         return "K1"
@@ -2280,6 +2507,10 @@ def main() -> int:
         ok8, sd = phase_sd21(counters)
         say(f"phase 8 sd21: {'ok' if ok8 else 'FAIL'}, " + sd21_line(sd))
         return 0 if ok8 else 1
+    if "--img2img" in sys.argv[1:]:
+        ok9, i2 = phase_img2img(counters, card)
+        say(f"phase 9 img2img: {'ok' if ok9 else 'FAIL'}, " + img2img_line(i2))
+        return 0 if ok9 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -2370,6 +2601,12 @@ def main() -> int:
     if not ok8:
         return 1
 
+    # 9. img2img and inpaint, SD1.5 512^2 (BASELINE config 2)
+    ok9, i2 = phase_img2img(counters, card)
+    say(f"phase 9 img2img: {'ok' if ok9 else 'FAIL'}, " + img2img_line(i2))
+    if not ok9:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -2377,7 +2614,10 @@ def main() -> int:
     # launches over phase 7's timed steps; K7-K9: the W8A8 b4 serving pass,
     # launches over phase 6's requests; K10-K12: the SD2.1 768^2 switched
     # pass, launches over phase 8's switched request (bf16_ms: the route each
-    # replaces), with K1-K4's SD2.1 figures (switches off) under sd21_*.
+    # replaces), with K1-K4's SD2.1 figures (switches off) under sd21_* and
+    # their img2img b4 figures (one pass: text encode, the encoder at b1, one
+    # CFG UNet step at batch 8, the decoder at b4; launches over phase 9's
+    # two img2img requests and its inpaint request) under img2img_*.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -2402,12 +2642,13 @@ def main() -> int:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
             row["bf16_call"] = KERNELS[k]["bf16"]
-        if k == "K3":  # launches by body: phase 5's, 7's, 6's and 8's (switches off)
+        if k == "K3":  # launches by body: phase 5's, 7's, 6's, 8's (switches off) and 9's
             for tag, m in (("", launches), ("train_", train["launches"]), ("w8a8_", w8["launches"]),
-                           ("sd21_", sd["launches_off"])):
+                           ("sd21_", sd["launches_off"]), ("img2img_", i2["launches"])):
                 row[f"{tag}bodies"] = {b: m[f"K3:{b}"] for b in K3_BODY_NAMES}
         for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"]),
-                               ("sd21", sd["summary"], sd["launches_off"])):
+                               ("sd21", sd["summary"], sd["launches_off"]),
+                               ("img2img", i2["summary"], i2["launches"])):
             if serving and k in other:
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],

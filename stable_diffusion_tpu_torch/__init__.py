@@ -6,7 +6,8 @@ held against.  Activations are NHWC at the public functions, as in JAX.
 
 Every Pallas kernel of the JAX package has a hand-written Hopper counterpart
 beside its plain PyTorch version (``csrc/`` for the CUDA C++ sources), on
-the ported paths: SD1.5 and SD2.1 (768^2, v-prediction) txt2img, the
+the ported paths: SD1.5 and SD2.1 (768^2, v-prediction) txt2img, SD1.5
+img2img and inpaint (the VAE encoder, DDPM, the cosine schedule), the
 static-W8A8 serving form, the LoRA train step, and the JAX package's kernel
 switches SD_TPU_FUSED_MM (K10, K11) and SD_TPU_WINOGRAD (K12), read at call
 time and off by default, as there:

@@ -155,14 +155,21 @@ def linear(mod: nn.Module, x: torch.Tensor, *, impl: str = "auto") -> torch.Tens
 
 def conv2d(mod: nn.Module, x: torch.Tensor, *, stride: int = 1, padding=None) -> torch.Tensor:
     """NHWC conv.  ``padding`` None means SAME for odd kernels (k // 2); an
-    int pads every side.  A 1x1 stride-1 conv is a per-pixel matmul.  A
-    :class:`QConv2d` runs on its dequantized weight (JAX ``conv2d``)."""
+    int pads every side; ((top, bottom), (left, right)) pads as given (the
+    VAE downsampler's ((0, 1), (0, 1))).  A 1x1 stride-1 conv is a
+    per-pixel matmul.  A :class:`QConv2d` runs on its dequantized weight
+    (JAX ``conv2d``)."""
     weight, bias = _conv_weight(mod, x.dtype), mod.bias
     k = weight.shape[-1]
     if k == 1 and stride == 1 and not padding:
         return F.linear(x, weight[:, :, 0, 0], bias)
-    pad = k // 2 if padding is None else padding
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=pad)
+    xc = x.permute(0, 3, 1, 2)
+    if isinstance(padding, (tuple, list)):
+        (top, bottom), (left, right) = padding
+        xc, pad = F.pad(xc, (left, right, top, bottom)), 0
+    else:
+        pad = k // 2 if padding is None else padding
+    y = F.conv2d(xc, weight, bias, stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -223,8 +230,11 @@ def geglu(mod: nn.Module, x: torch.Tensor, *, impl: str = "auto") -> torch.Tenso
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC (from a 1x1 image ``reshape`` alone would return a
+    stride-0 view, which K2 refuses)."""
     b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+    return (x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+            .contiguous())
 
 
 class GEGLU(nn.Module):

@@ -1,16 +1,21 @@
-"""VAE decoder (port of the decode half of stable_diffusion_tpu/models/vae.py:
-``decode``, ``decoder_apply``, ``_residual_block``, ``_mid_attention``).
-The encoder is not ported yet.
+"""The VAE (port of stable_diffusion_tpu/models/vae.py: ``encoder_apply``,
+``encode_moments``, ``encode``, ``decode``, ``decoder_apply``,
+``_residual_block``, ``_mid_attention``).  :class:`VAEDecoder` is the decode
+half alone (key paths ``decoder.*`` and ``post_quant_conv``); :class:`VAE`
+adds ``encoder.*`` and ``quant_conv``, the whole ``init_vae`` tree.
 
 On the card every GroupNorm goes through K1 (including the mid-attention
-and ``conv_norm_out`` norms that JAX leaves to XLA), every GN+SiLU+3x3 conv
-and upsampler conv through K2, and the single-head d=512 mid attention
-through K3.
+and ``conv_norm_out`` norms that JAX leaves to XLA), every resblock
+GN+SiLU+3x3 conv and upsampler conv through K2, and the single-head d=512
+mid attention through K3.  The encoder's ``conv_in`` (3 channels), its
+stride-2 downsamplers, ``conv_out``, ``quant_conv`` and the 1x1 shortcuts
+stay plain convs, as JAX computes them outside any kernel too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -92,6 +97,31 @@ class _Conv(nn.Module):
         self.conv = _conv(ch, ch, 3)
 
 
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleDict({"0": ResidualBlock(in_ch, out_ch),
+                                      "1": ResidualBlock(out_ch, out_ch)})
+        if downsample:
+            self.downsamplers = nn.ModuleDict({"0": _Conv(out_ch)})
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch = cfg.base_channels
+        in_mult = (1,) + tuple(cfg.ch_mult)
+        n = len(cfg.ch_mult)
+        top = ch * cfg.ch_mult[-1]
+        self.conv_in = _conv(cfg.in_channels, ch, 3)
+        self.down_blocks = nn.ModuleDict({
+            str(i): _DownBlock(ch * in_mult[i], ch * cfg.ch_mult[i], downsample=i != n - 1)
+            for i in range(n)})
+        self.mid_block = _Mid(top)
+        self.conv_norm_out = nn.GroupNorm(32, top)
+        self.conv_out = _conv(top, 2 * cfg.latent_channels, 3)
+
+
 class _UpBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, upsample: bool):
         super().__init__()
@@ -120,6 +150,12 @@ class Decoder(nn.Module):
         self.conv_out = _conv(ch, cfg.out_channels, 3)
 
 
+def _mid_apply(mid: _Mid, h: torch.Tensor, eps: float, impl: str) -> torch.Tensor:
+    h = mid.resnets["0"](h, eps=eps, impl=impl)
+    h = mid.attentions["0"](h, impl=impl)
+    return mid.resnets["1"](h, eps=eps, impl=impl)
+
+
 class VAEDecoder(nn.Module):
     """The decode half of the VAE: key paths ``post_quant_conv`` and
     ``decoder.*`` of the JAX tree."""
@@ -134,11 +170,7 @@ class VAEDecoder(nn.Module):
     def decoder_apply(self, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """Latent NHWC (B,h,w,z) -> image (B,8h,8w,3) in [-1,1]."""
         d, eps = self.decoder, self.cfg.norm_eps
-        h = layers.conv2d(d.conv_in, z)
-        mid = d.mid_block
-        h = mid.resnets["0"](h, eps=eps, impl=impl)
-        h = mid.attentions["0"](h, impl=impl)
-        h = mid.resnets["1"](h, eps=eps, impl=impl)
+        h = _mid_apply(d.mid_block, layers.conv2d(d.conv_in, z), eps, impl)
         for stage in d.up_blocks.values():
             for blk in stage.resnets.values():
                 h = blk(h, eps=eps, impl=impl)
@@ -153,3 +185,47 @@ class VAEDecoder(nn.Module):
         """Latent -> image in [-1, 1]; divides by the 0.18215 latent scale."""
         z = layers.conv2d(self.post_quant_conv, z / SD_LATENT_SCALE)
         return self.decoder_apply(z, impl=impl)
+
+
+class VAE(VAEDecoder):
+    """The whole VAE: the decode half plus ``encoder`` and ``quant_conv``."""
+
+    def __init__(self, cfg: VAEConfig = VAEConfig()):
+        super().__init__(cfg)
+        z = cfg.latent_channels
+        self.encoder = Encoder(cfg)
+        self.quant_conv = _conv(2 * z, 2 * z, 1)
+
+    def encoder_apply(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """Image NHWC (B,H,W,3) -> moments (B,H/8,W/8,2z)."""
+        e, eps = self.encoder, self.cfg.norm_eps
+        h = layers.conv2d(e.conv_in, x)
+        for stage in e.down_blocks.values():
+            for blk in stage.resnets.values():
+                h = blk(h, eps=eps, impl=impl)
+            if hasattr(stage, "downsamplers"):
+                h = layers.conv2d(stage.downsamplers["0"].conv, h, stride=2,
+                                  padding=((0, 1), (0, 1)))
+        h = _mid_apply(e.mid_block, h, eps, impl)
+        h = group_norm_silu(h, e.conv_norm_out.weight, e.conv_norm_out.bias, eps=eps,
+                            silu=True, impl=impl)
+        return layers.conv2d(e.conv_out, h)
+
+    def encode_moments(self, x: torch.Tensor, *, impl: str = "auto"):
+        """Image NHWC -> (mean, stdev), each (B,H/8,W/8,z); the log-variance
+        is clipped to [-30, 20]."""
+        moments = layers.conv2d(self.quant_conv, self.encoder_apply(x, impl=impl))
+        mean, log_var = moments.chunk(2, dim=-1)
+        return mean, torch.exp(0.5 * log_var.clamp(-30.0, 20.0))
+
+    def encode(self, x: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None, impl: str = "auto"):
+        """-> (latent, mean, stdev).  With ``noise`` the latent is
+        mean + stdev * noise, unscaled (img2img, inpaint and training use
+        this); without, the noise is drawn from ``generator`` and the latent
+        is scaled by 0.18215 (JAX's asymmetry, kept)."""
+        mean, std = self.encode_moments(x, impl=impl)
+        if noise is not None:
+            return mean + std * noise, mean, std
+        draw = torch.randn(std.shape, generator=generator, device=std.device).to(std.dtype)
+        return (mean + std * draw) * SD_LATENT_SCALE, mean, std

@@ -1,18 +1,25 @@
-"""txt2img pipeline (port of stable_diffusion_tpu/pipeline.py
-``StableDiffusion.generate`` on its main path: CLIP text tower -> DDIM
+"""txt2img, img2img and inpaint (port of stable_diffusion_tpu/pipeline.py
+``StableDiffusion.generate`` and ``inpaint``: CLIP text tower -> [VAE
+encode -> q-sample at the strength-truncated first step ->] DDIM or DDPM
 denoise loop with classifier-free guidance -> VAE decode).
 
-Numerical contract, as in JAX: context = [uncond, cond] and
-eps = uncond + s * (cond - uncond).  The port cannot replay ``jax.random``,
-so the starting noise is either drawn from a ``torch.Generator`` seeded with
-``seed`` on the pipeline's device or passed in as ``initial_latents`` (the
-tests pass the noise JAX drew).  Images come back NHWC, float in [0, 1] or
-uint8; the TPU's lane-packed (b, h, w*3) transfer layout is not ported.
+Numerical contract, as in JAX: ``generate`` takes context = [uncond, cond]
+and eps = uncond + s * (cond - uncond); ``inpaint`` takes [cond, uncond]
+and eps = cond + s * (cond - uncond), and at every step replaces the latent
+outside the mask by the encoded image re-noised with the predicted noise.
+DDPM takes the model output as eps under any prediction type, as JAX does.
+The port cannot replay ``jax.random``: every draw (encode noise, starting or
+q-sample noise, inpaint's mask noise, the per-step noises) can be passed in
+(the tests pass the noise JAX drew); the rest are drawn in that order from
+one ``torch.Generator`` seeded with ``seed`` on the pipeline's device.
+Images come back NHWC, float in [0, 1] or uint8; the TPU's lane-packed
+(b, h, w*3) transfer layout is not ported.
 
 The pipeline never moves work to the CPU: it runs on ``device``, and with
-``impl="cuda"`` it refuses a device that is not CUDA.  The tokenizer,
-checkpoint loading and the CLI wait until their files are in the repository;
-``generate`` takes token ids.
+``impl="cuda"`` it refuses a device that is not CUDA.  Images and masks are
+numpy arrays (or PIL images); PIL is imported only where a resize or a PIL
+object needs it.  The tokenizer, checkpoint loading and the CLI are not
+ported yet; ``generate`` and ``inpaint`` take token ids.
 
 The pipeline carries its scheduler config, as JAX's does
 (``scheduler_config``, ``make_schedule``), and denoises with that config's
@@ -24,14 +31,15 @@ package's ``sd_version`` choice.  Without a config the schedule is SD1.5's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
-from stable_diffusion_tpu_torch.models.vae import VAEConfig, VAEDecoder
+from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
 from stable_diffusion_tpu_torch.schedulers import schedule as S
 
 
@@ -42,10 +50,99 @@ def scheduler_config_for(sd_version: str) -> dict:
             "prediction_type": "epsilon" if sd_version.startswith("1") else "v_prediction"}
 
 
-def cfg_combine(pred: torch.Tensor, cfg_scale: float) -> torch.Tensor:
-    """(uncond, cond) halves of the batch -> uncond + s * (cond - uncond)."""
-    uncond, cond = pred.chunk(2, dim=0)
-    return uncond + torch.tensor(cfg_scale, dtype=pred.dtype) * (cond - uncond)
+def cfg_combine(pred: torch.Tensor, cfg_scale: float, order: str = "uncond_first") -> torch.Tensor:
+    """The two halves of the batch -> eps.  "uncond_first" (generate):
+    uncond + s * (cond - uncond); "cond_first" (inpaint): cond + s * (cond -
+    uncond)."""
+    a, b = pred.chunk(2, dim=0)
+    if order == "uncond_first":
+        uncond, cond = a, b
+        base = uncond
+    else:
+        cond, uncond = a, b
+        base = cond
+    return base + torch.tensor(cfg_scale, dtype=pred.dtype) * (cond - uncond)
+
+
+def scale_img(x, old_range, new_range, clamp: bool = False):
+    """Linear range rescale of a numpy array or a tensor."""
+    old_min, old_max = old_range
+    new_min, new_max = new_range
+    x = (x - old_min) * (new_max - new_min) / (old_max - old_min) + new_min
+    if clamp:
+        x = x.clamp(new_min, new_max) if isinstance(x, torch.Tensor) else np.clip(x, new_min, new_max)
+    return x
+
+
+def _pil_image(img, mode: str, img_size: Tuple[int, int], resample=None):
+    """``img`` (a PIL image or an array cast to uint8) converted to ``mode``
+    and resized to ``img_size`` by PIL (JAX's preprocessing)."""
+    try:
+        from PIL import Image
+    except ImportError as e:  # another resize gives other pixels
+        raise ImportError("resizing or converting this image needs PIL; pass a uint8 numpy "
+                          f"array already at img_size {img_size}") from e
+    if isinstance(img, np.ndarray):
+        img = Image.fromarray(img.astype(np.uint8))
+    img = img.convert(mode)
+    size = (img_size[1], img_size[0])
+    img = img.resize(size) if resample is None else img.resize(size, getattr(Image, resample))
+    return np.asarray(img)
+
+
+def preprocess_image(img, img_size: Tuple[int, int]) -> np.ndarray:
+    """An image, as an array or a PIL image -> (1, H, W, 3) float32 in
+    [-1, 1].  An (H, W, 3) array already at ``img_size`` is taken as it is
+    (PIL's resize to the same size is a copy); anything else goes through
+    PIL's RGB conversion and bilinear resize."""
+    if isinstance(img, np.ndarray) and img.shape == (*img_size, 3):
+        arr = img.astype(np.uint8)
+    else:
+        arr = _pil_image(img, "RGB", img_size, "BILINEAR")
+    arr = arr.astype(np.float32) / 255.0
+    return ((arr - 0.5) / 0.5)[None]
+
+
+def preprocess_mask(mask, img_size: Tuple[int, int]) -> np.ndarray:
+    """A mask (H, W), as an array or a PIL image -> bool (1, H/8, W/8, 1),
+    True where the image is regenerated.  The 8x downsample is JAX's
+    ``jax.image.resize(method="bicubic")``: Keys cubic (a = -0.5),
+    antialiased; every nonzero value counts, the negative ringing outside a
+    hard edge included.  An (H, W) array at ``img_size`` needs no PIL."""
+    if isinstance(mask, np.ndarray) and mask.shape == tuple(img_size):
+        arr = mask.astype(np.uint8)
+    else:
+        arr = _pil_image(mask, "L", img_size)
+    x = torch.from_numpy(arr.astype(np.float32))[None, None]
+    small = F.interpolate(x, size=(img_size[0] // 8, img_size[1] // 8), mode="bicubic",
+                          align_corners=False, antialias=True)
+    small = scale_img(small, (0.0, 255.0), (0.0, 1.0))
+    return small[0, 0, :, :, None][None].numpy().astype(bool)
+
+
+def _sampler_step(table, lat, t, pt, eps, noise, sampler: str, prediction_type: str,
+                  eta: float) -> torch.Tensor:
+    if sampler == "ddpm":
+        return S.ddpm_step(table, lat, t, pt, eps, noise)
+    return S.ddim_step(table, lat, t, pt, eps, prediction_type=prediction_type, eta=eta,
+                       noise=noise if eta > 0 else None)
+
+
+class _Draws:
+    """The noise of one call: each draw is the array passed in (checked for
+    its shape) or the next draw of one seeded generator on the device."""
+
+    def __init__(self, device, dtype, seed: int):
+        self.device, self.dtype = device, dtype
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, name: str, given, shape) -> torch.Tensor:
+        if given is None:
+            return torch.randn(shape, generator=self.gen, device=self.device).to(self.dtype)
+        t = torch.tensor(np.asarray(given), device=self.device, dtype=self.dtype)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} {tuple(t.shape)}, expected {tuple(shape)}")
+        return t
 
 
 @dataclasses.dataclass
@@ -55,7 +152,7 @@ class StableDiffusion:
 
     unet: UNet
     text_encoder: CLIPTextModel
-    vae: VAEDecoder
+    vae: VAE
     impl: str = "auto"
     scheduler_config: Optional[dict] = None
 
@@ -74,7 +171,7 @@ class StableDiffusion:
 
         return cls(unet=build(UNet, unet_config, device=device, dtype=dtype),
                    text_encoder=build(CLIPTextModel, text_config, device=device, dtype=dtype),
-                   vae=build(VAEDecoder, vae_config, device=device, dtype=dtype), impl=impl,
+                   vae=build(VAE, vae_config, device=device, dtype=dtype), impl=impl,
                    scheduler_config=scheduler_config)
 
     @classmethod
@@ -90,12 +187,14 @@ class StableDiffusion:
                          device=device, dtype=dtype, impl=impl,
                          scheduler_config=scheduler_config_for(sd_version))
 
-    def make_schedule(self) -> S.DiffusionSchedule:
-        """The schedule of ``scheduler_config`` (JAX ``make_schedule``, linear)."""
+    def make_schedule(self, use_cosine_schedule: bool = False) -> S.DiffusionSchedule:
+        """The schedule of ``scheduler_config`` (JAX ``make_schedule``),
+        linear or cosine."""
         cfg = self.scheduler_config or {}
         return S.make_schedule(num_train_timesteps=cfg.get("num_train_timesteps", 1000),
                                beta_start=cfg.get("beta_start", 0.00085),
                                beta_end=cfg.get("beta_end", 0.012),
+                               use_cosine_schedule=use_cosine_schedule,
                                prediction_type=cfg.get("prediction_type", "epsilon"))
 
     @property
@@ -106,61 +205,172 @@ class StableDiffusion:
     def dtype(self) -> torch.dtype:
         return next(self.unet.parameters()).dtype
 
+    def _device(self) -> torch.device:
+        """The models' device; ``impl="cuda"`` refuses one that is not CUDA."""
+        dev = self.device
+        if self.impl == "cuda" and dev.type != "cuda":
+            raise ValueError(f"impl='cuda' needs the models on a CUDA device, they are on {dev}")
+        return dev
+
+    def _context(self, first_ids, second_ids=None) -> torch.Tensor:
+        """The text tower on [first; second] token ids (second None: first alone)."""
+        ids = [torch.as_tensor(np.asarray(i), dtype=torch.long, device=self.device)
+               for i in (first_ids, second_ids) if i is not None]
+        return self.text_encoder(torch.cat(ids, dim=0), impl=self.impl)
+
+    def _timesteps(self, sched, inference_steps: int, sampler: str, strength: Optional[float]):
+        """(ts, prev_ts): the sampler's sequence, strength-truncated when given."""
+        if sampler not in ("ddim", "ddpm"):
+            raise ValueError(f"sampler must be 'ddim' or 'ddpm', got {sampler!r}")
+        ts = S.inference_timesteps(sched, inference_steps, kind=sampler)
+        if strength is not None:
+            ts = S.apply_strength(ts, strength)
+        return ts, S.prev_timesteps(sched, ts, inference_steps)
+
+    def _denoise(self, latents, context, ts, prev_ts, table, *, cfg_scale: float, do_cfg: bool,
+                 order: str, sampler: str, prediction_type: str, eta: float, draws: _Draws,
+                 step_noise=None, blend: Optional[Callable] = None) -> torch.Tensor:
+        """The denoise loop: CFG UNet step, ``blend(latents, t, eps)`` (inpaint),
+        then the sampler's step; DDPM takes a fresh noise every step, DDIM
+        one only when eta > 0."""
+        needs_noise = sampler == "ddpm" or eta > 0
+        if step_noise is not None and needs_noise:
+            want = (len(ts), *latents.shape)
+            step_noise = draws("step_noise", step_noise, want)
+        for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
+            t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
+            pred = self.unet(model_in, t_in, context, impl=self.impl)
+            eps = cfg_combine(pred, cfg_scale, order) if do_cfg else pred
+            if blend is not None:
+                latents = blend(latents, t, eps)
+            noise = None
+            if needs_noise:
+                noise = (step_noise[i] if step_noise is not None
+                         else draws("step noise", None, latents.shape))
+            latents = _sampler_step(table, latents, t, pt, eps, noise, sampler, prediction_type,
+                                    eta)
+        return latents
+
     @torch.no_grad()
-    def generate(self, cond_ids, uncond_ids=None, *, img_size: Tuple[int, int] = (512, 512),
-                 do_cfg: bool = True, cfg_scale: float = 7.5, inference_steps: int = 50,
-                 seed: int = 0, initial_latents=None, output_dtype: str = "float32") -> np.ndarray:
-        """txt2img with DDIM (eta = 0), epsilon or v-prediction as the
-        scheduler config says.
+    def generate(self, cond_ids, uncond_ids=None, *, input_image=None, input_latents=None,
+                 img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
+                 cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
+                 sampler: str = "ddim", use_cosine_schedule: bool = False, eta: float = 0.0,
+                 seed: int = 0, initial_latents=None, encode_noise=None, latent_noise=None,
+                 step_noise=None, return_latents: bool = False,
+                 output_dtype: str = "float32") -> np.ndarray:
+        """txt2img, or img2img with ``input_image`` (an (H, W, 3) array or PIL
+        image, preprocessed to ``img_size`` and encoded) or ``input_latents``
+        (the unscaled latent of one image, or of each lane).
 
         cond_ids / uncond_ids: (B, 77) token ids (uncond needed with CFG).
-        initial_latents: (B, H/8, W/8, 4) starting noise; drawn from
-        ``torch.Generator().manual_seed(seed)`` on the device when None.
-        Returns (B, H, W, 3) images: float32 in [0, 1], or uint8 when
+        sampler: "ddim" (eta as given) or "ddpm"; ``use_cosine_schedule``
+        picks the cosine tables.  img2img runs the last ``int(steps *
+        strength)`` steps from the latent q-sampled at the first of them.
+        Injected draws: ``initial_latents`` (txt2img start), ``encode_noise``
+        (1, H/8, W/8, 4), ``latent_noise`` (B, H/8, W/8, 4; img2img's
+        q-sample), ``step_noise`` (steps run, B, H/8, W/8, 4); the others
+        are drawn from ``torch.Generator().manual_seed(seed)`` on the device.
+        Returns the latents (B, H/8, W/8, 4) f32 with ``return_latents``, else
+        (B, H, W, 3) images: float32 in [0, 1], or uint8 when
         ``output_dtype="uint8"`` (which raises FloatingPointError rather
         than cast a non-finite value).
         """
-        dev, dtype, impl = self.device, self.dtype, self.impl
-        if impl == "cuda" and dev.type != "cuda":
-            raise ValueError(f"impl='cuda' needs the models on a CUDA device, they are on {dev}")
+        dev, dtype, impl = self._device(), self.dtype, self.impl
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
-        cond = torch.as_tensor(np.asarray(cond_ids), dtype=torch.long, device=dev)
-        b = cond.shape[0]
-        if do_cfg:
-            if uncond_ids is None:
-                raise ValueError("classifier-free guidance needs uncond_ids")
-            uncond = torch.as_tensor(np.asarray(uncond_ids), dtype=torch.long, device=dev)
-            ids = torch.cat([uncond, cond], dim=0)
-        else:
-            ids = cond
-        context = self.text_encoder(ids, impl=impl)
-
+        if do_cfg and uncond_ids is None:
+            raise ValueError("classifier-free guidance needs uncond_ids")
+        context = self._context(uncond_ids, cond_ids) if do_cfg else self._context(cond_ids)
+        b = int(np.asarray(cond_ids).shape[0])
         h, w = img_size
         lat_shape = (b, h // 8, w // 8, 4)
-        if initial_latents is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            latents = torch.randn(lat_shape, generator=gen, device=dev).to(dtype)
-        else:
-            latents = torch.tensor(np.asarray(initial_latents), device=dev, dtype=dtype)
-            if tuple(latents.shape) != lat_shape:
-                raise ValueError(f"initial_latents {tuple(latents.shape)}, expected {lat_shape}")
-
-        sched = self.make_schedule()
-        ts = S.inference_timesteps(sched, inference_steps, kind="ddim")
-        prev_ts = ts - sched.num_train_timesteps // inference_steps
+        is_img2img = input_image is not None or input_latents is not None
+        sched = self.make_schedule(use_cosine_schedule)
+        ts, prev_ts = self._timesteps(sched, inference_steps, sampler,
+                                      strength if is_img2img else None)
         table = torch.as_tensor(sched.alphas_hat, device=dev)
-        for t, pt in zip(ts.tolist(), prev_ts.tolist()):
-            model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
-            t_in = torch.full((1,), t, dtype=torch.long, device=dev)
-            pred = self.unet(model_in, t_in, context, impl=impl)
-            eps = cfg_combine(pred, cfg_scale) if do_cfg else pred
-            latents = S.ddim_step(table, latents, t, pt, eps, prediction_type=sched.prediction_type)
+        draws = _Draws(dev, dtype, seed)
+        if is_img2img:
+            if input_latents is None:
+                img = torch.as_tensor(preprocess_image(input_image, img_size), device=dev,
+                                      dtype=dtype)
+                lat0 = self.vae.encode(img, noise=draws("encode_noise", encode_noise,
+                                                        (1, *lat_shape[1:])), impl=impl)[0]
+            else:
+                lat0 = torch.tensor(np.asarray(input_latents), device=dev, dtype=dtype)
+            noise = draws("latent_noise", latent_noise, lat_shape)
+            latents = S.forward_process(table, lat0, int(ts[0]), noise)
+        else:
+            latents = draws("initial_latents", initial_latents, lat_shape)
 
+        latents = self._denoise(latents, context, ts, prev_ts, table, cfg_scale=cfg_scale,
+                                do_cfg=do_cfg, order="uncond_first", sampler=sampler,
+                                prediction_type=sched.prediction_type, eta=eta, draws=draws,
+                                step_noise=step_noise)
+        if return_latents:
+            return latents.float().cpu().numpy()
         imgs = (self.vae.decode(latents, impl=impl).float() + 1.0) / 2.0
         if output_dtype == "uint8":
-            # a uint8 image cannot show a NaN, so refuse to hide one
-            if not bool(torch.isfinite(imgs).all()):
-                raise FloatingPointError("generate produced non-finite image values")
+            _refuse_non_finite(imgs, "generate")
             imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
         return imgs.cpu().numpy()
+
+    @torch.no_grad()
+    def inpaint(self, cond_ids, uncond_ids, input_image, mask, *,
+                img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
+                cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
+                sampler: str = "ddpm", use_cosine_schedule: bool = False, seed: int = 0,
+                encode_noise=None, latent_noise=None, mask_noise=None, step_noise=None,
+                return_latents: bool = False) -> np.ndarray:
+        """Mask-blended inpainting of one image: (H, W, 3) uint8.
+
+        cond_ids / uncond_ids: (1, 77) token ids; ``mask`` (H, W), nonzero
+        where the image is regenerated (see :func:`preprocess_mask`).  The
+        image is encoded with ``encode_noise`` and q-sampled at the first
+        strength-truncated step with ``latent_noise``; the masked region
+        starts from ``mask_noise``; the sampler runs at eta 0 (DDPM draws
+        ``step_noise``).  Each of the four draws is (1, H/8, W/8, 4) (the
+        step noise one such a step run) or drawn, in that order, from the
+        seeded generator.  The image is the decode scaled to [0, 255],
+        clamped and truncated to uint8, as JAX's; ``return_latents`` gives
+        the final latents instead.
+        """
+        dev, dtype, impl = self._device(), self.dtype, self.impl
+        if do_cfg and uncond_ids is None:
+            raise ValueError("classifier-free guidance needs uncond_ids")
+        context = self._context(cond_ids, uncond_ids) if do_cfg else self._context(cond_ids)
+        h, w = img_size
+        lat_shape = (1, h // 8, w // 8, 4)
+        sched = self.make_schedule(use_cosine_schedule)
+        ts, prev_ts = self._timesteps(sched, inference_steps, sampler, strength)
+        table = torch.as_tensor(sched.alphas_hat, device=dev)
+        img = torch.as_tensor(preprocess_image(input_image, img_size), device=dev, dtype=dtype)
+        regen = torch.as_tensor(preprocess_mask(mask, img_size), device=dev)
+        draws = _Draws(dev, dtype, seed)
+        encoded = self.vae.encode(img, noise=draws("encode_noise", encode_noise, lat_shape),
+                                  impl=impl)[0]
+        latents = S.forward_process(table, encoded, int(ts[0]),
+                                    draws("latent_noise", latent_noise, lat_shape))
+        latents = torch.where(regen, draws("mask_noise", mask_noise, lat_shape), latents)
+
+        def blend(lat, t, eps):  # outside the mask: the image re-noised with the predicted noise
+            return torch.where(regen, lat, S.forward_process(table, encoded, t, eps))
+
+        latents = self._denoise(latents, context, ts, prev_ts, table, cfg_scale=cfg_scale,
+                                do_cfg=do_cfg, order="cond_first", sampler=sampler,
+                                prediction_type=sched.prediction_type, eta=0.0, draws=draws,
+                                step_noise=step_noise, blend=blend)
+        if return_latents:
+            return latents.float().cpu().numpy()
+        imgs = self.vae.decode(latents, impl=impl).float()
+        _refuse_non_finite(imgs, "inpaint")
+        out = scale_img(imgs.cpu().numpy(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
+        return out[0].astype(np.uint8)
+
+
+def _refuse_non_finite(imgs: torch.Tensor, what: str) -> None:
+    """A uint8 image cannot show a NaN, so refuse to hide one."""
+    if not bool(torch.isfinite(imgs).all()):
+        raise FloatingPointError(f"{what} produced non-finite image values")

@@ -10,14 +10,14 @@ stable_diffusion_tpu/training.py).
 * The optimizer is ``optim``'s optax-equivalent chain: MultiSteps(chain(
   clip_by_global_norm, adamw)).  The reported ``grad_norm`` is that of the
   raw micro-step gradient; EMA and ``step`` advance on every call.
-* Cached frozen encoders: the batch carries ``latent_mean``/``latent_std``
-  (+ ``vae_noise``) instead of images, and ``text_emb`` instead of token
-  ids while the text encoder is frozen.  The VAE encoder is not ported yet,
-  so the ``images`` branch and :func:`precompute_latent_moments` raise.
+* Frozen encoders, cached or not: the batch carries ``latent_mean``/
+  ``latent_std`` (from :func:`precompute_latent_moments`) or ``images``
+  (encoded by the frozen VAE), each with ``vae_noise``; and ``text_emb``
+  or token ids while the text encoder is frozen.
 
 State: ``{"lora": {"unet"[, "text_encoder"]}, "opt_state", "ema", "step"}``
 with ``step`` a Python int.  ``base`` is ``{"unet": UNet, "text_encoder":
-CLIPTextModel}``.
+CLIPTextModel[, "vae": VAE]}`` (the VAE for batches of images).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from stable_diffusion_tpu_torch import optim
@@ -33,10 +34,6 @@ from stable_diffusion_tpu_torch.models import lora as lora_m
 from stable_diffusion_tpu_torch.schedulers import schedule as S
 from stable_diffusion_tpu_torch.utils.tree import (global_norm, tree_leaves, tree_map,
                                                    tree_unflatten)
-
-_VAE_ENCODER = ("the VAE encoder is not ported yet (ROADMAP queue 1 item 11): pass cached "
-                "'latent_mean'/'latent_std' instead of images")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -95,7 +92,8 @@ def _frozen(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: TrainConfig,
                     prediction_type: str = "epsilon", impl: str = "auto") -> torch.Tensor:
     """batch: "t" (2B,), "noise" (2B,h,w,4), "vae_noise", and "latent_mean"/
-    "latent_std" (2B,h,w,4); "text_emb" (2B,77,d) or "input_ids" (2B,77)."""
+    "latent_std" (2B,h,w,4) or "images" (2B,8h,8w,3) in [-1, 1];
+    "text_emb" (2B,77,d) or "input_ids" (2B,77)."""
     unet, text_encoder = base["unet"], base.get("text_encoder")
     if "text_encoder" in lora:
         params = lora_m.merge_lora(_frozen(text_encoder), lora["text_encoder"])
@@ -107,9 +105,11 @@ def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: T
         with torch.no_grad():
             text_emb = text_encoder(batch["input_ids"], impl=impl)
 
-    if "latent_mean" not in batch:
-        raise NotImplementedError(_VAE_ENCODER)
-    latents = (batch["latent_mean"] + batch["latent_std"] * batch["vae_noise"]).detach()
+    if "latent_mean" in batch:
+        latents = (batch["latent_mean"] + batch["latent_std"] * batch["vae_noise"]).detach()
+    else:  # explicit noise: the unscaled latent, as JAX's training path
+        with torch.no_grad():
+            latents = base["vae"].encode(batch["images"], noise=batch["vae_noise"], impl=impl)[0]
 
     x_t = S.forward_process(alphas_hat, latents, batch["t"], batch["noise"])
     params = lora_m.merge_lora(_frozen(unet), lora["unet"])
@@ -195,8 +195,25 @@ def sample_batch_noise(generator: torch.Generator, batch_images, latent_factor: 
                                     num_train_timesteps, **kw)
 
 
-def precompute_latent_moments(*args, **kwargs):
-    raise NotImplementedError(_VAE_ENCODER)
+@torch.no_grad()
+def precompute_latent_moments(vae, images, *, impl: str = "auto", micro_batch: int = 8):
+    """The frozen VAE encoder run once over ``images`` (an (N,H,W,3) array
+    in [-1, 1], or any indexable sequence of (H,W,3) images, streamed
+    ``micro_batch`` at a time): host numpy (mean, std), each (N,h,w,4).
+    The last micro-batch is padded with its last image to the fixed shape."""
+    p = next(vae.parameters())
+    n = len(images)
+    mb = min(micro_batch, n)
+    means, stds = [], []
+    for start in range(0, n, mb):
+        chunk = np.stack([np.asarray(images[i]) for i in range(start, min(start + mb, n))])
+        pad = mb - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate([chunk, chunk[-1:].repeat(pad, axis=0)])
+        m, s = vae.encode_moments(torch.tensor(chunk, device=p.device, dtype=p.dtype), impl=impl)
+        means.append(m.float().cpu().numpy()[: mb - pad])
+        stds.append(s.float().cpu().numpy()[: mb - pad])
+    return np.concatenate(means), np.concatenate(stds)
 
 
 @torch.no_grad()

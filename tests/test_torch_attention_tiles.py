@@ -1,5 +1,5 @@
 """K3's tiling on the CPU: the planner (``ops/flash_attention.attention_plan``)
-at every K3 shape of the port's four paths, and plain-torch emulations of
+at every K3 shape of the port's paths, and plain-torch emulations of
 the ring, cross and wide bodies' schedules (csrc/attention.cu) held against
 the plain attention.
 
@@ -43,7 +43,7 @@ from stable_diffusion_tpu_torch.ops import flash_attention as fa
 SMS = 132  # an H100 SXM's SMs
 LOG2E = 1.4426950408889634
 
-# (b, sq, sk, h, d) of every K3 call on the four paths: the UNet's self- and
+# (b, sq, sk, h, d) of every K3 call on the five paths: the UNet's self- and
 # 77-token cross-attention at each attention level (latent side / 2**level,
 # heads x d = the level's width), the mid block's, and the VAE's single
 # d = 512 head at the latent side.
@@ -68,6 +68,8 @@ PATHS = {
     "w8a8": _unet(8, 64, SD15_LEVELS, (8, 160)) + _vae(4, 64),         # b4 requests
     "train": _unet(4, 64, SD15_LEVELS, (8, 160)),                      # b4 train step
     "sd21": _unet(2, 96, SD21_LEVELS, (20, 64)) + _vae(1, 96),         # 96^2 latents
+    # img2img b4: the encoder's mid block at b1, the CFG UNet at batch 8, the decoder at b4
+    "img2img_b4": _vae(1, 64) + _unet(8, 64, SD15_LEVELS, (8, 160)) + _vae(4, 64),
 }
 
 

@@ -1,5 +1,5 @@
 """K2's tiling on the CPU: the planner (``ops/conv.conv3x3_plan``) at every K2
-shape of the port's four paths, and a plain-torch emulation of the kernel's
+shape of the port's paths, and a plain-torch emulation of the kernel's
 schedule (csrc/conv3x3.cu) held against the plain conv.
 
 The emulation follows the kernel's addressing: for each split, each output
@@ -36,6 +36,17 @@ VAE_CONVS = [(0, 512, 512, True), (1, 512, 512, True), (1, 512, 512, False), (2,
              (3, 256, 256, False)]
 
 
+# (level, Cin, Cout) of every K2 conv in the VAE encoder (all with the
+# GN+SiLU prologue; the latent side multiplied by 2**level): its stride-2
+# downsamplers and conv_in / conv_out are plain convs.
+ENC_CONVS = [(3, 128, 128), (2, 128, 256), (2, 256, 256), (1, 256, 512), (1, 512, 512),
+             (0, 512, 512)]
+
+
+def _enc(b, side):
+    return [(b, side << lv, side << lv, ci, co) for lv, ci, co in ENC_CONVS]
+
+
 def _unet(b, side, dx=False):
     return [(b, side >> lv, side >> lv, *((co, ci) if dx else (ci, co))) for lv, ci, co, _ in UNET_CONVS]
 
@@ -50,6 +61,7 @@ PATHS = {
     "w8a8": _unet(8, 64) + _vae(4, 64),              # b4 requests: UNet batch 8, VAE batch 4
     "train_forward": _unet(4, 64),                   # b4 train step
     "train_dx": _unet(4, 64, dx=True),               # the input gradient: Cin and Cout swapped
+    "img2img_b4": _enc(1, 64) + _unet(8, 64) + _vae(4, 64),  # encoder b1, CFG UNet b8, decoder b4
 }
 
 

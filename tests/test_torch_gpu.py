@@ -1107,3 +1107,107 @@ def test_k10_k12_function_grads_cuda_vs_torch(gen, monkeypatch, case):
         assert torch.isfinite(g).all()
         rel = ((g.float() - wnt).abs().max() / wnt.abs().max()).item()
         assert rel <= 5e-2, (case, rel)
+
+
+# ---------------------------------------------------------------------------
+# The img2img path: the VAE encoder's new K1 / K2 shapes, K4 at the CFG
+# batch-8 UNet's largest M, and a tiny img2img and inpaint, kernels vs plain
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 65536, 128), (1, 16384, 256)])
+def test_k1_at_the_encoder_shapes(gen, shape):
+    """A stage's first GroupNorm at the previous stage's width: 256^2 x 128
+    and 128^2 x 256 (a 512^2 image), statistics and normalize."""
+    b, hw, c = shape
+    x = _rn(gen, b, hw, 1, c, scale=3.0) + 5.0
+    w, bias = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
+    ss = groupnorm.gn_scale_shift(x, w, bias, eps=1e-6, impl="cuda")
+    ref = groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), 32, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ss, ref, rtol=1e-4, atol=1e-4)
+    for silu in (True, False):
+        _check(groupnorm.group_norm_silu(x, w, bias, eps=1e-6, silu=silu, impl="cuda"),
+               groupnorm.group_norm_plain(x.float(), w.float(), bias.float(), 32, 1e-6, silu))
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 128, 256), (1, 128, 128, 256, 512)])
+def test_k2_at_the_encoder_shapes(gen, shape):
+    """The encoder's widening convs with the GN+SiLU prologue (K1's
+    statistics of the previous width), which no decoder or UNet path has."""
+    b, h, w, cin, cout = shape
+    x = _rn(gen, b, h, w, cin)
+    wt, bias = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5), _rn(gen, cout, scale=0.1)
+    gw, gb = 1 + _rn(gen, cin, scale=0.1), _rn(gen, cin, scale=0.1)
+    before = conv.K2.launches
+    got = conv.gn_silu_conv3x3(x, gw, gb, wt, bias, impl="cuda")
+    assert conv.K2.launches == before + 1
+    _check(got, conv.gn_silu_conv3x3_plain(x.float(), gw.float(), gb.float(), wt.float(),
+                                           bias.float()))
+
+
+def test_k4_at_the_cfg_batch8_unet(gen):
+    """(32768, 320): the first level of the UNet at batch 8 (img2img b4 with CFG)."""
+    m, c = 32768, 320
+    args = [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+            _rn(gen, 8 * c, c, scale=c ** -0.5), _rn(gen, 8 * c, scale=0.1),
+            _rn(gen, c, 4 * c, scale=(4 * c) ** -0.5), _rn(gen, c, scale=0.1), _rn(gen, m, c)]
+    _check(ffn.geglu_ffn(*args, impl="cuda"),
+           ffn.geglu_ffn_plain(*(t.float() for t in args)))
+
+
+@pytest.mark.parametrize("mode", ["img2img", "inpaint"])
+def test_tiny_img2img_and_inpaint_kernels_vs_plain(gen, mode):
+    """A tiny pipeline on the card (seeded random weights, 64^2, DDPM on the
+    cosine schedule, strength 0.5 of 4 steps, injected noise): the final
+    latents with the kernels in bf16 within 5e-2 relative L2 of the plain
+    path in f32 (TF32 off), and K1-K4 launched."""
+    import numpy as np
+
+    from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig
+    from stable_diffusion_tpu_torch.models.unet import UNetConfig
+    from stable_diffusion_tpu_torch.models.vae import VAEConfig
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils.weights import init_random_
+
+    pipe = StableDiffusion.build(
+        UNetConfig(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),
+                   cross_attention_dim=24, t_embed_dim=16),
+        CLIPTextConfig(hidden_size=24, intermediate_size=48, num_hidden_layers=2,
+                       num_attention_heads=4, max_position_embeddings=77, vocab_size=64),
+        VAEConfig(ch_mult=(1, 1, 1, 1), base_channels=32), device="cuda", impl="torch")
+    for i, m in enumerate((pipe.unet, pipe.text_encoder, pipe.vae)):
+        init_random_(m, i)
+    rng = np.random.default_rng(0)
+    b = 2 if mode == "img2img" else 1
+    lat = (b, 8, 8, 4)
+    draws = dict(encode_noise=rng.standard_normal((1, 8, 8, 4), dtype=np.float32),
+                 latent_noise=rng.standard_normal(lat, dtype=np.float32),
+                 step_noise=rng.standard_normal((2, *lat), dtype=np.float32))
+    ids, unc = np.arange(b * 77).reshape(b, 77) % 64, np.zeros((b, 77), np.int64)
+    image = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    kw = dict(img_size=(64, 64), inference_steps=4, strength=0.5, sampler="ddpm",
+              use_cosine_schedule=True, return_latents=True, **draws)
+    if mode == "img2img":
+        run = lambda: pipe.generate(ids, unc, input_image=image, **kw)  # noqa: E731
+    else:
+        mask = np.zeros((64, 64), np.uint8)
+        mask[8:40, 16:48] = 255
+        draws["mask_noise"] = rng.standard_normal(lat, dtype=np.float32)
+        run = lambda: pipe.inpaint(ids, unc, image, mask, mask_noise=draws["mask_noise"], **kw)  # noqa: E731
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for m in (pipe.unet, pipe.text_encoder, pipe.vae):
+        m.to(torch.bfloat16)
+    pipe.impl = "cuda"
+    counters = (groupnorm.K1, conv.K2, flash_attention.K3, ffn.K4)
+    before = [c.launches for c in counters]
+    got = run()
+    assert all(c.launches > n for c, n in zip(counters, before))
+    assert np.isfinite(got).all()
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert rel <= 5e-2, rel

@@ -1,5 +1,5 @@
 """K1's and K4's schedules on the CPU: the planners (``ops/groupnorm.gn_plan``,
-``ops/ffn.ffn_plan``) at every K1 and K4 shape of the port's four paths, and
+``ops/ffn.ffn_plan``) at every K1 and K4 shape of the port's paths, and
 plain-torch emulations of the kernels' schedules (csrc/groupnorm.cu,
 csrc/ffn.cu) held against the plain versions.
 
@@ -51,6 +51,12 @@ UNET_GN = [(0, 320), (0, 640), (0, 960), (1, 320), (1, 640), (1, 960), (1, 1280)
 VAE_GN = [(0, 512), (1, 512), (2, 512), (2, 256), (3, 256), (3, 128)]
 
 
+# (level, Cin) of every GroupNorm that reaches K1 in the VAE encoder: the
+# resblocks' GN+SiLU before K2 (a stage's first norm at the previous
+# stage's width), the mid attention's GN and conv_norm_out.
+ENC_GN = [(3, 128), (2, 128), (2, 256), (1, 256), (1, 512), (0, 512)]
+
+
 def _gn_shapes(b_unet, side, b_vae):
     return ([(b_unet, (side >> lv) ** 2, c) for lv, c in UNET_GN]
             + [(b_vae, (side << lv) ** 2, c) for lv, c in VAE_GN])
@@ -61,6 +67,8 @@ GN_PATHS = {
     "sd21": _gn_shapes(2, 96, 1),         # 96^2 latents, VAE to 768^2
     "w8a8": _gn_shapes(8, 64, 4),         # b4 requests: UNet batch 8, VAE batch 4
     "train": [(4, (64 >> lv) ** 2, c) for lv, c in UNET_GN],  # b4 train step
+    # img2img b4: the encoder at b1, the CFG UNet at batch 8, the decoder at b4
+    "img2img_b4": [(1, (64 << lv) ** 2, c) for lv, c in ENC_GN] + _gn_shapes(8, 64, 4),
 }
 
 # (M, C) of every K4 call: the transformer blocks at each attention level
@@ -70,7 +78,7 @@ def _ffn_shapes(b, side):
 
 
 FFN_PATHS = {"serve_sd15": _ffn_shapes(2, 64), "sd21": _ffn_shapes(2, 96),
-             "train": _ffn_shapes(4, 64)}
+             "train": _ffn_shapes(4, 64), "img2img_b4": _ffn_shapes(8, 64)}
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +251,39 @@ def test_port_imports_neither_triton_nor_jax():
                      else [])
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+def _imported(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and not node.level:
+        return [node.module or ""]
+    return []
+
+
+def _outside_functions(node):
+    """The nodes under ``node`` that no function body holds (what runs when
+    the module is imported)."""
+    for child in ast.iter_child_nodes(node):
+        if not isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            yield child
+            yield from _outside_functions(child)
+
+
+def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
+    """PIL is imported inside a function of the port only (the card's
+    machine may lack it; images at ``img_size`` need none), never at a
+    module's import; chip_smoke.py imports neither JAX nor the JAX package,
+    nor PIL at import."""
+    root = pathlib.Path(gn.__file__).resolve().parents[1]
+    smoke = root.parent / "chip_smoke.py"
+    for path in [*root.rglob("*.py"), smoke]:
+        for node in _outside_functions(ast.parse(path.read_text())):
+            for name in _imported(node):
+                assert name.split(".")[0] != "PIL", (path, name)
+    for node in ast.walk(ast.parse(smoke.read_text())):
+        for name in _imported(node):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "stable_diffusion_tpu"), name
 
 
 def test_every_c_entry_binds_its_parameter_count():

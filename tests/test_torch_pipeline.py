@@ -41,8 +41,7 @@ def _pipe(impl="torch"):
                                  device="cpu", impl=impl)
     pipe.unet.load_state_dict(from_jax_params(params["unet"]))
     pipe.text_encoder.load_state_dict(from_jax_params(params["text_encoder"]))
-    pipe.vae.load_state_dict(from_jax_params(
-        {k: params["vae"][k] for k in ("decoder", "post_quant_conv")}))
+    pipe.vae.load_state_dict(from_jax_params(params["vae"]), strict=True)
     return pipe
 
 

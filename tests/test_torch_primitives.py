@@ -127,3 +127,12 @@ def test_ddim_step(rng, pred, eta, t, pt):
     got = TS.ddim_step(_t(table), _t(x), t, pt, _t(mo), prediction_type=pred, eta=eta,
                        noise=_t(noise)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 3), (2, 2)])
+def test_upsample_nearest_2x_is_contiguous(hw):
+    """From a 1x1 (or 1-row) image too: K2 takes only contiguous NHWC."""
+    x = np.random.default_rng(hw[1]).standard_normal((2, *hw, 8)).astype(np.float32)
+    got = TL.upsample_nearest_2x(torch.from_numpy(x))
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JL.upsample_nearest_2x(x)))

@@ -51,8 +51,7 @@ def _port(params, text_act="gelu", scheduler_config=None):
     # the OpenCLIP checkpoint's form: the tower under "text_model"
     pipe.text_encoder.load_state_dict(from_jax_params({"text_model": params["text_encoder"]},
                                                       root="text_model"))
-    pipe.vae.load_state_dict(from_jax_params(
-        {k: params["vae"][k] for k in ("decoder", "post_quant_conv")}))
+    pipe.vae.load_state_dict(from_jax_params(params["vae"]), strict=True)
     return pipe
 
 

@@ -35,6 +35,7 @@ from stable_diffusion_tpu_torch import training as TT
 from stable_diffusion_tpu_torch.models import clip as tclip
 from stable_diffusion_tpu_torch.models import ema as tema
 from stable_diffusion_tpu_torch.models import unet as tunet
+from stable_diffusion_tpu_torch.models import vae as tvae
 from stable_diffusion_tpu_torch.schedulers import schedule as TS
 from stable_diffusion_tpu_torch.utils.tree import tree_leaves
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params, lora_from_jax, lora_to_jax
@@ -199,15 +200,76 @@ def test_a_lora_leaf_cut_from_the_loss_raises(tiny, monkeypatch):
                          train_cfg=TT.TrainConfig(rank=2, alpha=2.0))
 
 
-def test_sample_noise_and_the_unported_image_branch():
+def test_sample_noise_and_the_unported_image_branch(tiny, vae):
+    """The noise draws, and the image branch (ported since: the frozen VAE
+    encodes the images with the batch's noise, unscaled, as the cached
+    moments give the same latents)."""
     gen = torch.Generator().manual_seed(0)
     t, eps, vn = TT.sample_noise_for_latents(gen, (4, 8, 8, 4))
     assert t.shape == (4,) and t.dtype == torch.int64 and 0 <= int(t.min()) <= int(t.max()) < 1000
     assert eps.shape == vn.shape == (4, 8, 8, 4) and not torch.equal(eps, vn)
     t2, _, _ = TT.sample_batch_noise(torch.Generator().manual_seed(0), torch.zeros(4, 64, 64, 3))
     assert torch.equal(t, t2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.precompute_latent_moments(None, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.dreambooth_loss({"unet": {}}, {"unet": None}, {"images": None, "text_emb": None},
-                           alphas_hat=None, train_cfg=TT.TrainConfig())
+    _, tbase, _, _ = tiny
+    batch = _torch_batch(_batch(6, hw=4))
+    images = torch.from_numpy(_images(6, 4, 32))
+    mean, std = TT.precompute_latent_moments(vae[1], images.numpy(), impl="torch")
+    assert mean.shape == std.shape == (4, 4, 4, 4) and mean.dtype == np.float32
+    base = dict(tbase, vae=vae[1])
+    kw = dict(alphas_hat=torch.from_numpy(TS.make_schedule().alphas_hat),
+              train_cfg=TT.TrainConfig(rank=2, alpha=2.0), impl="torch")
+    lora = lora_from_jax(_lora(tiny[0], TT.TrainConfig(rank=2, alpha=2.0)))
+    cached = dict(batch, latent_mean=torch.from_numpy(mean), latent_std=torch.from_numpy(std))
+    del batch["latent_mean"], batch["latent_std"]
+    with torch.no_grad():
+        from_images = TT.dreambooth_loss(lora, base, dict(batch, images=images), **kw)
+        from_moments = TT.dreambooth_loss(lora, base, cached, **kw)
+    torch.testing.assert_close(from_images, from_moments, rtol=1e-6, atol=0)
+
+
+def _images(seed, n, hw):
+    return np.random.default_rng(seed).uniform(-1, 1, (n, hw, hw, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def vae():
+    params = jvae.init_vae(jax.random.key(7), VCFG)
+    model = tvae.VAE(tvae.VAEConfig(ch_mult=VCFG.ch_mult, base_channels=VCFG.base_channels))
+    model.load_state_dict(from_jax_params(params), strict=True)
+    return params, model.eval()
+
+
+def test_dreambooth_loss_images_branch_matches_jax(tiny, vae):
+    """The loss and its LoRA gradients with ``images`` (128^2, the frozen VAE
+    encoding them with ``vae_noise``) against JAX's."""
+    jbase, tbase, ucfg, tcfg = tiny
+    cfg = TT.TrainConfig(rank=2, alpha=2.0)
+    lora = _lora(jbase, cfg)
+    batch = _batch(8)
+    del batch["latent_mean"], batch["latent_std"]
+    batch["images"] = _images(8, 4, 128)
+    table = jnp.asarray(JS.make_schedule().alphas_hat)
+    want_loss, want_g = jax.jit(jax.value_and_grad(
+        lambda lo, bt: JT.dreambooth_loss(lo, dict(jbase, vae=vae[0]), bt, ucfg=ucfg, tcfg=tcfg,
+                                          vcfg=VCFG, alphas_hat=table, train_cfg=cfg,
+                                          impl="xla")))(lora, batch)
+    loss, grads = TT.loss_and_grad(lora_from_jax(lora), dict(tbase, vae=vae[1]),
+                                   _torch_batch(batch),
+                                   alphas_hat=torch.from_numpy(TS.make_schedule().alphas_hat),
+                                   train_cfg=cfg, impl="torch")
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    _grads_close(grads, want_g)
+
+
+@pytest.mark.parametrize("n,micro_batch", [(5, 2), (3, 8), (4, 4)])
+def test_precompute_latent_moments_matches_jax(vae, n, micro_batch):
+    """Streamed in micro-batches (the last one padded when n % micro_batch),
+    from an indexable sequence of images; within 1e-5 of JAX's."""
+    images = list(_images(n, n, 32))
+    want_m, want_s = JT.precompute_latent_moments(vae[0], images, VCFG, impl="xla",
+                                                  micro_batch=micro_batch)
+    got_m, got_s = TT.precompute_latent_moments(vae[1], images, impl="torch",
+                                                micro_batch=micro_batch)
+    assert got_m.shape == want_m.shape == (n, 4, 4, 4)
+    np.testing.assert_allclose(got_m, want_m, atol=1e-5)
+    np.testing.assert_allclose(got_s, want_s, atol=1e-5)
