@@ -1,7 +1,8 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the nine phases below
+    python3 chip_smoke.py                  # the ten phases below
     python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
+    python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -32,7 +33,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Nine phases, one line each (plus detail lines); any failure exits non-zero
+Ten phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -129,8 +130,27 @@ and the final line is printed only when every phase passed:
                  inpaint request (a rectangle mask), which must launch
                  K1-K4 and no other kernel; repeats request 0 for the same
                  uint8 image; times one 512^2 encode.
+ 10. cli      -- the user's entry, inference_torch.py, at full SD1.5 width:
+                 writes seeded f16 weights under build/cli as a diffusers
+                 directory and as one LDM .ckpt (tests/torch_checkpoints.py),
+                 a synthesized CLIP vocabulary and a rank-4 kohya file;
+                 loads both checkpoints in bf16 on the card (bit for bit the
+                 source cast to bf16; the load seconds); records the shapes
+                 K1-K4 get in one b1 no-CFG DDPM step, one b1 and one b4
+                 one-step pass (the UNet at batch 1 and 4) and checks and
+                 times each kernel there; holds a one-step b1 image against
+                 the plain f32 path; serves two requests of each CLI run
+                 (the defaults: DDPM 50, no CFG, b1; DDIM 50 with CFG 7.5;
+                 one-step b1; one-step b4), each once through
+                 inference_torch.main (its own load; img_0_*.jpg, where PIL
+                 is present) and twice, timed, through inference on the
+                 loaded model, then the defaults again with the kohya file
+                 (the merged weights held against W + delta in f32 within
+                 bf16's rounding bound); K1-K4 launched in every run, K5-K12
+                 and K3's general body never.
 
-Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds).
+Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds,
+and phase 10's checkpoints, removed when it ends).
 """
 
 from __future__ import annotations
@@ -1672,6 +1692,303 @@ def img2img_line(i2) -> str:
             + f" per pass; peak_mem {i2['peak_gib']:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the inference CLI (inference_torch.py) at full SD1.5 width
+# ---------------------------------------------------------------------------
+
+CLI_DIR = os.path.join(REPO, "build", "cli")
+CLI_PROMPT = "a photo of an astronaut riding a horse on the moon, highly detailed, trending on artstation"
+# (label, flags, lanes a request): the CLI's defaults, DDIM with CFG, one-step b1 and b4
+CLI_RUNS = (("ddpm 50, no CFG, b1", [], 1),
+            ("ddim 50, CFG 7.5, b1", ["--sampler", "ddim", "--do_cfg", "--cfg_scale", "7.5"], 1),
+            ("one-step b1", ["--one_step"], 1),
+            ("one-step b4", ["--one_step", "--batch_size", "4"], 4))
+# the kohya file's targets: linears and a 1x1 conv of the UNet, the text tower's linears
+CLI_LORA = {"unet": ["encoder.down.0.block.0.1.transformer_block.attn1.q_proj",
+                     "encoder.down.1.block.1.1.transformer_block.attn2.k_proj",
+                     "bottleneck.1.conv_input", "bottleneck.1.transformer_block.ffn.0.proj",
+                     "decoder.up.3.block.2.1.transformer_block.attn1.out_proj",
+                     "decoder.up.2.block.0.1.conv_output"],
+            "text_encoder": ["encoder.layers.0.self_attn.q_proj", "encoder.layers.11.mlp.fc1"]}
+# The merged bf16 weight against W + delta in f32, element by element: the
+# bf16 roundings of W (an f16 value), of the delta and of their sum, each
+# within u = 2^-8 (bf16's unit roundoff) of its value, so |merged - (W +
+# delta)| <= u (2 + u) (|W| + |delta|).
+BF16_U = 2.0 ** -8
+SD15_JSON = dict(
+    unet={"_class_name": "UNet2DConditionModel", "block_out_channels": [320, 640, 1280, 1280],
+          "attention_head_dim": 8, "cross_attention_dim": 768, "layers_per_block": 2,
+          "in_channels": 4, "out_channels": 4, "sample_size": 64},
+    text_encoder={"architectures": ["CLIPTextModel"], "hidden_size": 768, "intermediate_size": 3072,
+                  "num_hidden_layers": 12, "num_attention_heads": 12, "hidden_act": "quick_gelu",
+                  "vocab_size": 49408, "max_position_embeddings": 77},
+    vae={"_class_name": "AutoencoderKL", "block_out_channels": [128, 256, 512, 512],
+         "layers_per_block": 2, "norm_num_groups": 32, "latent_channels": 4})
+CLI_MODELS = ("unet", "text_encoder", "vae")
+
+
+def tests_module(name: str):
+    """tests/<name>.py loaded from its file (an installed package named
+    ``tests`` may shadow the repository's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tests", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_cli_checkpoints():
+    """Full-width SD1.5 from a seed (init_random_ in f16 on the card), written
+    under build/cli as a diffusers directory and as one LDM .ckpt, with a
+    synthesized CLIP vocabulary and a rank-4 kohya file.  Returns the f16
+    source tensors (host) by model."""
+    from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+    from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from stable_diffusion_tpu_torch.pipeline import scheduler_config_for
+    from stable_diffusion_tpu_torch.utils import safetensors_io
+    from stable_diffusion_tpu_torch.utils.weights import build
+
+    TC = tests_module("torch_checkpoints")
+    t0 = time.perf_counter()
+    pipe = build_pipeline(torch.float16, "cuda", seed=30)
+    src = {n: {k: v.cpu() for k, v in getattr(pipe, n).state_dict().items()} for n in CLI_MODELS}
+    del pipe
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    TC.write_diffusers_dir(os.path.join(CLI_DIR, "sd15"), src["unet"], src["text_encoder"], src["vae"],
+                           unet_config=SD15_JSON["unet"], text_config=SD15_JSON["text_encoder"],
+                           vae_config=SD15_JSON["vae"], scheduler_config=scheduler_config_for("1.5"))
+    t2 = time.perf_counter()
+    torch.save({"state_dict": TC.to_ldm(src["unet"], src["vae"], src["text_encoder"], version="1.5")},
+               os.path.join(CLI_DIR, "sd15.ckpt"))
+    t3 = time.perf_counter()
+    merges = TC.write_vocab(os.path.join(CLI_DIR, "tokenizer"))
+    modules = {"unet": build(UNet, UNetConfig.sd15(), device="meta"),
+               "text_encoder": build(CLIPTextModel, CLIPTextConfig.vit_l(), device="meta")}
+    safetensors_io.save_file(TC.kohya_state(modules, CLI_LORA, rank=4, alpha=4.0, seed=31),
+                             os.path.join(CLI_DIR, "lora.safetensors"))
+    n = sum(v.numel() for sd in src.values() for v in sd.values())
+    say(f"  wrote SD1.5 in f16 ({n / 1e9:.3f} B parameters, {2 * n / 2 ** 30:.2f} GiB): seeded "
+        f"weights {t1 - t0:.1f} s, diffusers directory {t2 - t1:.1f} s, LDM .ckpt (torch.save) "
+        f"{t3 - t2:.1f} s; tokenizer of {len(merges)} merges; kohya rank-4 file over "
+        f"{sum(map(len, CLI_LORA.values()))} targets")
+    return src
+
+
+def same_bits(pipe, src, label: str) -> bool:
+    """Every tensor of the loaded bf16 modules equals its f16 source cast to
+    bf16, bit for bit, and the key sets are the source's."""
+    bad, n = [], 0
+    for name in CLI_MODELS:
+        sd = getattr(pipe, name).state_dict()
+        if sorted(sd) != sorted(src[name]):
+            bad.append(f"{name}: key sets differ")
+            continue
+        for k, v in sd.items():
+            n += v.numel()
+            if v.dtype != torch.bfloat16 or not torch.equal(v, src[name][k].to(v.device).to(v.dtype)):
+                bad.append(f"{name}.{k}")
+    say(f"  {label}: {n / 1e9:.3f} B parameters on {pipe.device} in bf16, "
+        + ("bit for bit the source cast to bf16" if not bad else f"BAD: {len(bad)} differ, e.g. {bad[:3]}"))
+    return not bad
+
+
+def record_cli_shapes(model, counters):
+    """K1-K4's shapes in one b1 no-CFG DDPM step (+ decode), one b1 and one
+    b4 one-step pass: the UNet at batch 1 and 4."""
+    for c in counters.values():
+        c.record()
+    ids = model.tokenize([CLI_PROMPT])
+    model.generate(ids, None, do_cfg=False, img_size=(512, 512), inference_steps=1, sampler="ddpm",
+                   seed=97, output_dtype="uint8")
+    model.generate_in_one_step(ids, seed=97, output_dtype="uint8")
+    model.generate_in_one_step(ids, batch_size=4, seed=98, output_dtype="uint8")
+    torch.cuda.synchronize()
+    return {k: c.stop_recording() for k, c in counters.items()}
+
+
+def check_one_step(model, src):
+    """One one-step b1 image, bf16 kernels against the plain f32 path on the
+    same weights (the f16 source in f32) and latents, TF32 off: relative L2
+    of the decodes in [-1, 1]."""
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils import model_converter as mc
+
+    ref = StableDiffusion.for_version("1.5", device="cuda", dtype=torch.float32, impl="torch")
+    for name in CLI_MODELS:
+        mc.load_into(getattr(ref, name), src[name])
+    ids = model.tokenize([CLI_PROMPT])
+    lat = np.random.default_rng(61).standard_normal((1, 64, 64, 4), dtype=np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want = ref.generate_in_one_step(ids, initial_latents=lat) * 2 - 1
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del ref
+    torch.cuda.empty_cache()
+    got = model.generate_in_one_step(ids, initial_latents=lat) * 2 - 1
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    ok = rel <= GOLDEN_BF16_REL_L2 and bool(np.isfinite(got).all())
+    say(f"  one-step b1, bf16 kernels vs plain f32 on the same latents: rel_l2={rel:.3e} (tol "
+        f"{GOLDEN_BF16_REL_L2}) max_abs_err={float(np.abs(got - want).max()):.3e} image std "
+        f"{float(want.std()):.4f} {'ok' if ok else 'BAD'}")
+    return ok, rel
+
+
+def check_lora_merge(model, src, lora_path):
+    """The merged bf16 weights against W + delta in f32 (W the f16 source),
+    element by element in units of the rounding bound u (|W| + |delta|)
+    (at most 2 + u), beside the unmerged W's distance in the same units
+    (the delta the merge adds) and the largest error relative to
+    max|W + delta|."""
+    from stable_diffusion_tpu_torch.models.lora import lora_delta
+    from stable_diffusion_tpu_torch.utils import model_converter as mc
+
+    lora = mc.load_lora_kohya(lora_path)
+    worst, weakest, rel, ok = 0.0, float("inf"), 0.0, True
+    for target, entries in lora.items():
+        params = dict(getattr(model, target).named_parameters())
+        for path, entry in entries.items():
+            w = params[f"{path}.weight"]
+            base = src[target][f"{path}.weight"].to(w.device).float()
+            delta = lora_delta({k: v.to(w.device).float() for k, v in entry.items()}).reshape(base.shape)
+            ref = base + delta
+            unit = BF16_U * (base.abs() + delta.abs()) + 1e-30
+            err = ((w.float() - ref).abs() / unit).max().item()
+            unmerged = ((base - ref).abs() / unit).max().item()
+            rel = max(rel, (w.float() - ref).abs().max().item() / ref.abs().max().item())
+            worst, weakest = max(worst, err), min(weakest, unmerged)
+            ok &= err <= 2 + BF16_U < unmerged
+    say(f"  kohya merge, {sum(map(len, lora.values()))} targets: max |merged - (W + delta)| / "
+        f"(u (|W| + |delta|)) = {worst:.3f} (bound {2 + BF16_U:.4f}, u = 2^-8), the unmerged W's "
+        f">= {weakest:.1f}; max|merged - (W + delta)| / max|W + delta| = {rel:.3e} "
+        f"{'ok' if ok else 'BAD'}")
+    return ok, rel
+
+
+def _good_images(imgs, batch: int) -> bool:
+    return len(imgs) == batch and all(a.shape == (512, 512, 3) and a.dtype == np.uint8
+                                      and int(a.max()) > int(a.min()) for a in imgs)
+
+
+def cli_requests(model, argv, batch: int, counters, label: str, card: str, seed: int):
+    """One CLI run: ``inference_torch.main`` once (its own load, one request
+    of ``batch`` lanes, img_0_*.jpg written) where PIL is present, then two
+    timed requests through ``inference`` on the loaded ``model`` (one a
+    call, their own seeds; arrays only without PIL).  K1-K4 must launch
+    and no other kernel (nor K3's general body)."""
+    import importlib.util
+    import shutil
+
+    import inference_torch as cli
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    for c in counters.values():
+        c.reset()
+    ok, out = True, os.path.join(CLI_DIR, "out")
+    if have_pil:
+        shutil.rmtree(out, ignore_errors=True)
+        imgs = cli.main(argv + ["--n_samples", str(batch), "--seed", str(seed - 1)])
+        files = sorted(os.listdir(out))
+        ok &= _good_images(imgs, batch) and files == [f"img_0_{j}.jpg" for j in range(batch)]
+    secs = []
+    for r in range(SERVE_REQUESTS):
+        args = cli.parse_args(argv + ["--n_samples", str(batch), "--seed", str(seed + r)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = cli.inference(args, model, save=False)
+        secs.append(time.perf_counter() - t0)
+        ok &= _good_images(imgs, batch)
+    launches = {k: c.launches for k, c in counters.items()}
+    ok &= all(launches[k] > 0 for k in SERVING_KERNELS) and all(
+        launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS)
+    ok &= no_general_body(launches, f"CLI {label}")
+    say(f"  {card}: CLI {label}: s/request {[round(s, 3) for s in secs]} "
+        + (f"(main(): {files} written; " if have_pil else "(no PIL on this machine: load_model + "
+           "inference up to the arrays, no file written; ")
+        + f"launches {{{', '.join(f'{k}: {launches[k]}' for k in KERNELS)}}}) {'ok' if ok else 'BAD'}")
+    return ok, secs, launches
+
+
+def phase_cli(counters, card: str):
+    import shutil
+
+    import inference_torch as cli
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+
+    import importlib.util
+
+    say("  on this machine: " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("PIL", "safetensors", "transformers", "regex", "ftfy")))
+    src = write_cli_checkpoints()
+    argv = ["--model_path", os.path.join(CLI_DIR, "sd15"), "--tokenizer_dir",
+            os.path.join(CLI_DIR, "tokenizer"), "--prompt", CLI_PROMPT, "--device", "cuda",
+            "--output_dir", os.path.join(CLI_DIR, "out")]
+    # (a) both checkpoints loaded on the card, bit for bit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = cli.load_model(cli.parse_args(argv))
+    torch.cuda.synchronize()
+    load_s = {"diffusers": time.perf_counter() - t0}
+    ok_bits = same_bits(model, src, f"diffusers directory loaded by the CLI in {load_s['diffusers']:.2f} s")
+    t0 = time.perf_counter()
+    ldm = StableDiffusion.from_pretrained(os.path.join(CLI_DIR, "sd15.ckpt"), sd_version="1.5",
+                                          dtype=torch.bfloat16, impl="cuda", device="cuda")
+    torch.cuda.synchronize()
+    load_s["ldm"] = time.perf_counter() - t0
+    ok_bits &= same_bits(ldm, src, f"LDM .ckpt loaded in {load_s['ldm']:.2f} s")
+    del ldm
+    torch.cuda.empty_cache()
+    # (b) K1-K4 at the batch-1 and batch-4 UNet's shapes
+    shapes = record_cli_shapes(model, counters)
+    say("  CLI pass shapes (b1 DDPM step + decode, one-step b1, one-step b4): " + ", ".join(
+        f"{k} {len(v)} shapes {sum(v.values())} calls" for k, v in shapes.items() if v))
+    ok_k = no_general_body(shapes, "CLI passes")
+    ok_c, summary = check_kernels(shapes, SERVING_KERNELS, "cli")
+    ok_k &= ok_c
+    # (c) the one-step image against the plain f32 path
+    ok_one, one_rel = check_one_step(model, src)
+    # (d) the CLI's runs
+    ok_r, secs, total = True, {}, {k: 0 for k in counters}
+    for i, (label, extra, batch) in enumerate(CLI_RUNS):
+        good, secs[label], launches = cli_requests(model, argv + extra, batch, counters, label, card,
+                                                   seed=5000 + 10 * i)
+        ok_r &= good
+        total = {k: total[k] + launches[k] for k in total}
+    del model
+    torch.cuda.empty_cache()
+    # (e) the kohya LoRA merged at load, then the defaults once more
+    lora_argv = argv + ["--lora_ckpt", os.path.join(CLI_DIR, "lora.safetensors")]
+    t0 = time.perf_counter()
+    model = cli.load_model(cli.parse_args(lora_argv))
+    torch.cuda.synchronize()
+    load_s["diffusers + kohya"] = time.perf_counter() - t0
+    ok_lora, lora_err = check_lora_merge(model, src, os.path.join(CLI_DIR, "lora.safetensors"))
+    good, secs["ddpm 50, no CFG, b1, kohya LoRA"], launches = cli_requests(
+        model, lora_argv, 1, counters, "ddpm 50, no CFG, b1, kohya LoRA", card, seed=5100)
+    ok_r &= good
+    total = {k: total[k] + launches[k] for k in total}
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    say(f"  {card}: load s {', '.join(f'{k} {v:.2f}' for k, v in load_s.items())}")
+    ok = ok_bits and ok_k and ok_one and ok_r and ok_lora
+    return ok, dict(summary=summary, launches=total, secs=secs, load_s=load_s, one_rel=one_rel,
+                    lora_err=lora_err)
+
+
+def cli_line(cl) -> str:
+    return ("SD1.5 512^2 through inference_torch: load s "
+            + ", ".join(f"{k} {v:.2f}" for k, v in cl["load_s"].items()) + "; s/request "
+            + "; ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in cl["secs"].items())
+            + f"; one-step rel_l2={cl['one_rel']:.3e}; kohya merge max rel={cl['lora_err']:.3e}; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, bound {v['bound_ms']:.2f}" for k, v in cl["summary"].items())
+            + " per pass set")
+
+
 def _kernel_group(name: str) -> str:
     if name in ("partial_stats", "finalize", "apply"):  # an older checkout's Triton K1 (--root)
         return "K1"
@@ -2511,6 +2828,10 @@ def main() -> int:
         ok9, i2 = phase_img2img(counters, card)
         say(f"phase 9 img2img: {'ok' if ok9 else 'FAIL'}, " + img2img_line(i2))
         return 0 if ok9 else 1
+    if "--cli" in sys.argv[1:]:
+        ok10, cl = phase_cli(counters, card)
+        say(f"phase 10 cli: {'ok' if ok10 else 'FAIL'}, " + cli_line(cl))
+        return 0 if ok10 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -2607,6 +2928,12 @@ def main() -> int:
     if not ok9:
         return 1
 
+    # 10. the inference CLI at full SD1.5 width: loading, tokenizer, one-step, kohya LoRA
+    ok10, cl = phase_cli(counters, card)
+    say(f"phase 10 cli: {'ok' if ok10 else 'FAIL'}, " + cli_line(cl))
+    if not ok10:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -2617,7 +2944,10 @@ def main() -> int:
     # replaces), with K1-K4's SD2.1 figures (switches off) under sd21_* and
     # their img2img b4 figures (one pass: text encode, the encoder at b1, one
     # CFG UNet step at batch 8, the decoder at b4; launches over phase 9's
-    # two img2img requests and its inpaint request) under img2img_*.
+    # two img2img requests and its inpaint request) under img2img_*, and
+    # their CLI figures (one pass set: a b1 no-CFG DDPM step and decode, a
+    # b1 and a b4 one-step pass; launches over phase 10's CLI runs) under
+    # cli_*.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -2642,13 +2972,15 @@ def main() -> int:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
             row["bf16_call"] = KERNELS[k]["bf16"]
-        if k == "K3":  # launches by body: phase 5's, 7's, 6's, 8's (switches off) and 9's
+        if k == "K3":  # launches by body: phase 5's, 7's, 6's, 8's (switches off), 9's and 10's
             for tag, m in (("", launches), ("train_", train["launches"]), ("w8a8_", w8["launches"]),
-                           ("sd21_", sd["launches_off"]), ("img2img_", i2["launches"])):
+                           ("sd21_", sd["launches_off"]), ("img2img_", i2["launches"]),
+                           ("cli_", cl["launches"])):
                 row[f"{tag}bodies"] = {b: m[f"K3:{b}"] for b in K3_BODY_NAMES}
         for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"]),
                                ("sd21", sd["summary"], sd["launches_off"]),
-                               ("img2img", i2["summary"], i2["launches"])):
+                               ("img2img", i2["summary"], i2["launches"]),
+                               ("cli", cl["summary"], cl["launches"])):
             if serving and k in other:
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],

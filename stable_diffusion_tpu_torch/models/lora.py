@@ -71,6 +71,22 @@ def lora_delta(entry: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.einsum("orhw,rihw->oihw", a, b) * scale
 
 
+@torch.no_grad()
+def merge_lora_(model: nn.Module, lora: Mapping[str, Mapping[str, torch.Tensor]]) -> nn.Module:
+    """Fold each entry's delta into ``model``'s weights in place (a LoRA
+    merged at load, for inference): weight + delta, the delta taken in at
+    least f32 on the weight's device and cast to the weight's dtype.  A
+    rank-2 entry on a 1x1 conv (a kohya file's linear proj_in / proj_out of
+    SD2.1) takes the conv weight's shape."""
+    params = dict(model.named_parameters())
+    for path, entry in lora.items():
+        w = params[f"{path}.weight"]
+        e = {k: v.to(device=w.device, dtype=torch.promote_types(v.dtype, torch.float32))
+             for k, v in entry.items()}
+        w.copy_(w + lora_delta(e).reshape(w.shape).to(w.dtype))
+    return model
+
+
 def merge_lora(params: Mapping[str, torch.Tensor], lora: Mapping[str, Mapping[str, torch.Tensor]],
                *, enabled: bool = True) -> Dict[str, torch.Tensor]:
     """``params`` (``dict(model.named_parameters())``) with each target's

@@ -37,6 +37,30 @@ class VAEConfig:
     ch_mult: tuple = (1, 2, 4, 4)
     norm_eps: float = 1e-6
 
+    @classmethod
+    def from_dict(cls, data: dict) -> "VAEConfig":
+        """A diffusers ``vae/config.json``: ``block_out_channels`` sets
+        ``base_channels`` / ``ch_mult``; what the fixed topology (2 encoder
+        and 3 decoder resnets a stage, GroupNorm(32)) cannot build raises."""
+        kw = dict(in_channels=data.get("in_channels", 3), out_channels=data.get("out_channels", 3),
+                  latent_channels=data.get("latent_channels", 4))
+        boc = data.get("block_out_channels")
+        if boc is not None:
+            base = int(boc[0])
+            if base <= 0 or any(int(c) % base for c in boc):
+                raise ValueError(f"unsupported block_out_channels={boc}: stages must be integer "
+                                 f"multiples of the first ({base})")
+            kw["base_channels"] = base
+            kw["ch_mult"] = tuple(int(c) // base for c in boc)
+        lpb = int(data.get("layers_per_block", 2))
+        if lpb != 2:
+            raise ValueError(f"layers_per_block={lpb} unsupported: the VAE has 2 encoder / 3 "
+                             "decoder resnets a stage")
+        groups = int(data.get("norm_num_groups", 32))
+        if groups != 32:
+            raise ValueError(f"norm_num_groups={groups} unsupported: GroupNorm(32) throughout")
+        return cls(**kw)
+
 
 def _conv(cin, cout, k):
     return nn.Conv2d(cin, cout, k, padding=k // 2)

@@ -1,7 +1,9 @@
-"""txt2img, img2img and inpaint (port of stable_diffusion_tpu/pipeline.py
-``StableDiffusion.generate`` and ``inpaint``: CLIP text tower -> [VAE
-encode -> q-sample at the strength-truncated first step ->] DDIM or DDPM
-denoise loop with classifier-free guidance -> VAE decode).
+"""txt2img, img2img, inpaint and SwiftBrush one-step (port of
+stable_diffusion_tpu/pipeline.py ``StableDiffusion.from_pretrained``,
+``tokenize``, ``generate``, ``generate_in_one_step`` and ``inpaint``: CLIP
+text tower -> [VAE encode -> q-sample at the strength-truncated first step
+->] DDIM or DDPM denoise loop with classifier-free guidance, or one UNet
+pass at t = 999 -> VAE decode).
 
 Numerical contract, as in JAX: ``generate`` takes context = [uncond, cond]
 and eps = uncond + s * (cond - uncond); ``inpaint`` takes [cond, uncond]
@@ -18,8 +20,13 @@ Images come back NHWC, float in [0, 1] or uint8; the TPU's lane-packed
 The pipeline never moves work to the CPU: it runs on ``device``, and with
 ``impl="cuda"`` it refuses a device that is not CUDA.  Images and masks are
 numpy arrays (or PIL images); PIL is imported only where a resize or a PIL
-object needs it.  The tokenizer, checkpoint loading and the CLI are not
-ported yet; ``generate`` and ``inpaint`` take token ids.
+object needs it.  ``generate``, ``generate_in_one_step`` and ``inpaint``
+take token ids: :meth:`StableDiffusion.tokenize` makes them with the
+pipeline's tokenizer (``tokenizer.py``, or any object with
+``transformers``' ``batch_encode_plus``).  :meth:`StableDiffusion.from_pretrained`
+loads a diffusers directory or a single LDM file
+(``utils/model_converter.py``); the CLI is ``inference_torch.py`` at the
+repository's root.
 
 The pipeline carries its scheduler config, as JAX's does
 (``scheduler_config``, ``make_schedule``), and denoises with that config's
@@ -31,7 +38,9 @@ package's ``sd_version`` choice.  Without a config the schedule is SD1.5's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import json
+import os
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +50,11 @@ from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
 from stable_diffusion_tpu_torch.schedulers import schedule as S
+
+MAX_TEXT_LEN = 77
+# SwiftBrush's one step: t = 999 with alpha_T^2 = 0.0047 (JAX _one_step_jit)
+ONE_STEP_T = 999
+ONE_STEP_ALPHA2 = 0.0047
 
 
 def scheduler_config_for(sd_version: str) -> dict:
@@ -155,6 +169,7 @@ class StableDiffusion:
     vae: VAE
     impl: str = "auto"
     scheduler_config: Optional[dict] = None
+    tokenizer: Any = None
 
     @classmethod
     def build(cls, unet_config: UNetConfig, text_config: CLIPTextConfig,
@@ -186,6 +201,58 @@ class StableDiffusion:
                          CLIPTextConfig.vit_l() if v1 else CLIPTextConfig.vit_h(), VAEConfig(),
                          device=device, dtype=dtype, impl=impl,
                          scheduler_config=scheduler_config_for(sd_version))
+
+    @classmethod
+    def from_pretrained(cls, path: str, *, sd_version: str = "1.5", dtype=torch.bfloat16,
+                        tokenizer=None, impl: str = "auto", device="cuda") -> "StableDiffusion":
+        """The models of a diffusers directory (``unet/``, ``text_encoder/``,
+        ``vae/``, each a ``config.json`` and a safetensors file, and an
+        optional ``scheduler/scheduler_config.json``) or of a single
+        CompVis/LDM ``.ckpt`` / ``.safetensors`` file, whose configs come
+        from ``sd_version`` (:meth:`for_version`).  The modules are built on
+        ``device`` in ``dtype`` and the checkpoint's tensors copied into
+        them (strict: a missing or extra key raises).  A ``.ckpt`` is
+        unpickled, which runs code from the file: load only trusted files."""
+        from stable_diffusion_tpu_torch.utils import model_converter as mc
+
+        if os.path.isfile(path):
+            pipe = cls.for_version(sd_version, device=device, dtype=dtype, impl=impl)
+            states = mc.load_ldm_checkpoint(path)
+        else:
+            def config(sub, name="config.json"):
+                with open(os.path.join(path, sub, name)) as f:
+                    return json.load(f)
+
+            sched = os.path.join(path, "scheduler", "scheduler_config.json")
+            pipe = cls.build(UNetConfig.from_dict(config("unet")),
+                             CLIPTextConfig.from_dict(config("text_encoder")),
+                             VAEConfig.from_dict(config("vae")), device=device, dtype=dtype,
+                             impl=impl,
+                             scheduler_config=config("scheduler", "scheduler_config.json")
+                             if os.path.exists(sched) else None)
+            states = {
+                "unet": mc.load_unet_diffusers(
+                    os.path.join(path, "unet", "diffusion_pytorch_model.safetensors")),
+                "text_encoder": mc.load_text_encoder_diffusers(
+                    os.path.join(path, "text_encoder", "model.safetensors")),
+                "vae": mc.load_vae_diffusers(
+                    os.path.join(path, "vae", "diffusion_pytorch_model.safetensors")),
+            }
+        for name in ("unet", "text_encoder", "vae"):
+            mc.load_into(getattr(pipe, name), states.pop(name))
+        pipe.tokenizer = tokenizer
+        return pipe
+
+    def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
+        """(B, 77) int64 token ids of ``prompts``: padded to 77 with the
+        tokenizer's pad token and truncated, as JAX's ``tokenize`` asks its
+        tokenizer."""
+        if self.tokenizer is None:
+            raise ValueError("this pipeline has no tokenizer: pass tokenizer= to from_pretrained "
+                             "(tokenizer.load_tokenizer(dir)) or pass token ids")
+        enc = self.tokenizer.batch_encode_plus(list(prompts), padding="max_length",
+                                               max_length=MAX_TEXT_LEN, truncation=True)
+        return np.asarray(enc.input_ids, dtype=np.int64)
 
     def make_schedule(self, use_cosine_schedule: bool = False) -> S.DiffusionSchedule:
         """The schedule of ``scheduler_config`` (JAX ``make_schedule``),
@@ -311,11 +378,41 @@ class StableDiffusion:
                                 step_noise=step_noise)
         if return_latents:
             return latents.float().cpu().numpy()
-        imgs = (self.vae.decode(latents, impl=impl).float() + 1.0) / 2.0
-        if output_dtype == "uint8":
-            _refuse_non_finite(imgs, "generate")
-            imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-        return imgs.cpu().numpy()
+        return _finish(self.vae.decode(latents, impl=impl), output_dtype, "generate")
+
+    @torch.no_grad()
+    def generate_in_one_step(self, cond_ids, *, img_size: Tuple[int, int] = (512, 512),
+                             batch_size: Optional[int] = None, initial_latents=None, seed: int = 0,
+                             output_dtype: str = "float32") -> np.ndarray:
+        """SwiftBrush one-step txt2img: one UNet pass at t = 999 on the
+        starting latents z, x0 = (z - sigma_T eps) / alpha_T with alpha_T^2
+        = 0.0047, then the decode; no guidance.
+
+        cond_ids: (R, 77) token ids.  ``batch_size`` None gives one lane a
+        row; a larger batch cycles the rows (row i % R on lane i); a batch
+        smaller than R raises ``ValueError``.  ``initial_latents`` (B, H/8,
+        W/8, 4) or drawn from ``torch.Generator().manual_seed(seed)`` on the
+        device.  Images as :meth:`generate` returns them."""
+        dev, dtype, impl = self._device(), self.dtype, self.impl
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
+        rows = int(np.asarray(cond_ids).shape[0])
+        b = rows if batch_size is None else int(batch_size)
+        if b < rows:
+            raise ValueError(f"batch_size={b} is smaller than the {rows} rows of cond_ids; "
+                             "pass at most batch_size rows or omit batch_size")
+        context = self._context(cond_ids)
+        if b != rows:  # ceil-tile then slice: lane i takes row i % rows
+            context = context.repeat(-(-b // rows), 1, 1)[:b]
+        h, w = img_size
+        latents = _Draws(dev, dtype, seed)("initial_latents", initial_latents,
+                                           (b, h // 8, w // 8, 4))
+        alpha_t, sigma_t = (torch.tensor(v, dtype=torch.float32).sqrt().to(device=dev, dtype=dtype)
+                            for v in (ONE_STEP_ALPHA2, 1.0 - ONE_STEP_ALPHA2))
+        t = torch.full((1,), ONE_STEP_T, dtype=torch.long, device=dev)
+        eps = self.unet(latents, t, context, impl=impl)
+        x0 = (latents - sigma_t * eps) / alpha_t
+        return _finish(self.vae.decode(x0, impl=impl), output_dtype, "generate_in_one_step")
 
     @torch.no_grad()
     def inpaint(self, cond_ids, uncond_ids, input_image, mask, *,
@@ -368,6 +465,16 @@ class StableDiffusion:
         _refuse_non_finite(imgs, "inpaint")
         out = scale_img(imgs.cpu().numpy(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         return out[0].astype(np.uint8)
+
+
+def _finish(decoded: torch.Tensor, output_dtype: str, what: str) -> np.ndarray:
+    """A decode in [-1, 1] -> host images in [0, 1] f32, or uint8 rounded
+    (refusing a non-finite value rather than casting it)."""
+    imgs = (decoded.float() + 1.0) / 2.0
+    if output_dtype == "uint8":
+        _refuse_non_finite(imgs, what)
+        imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return imgs.cpu().numpy()
 
 
 def _refuse_non_finite(imgs: torch.Tensor, what: str) -> None:

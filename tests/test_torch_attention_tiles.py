@@ -70,6 +70,9 @@ PATHS = {
     "sd21": _unet(2, 96, SD21_LEVELS, (20, 64)) + _vae(1, 96),         # 96^2 latents
     # img2img b4: the encoder's mid block at b1, the CFG UNet at batch 8, the decoder at b4
     "img2img_b4": _vae(1, 64) + _unet(8, 64, SD15_LEVELS, (8, 160)) + _vae(4, 64),
+    # the CLI's default (no CFG) and one-step at b1: UNet batch 1; one-step b4
+    "cli_b1": _unet(1, 64, SD15_LEVELS, (8, 160)) + _vae(1, 64),
+    "one_step_b4": _unet(4, 64, SD15_LEVELS, (8, 160)) + _vae(4, 64),
 }
 
 

@@ -62,6 +62,8 @@ PATHS = {
     "train_forward": _unet(4, 64),                   # b4 train step
     "train_dx": _unet(4, 64, dx=True),               # the input gradient: Cin and Cout swapped
     "img2img_b4": _enc(1, 64) + _unet(8, 64) + _vae(4, 64),  # encoder b1, CFG UNet b8, decoder b4
+    "cli_b1": _unet(1, 64) + _vae(1, 64),            # the CLI's default (no CFG) and one-step b1
+    "one_step_b4": _unet(4, 64) + _vae(4, 64),       # one-step --batch_size 4
 }
 
 

@@ -1211,3 +1211,160 @@ def test_tiny_img2img_and_inpaint_kernels_vs_plain(gen, mode):
     assert np.isfinite(got).all()
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
     assert rel <= 5e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# The inference CLI's path: K1-K4 at the UNet's batch 1 (no CFG, one-step)
+# and batch 4 (one-step b4), checkpoints loaded on the card, one-step
+# ---------------------------------------------------------------------------
+
+CLI_PATHS = ("cli_b1", "one_step_b4")
+
+
+def _tests_module(name):
+    """A module of tests/ loaded from its file (another ``tests`` package may
+    shadow this one): a CPU plan test's path shape lists, the checkpoint
+    writers; none imports JAX."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(os.path.dirname(__file__),
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", CLI_PATHS)
+def test_k1_k2_k4_at_the_cli_shapes(gen, path):
+    """Every K1 (statistics and normalize), K2 (GN+SiLU prologue) and K4
+    shape of the UNet at batch 1 / 4 and its decode (the CPU plan tests'
+    ``cli_b1`` / ``one_step_b4`` lists), each one launch, against plain f32."""
+    nf, ct = _tests_module("test_torch_norm_ffn_tiles"), _tests_module("test_torch_conv_tiles")
+    for b, hw, c in sorted(set(nf.GN_PATHS[path])):
+        x = _rn(gen, b, hw, 1, c, scale=3.0) + 5.0
+        w, bias = 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1)
+        torch.testing.assert_close(
+            groupnorm.gn_scale_shift(x, w, bias, eps=1e-6, impl="cuda"),
+            groupnorm.gn_scale_shift_plain(x.float(), w.float(), bias.float(), 32, 1e-6),
+            rtol=1e-4, atol=1e-4)
+        _check(groupnorm.group_norm_silu(x, w, bias, eps=1e-6, silu=True, impl="cuda"),
+               groupnorm.group_norm_plain(x.float(), w.float(), bias.float(), 32, 1e-6, True))
+        del x
+    for b, h, w, cin, cout in sorted(set(ct.PATHS[path])):
+        x = _rn(gen, b, h, w, cin)
+        wt, bias = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5), _rn(gen, cout, scale=0.1)
+        gw, gb = 1 + _rn(gen, cin, scale=0.1), _rn(gen, cin, scale=0.1)
+        before = conv.K2.launches
+        got = conv.gn_silu_conv3x3(x, gw, gb, wt, bias, impl="cuda")
+        assert conv.K2.launches == before + 1
+        _check(got, conv.gn_silu_conv3x3_plain(x.float(), gw.float(), gb.float(), wt.float(),
+                                               bias.float()))
+        del x, got
+    for m, c in nf.FFN_PATHS[path]:
+        args = [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+                _rn(gen, 8 * c, c, scale=c ** -0.5), _rn(gen, 8 * c, scale=0.1),
+                _rn(gen, c, 4 * c, scale=(4 * c) ** -0.5), _rn(gen, c, scale=0.1), _rn(gen, m, c)]
+        before = ffn.K4.launches
+        got = ffn.geglu_ffn(*args, impl="cuda")
+        assert ffn.K4.launches > before
+        _check(got, ffn.geglu_ffn_plain(*(t.float() for t in args)))
+
+
+@pytest.mark.parametrize("path", CLI_PATHS)
+def test_k3_at_the_cli_shapes(gen, path):
+    """Every K3 shape of the UNet at batch 1 / 4 and its decode: the body
+    the planner names, one launch of it, against plain f32 (self-attention
+    as the fused QKV's views)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, sq, sk, h, d in sorted(set(_tests_module("test_torch_attention_tiles").PATHS[path])):
+        body = flash_attention.attention_plan(b, sq, sk, h, d, sms).body
+        assert body != "general", (b, sq, sk, h, d)
+        if sq == sk:
+            q, k, v = _qkv(gen, b, sq, h, d)
+        else:
+            q, k, v = _rn(gen, b, sq, h, d), _rn(gen, b, sk, h, d), _rn(gen, b, sk, h, d)
+        before = _by_body()
+        got = flash_attention.attention(q, k, v, impl="cuda")
+        after = _by_body()
+        assert {x: after[x] - before[x] for x in after} == {x: int(x == body) for x in after}
+        _check(got, flash_attention.attention_plain(q.float(), k.float(), v.float()))
+        del q, k, v, got
+
+
+def _tiny_pipe(dtype=torch.float32, impl="torch", seed=0):
+    from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig
+    from stable_diffusion_tpu_torch.models.unet import UNetConfig
+    from stable_diffusion_tpu_torch.models.vae import VAEConfig
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils.weights import init_random_
+
+    pipe = StableDiffusion.build(
+        UNetConfig(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),
+                   cross_attention_dim=24, t_embed_dim=16),
+        CLIPTextConfig(hidden_size=24, intermediate_size=48, num_hidden_layers=2,
+                       num_attention_heads=4, max_position_embeddings=77, vocab_size=49408),
+        VAEConfig(ch_mult=(1, 1, 1, 1), base_channels=32), device="cuda", dtype=dtype, impl=impl)
+    for i, m in enumerate((pipe.unet, pipe.text_encoder, pipe.vae)):
+        init_random_(m, seed + i)
+    return pipe
+
+
+@pytest.mark.parametrize("kind", ["diffusers", "ldm"])
+def test_from_pretrained_on_the_card_bit_for_bit(gen, tmp_path, kind):
+    """A tiny f16 checkpoint (diffusers directory or LDM .ckpt) loaded on the
+    card in bf16: every tensor the source cast to bf16, bit for bit."""
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils import model_converter as mc
+
+    TC = _tests_module("torch_checkpoints")
+    src_pipe = _tiny_pipe(torch.float16)
+    src = {n: {k: v.cpu() for k, v in getattr(src_pipe, n).state_dict().items()}
+           for n in ("unet", "text_encoder", "vae")}
+    unet_json = dict(TC.TINY_UNET, block_out_channels=[32, 64, 64, 64], attention_head_dim=[2, 4, 4, 4])
+    if kind == "diffusers":
+        TC.write_diffusers_dir(str(tmp_path), src["unet"], src["text_encoder"], src["vae"],
+                               unet_config=unet_json, text_config=TC.TINY_TEXT,
+                               vae_config={"block_out_channels": [32, 32, 32, 32]})
+        pipe = StableDiffusion.from_pretrained(str(tmp_path), dtype=torch.bfloat16, device="cuda")
+    else:
+        path = str(tmp_path / "tiny.ckpt")
+        torch.save({"state_dict": TC.to_ldm(src["unet"], src["vae"], src["text_encoder"],
+                                            version="1.5")}, path)
+        pipe = _tiny_pipe(torch.bfloat16, "auto")
+        for name, sd in mc.load_ldm_checkpoint(path).items():
+            mc.load_into(getattr(pipe, name), sd)
+    for name in ("unet", "text_encoder", "vae"):
+        got = getattr(pipe, name).state_dict()
+        assert sorted(got) == sorted(src[name])
+        for k, v in got.items():
+            assert v.is_cuda and v.dtype == torch.bfloat16, k
+            assert torch.equal(v, src[name][k].cuda().to(torch.bfloat16)), k
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_tiny_one_step_kernels_vs_plain(gen, batch):
+    """A tiny pipeline's one-step image (64^2, seeded random weights, the
+    same latents; batch 3 cycles two rows of ids): the kernels in bf16
+    within 5e-2 relative L2 of the plain path in f32 (TF32 off), K1-K4
+    launched."""
+    import numpy as np
+
+    pipe = _tiny_pipe()
+    ids = np.arange(2 * 77).reshape(2, 77) % 49408 if batch > 1 else np.arange(77)[None]
+    lat = np.random.default_rng(0).standard_normal((batch, 8, 8, 4), dtype=np.float32)
+    run = lambda: pipe.generate_in_one_step(ids, img_size=(64, 64), batch_size=batch,  # noqa: E731
+                                            initial_latents=lat) * 2 - 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for m in (pipe.unet, pipe.text_encoder, pipe.vae):
+        m.to(torch.bfloat16)
+    pipe.impl = "cuda"
+    counters = (groupnorm.K1, conv.K2, flash_attention.K3, ffn.K4)
+    before = [c.launches for c in counters]
+    got = run()
+    assert all(c.launches > n for c, n in zip(counters, before))
+    assert got.shape == (batch, 64, 64, 3) and np.isfinite(got).all()
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert rel <= 5e-2, rel

@@ -69,6 +69,8 @@ GN_PATHS = {
     "train": [(4, (64 >> lv) ** 2, c) for lv, c in UNET_GN],  # b4 train step
     # img2img b4: the encoder at b1, the CFG UNet at batch 8, the decoder at b4
     "img2img_b4": [(1, (64 << lv) ** 2, c) for lv, c in ENC_GN] + _gn_shapes(8, 64, 4),
+    "cli_b1": _gn_shapes(1, 64, 1),       # the CLI's default (no CFG) and one-step b1
+    "one_step_b4": _gn_shapes(4, 64, 4),  # one-step --batch_size 4
 }
 
 # (M, C) of every K4 call: the transformer blocks at each attention level
@@ -78,7 +80,8 @@ def _ffn_shapes(b, side):
 
 
 FFN_PATHS = {"serve_sd15": _ffn_shapes(2, 64), "sd21": _ffn_shapes(2, 96),
-             "train": _ffn_shapes(4, 64), "img2img_b4": _ffn_shapes(8, 64)}
+             "train": _ffn_shapes(4, 64), "img2img_b4": _ffn_shapes(8, 64),
+             "cli_b1": _ffn_shapes(1, 64), "one_step_b4": _ffn_shapes(4, 64)}
 
 
 # ---------------------------------------------------------------------------
@@ -241,10 +244,16 @@ def test_emulated_gn_stats_far_from_zero_and_one_pass_fails():
 
 def test_port_imports_neither_triton_nor_jax():
     """K1 is CUDA C++ now: no module of the port imports Triton (nor JAX,
-    nor the JAX package), at any depth of the module."""
+    nor the JAX package), at any depth of the module; neither do the port's
+    CLI (inference_torch.py) and the checkpoints chip_smoke.py writes
+    (tests/torch_checkpoints.py).  None of them imports ``transformers``,
+    ``safetensors`` or ``regex``: the port carries its own reader and
+    tokenizer."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
-    banned = ("triton", "jax", "jaxlib", "stable_diffusion_tpu")
-    for path in root.rglob("*.py"):
+    banned = ("triton", "jax", "jaxlib", "stable_diffusion_tpu", "transformers", "safetensors",
+              "regex")
+    extra = [root.parent / "inference_torch.py", root.parent / "tests" / "torch_checkpoints.py"]
+    for path in [*root.rglob("*.py"), *extra]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
@@ -277,7 +286,7 @@ def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
     nor PIL at import."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     smoke = root.parent / "chip_smoke.py"
-    for path in [*root.rglob("*.py"), smoke]:
+    for path in [*root.rglob("*.py"), smoke, root.parent / "inference_torch.py"]:
         for node in _outside_functions(ast.parse(path.read_text())):
             for name in _imported(node):
                 assert name.split(".")[0] != "PIL", (path, name)
