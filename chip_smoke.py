@@ -1,8 +1,10 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the ten phases below
+    python3 chip_smoke.py                  # the twelve phases below
     python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
     python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
+    python3 chip_smoke.py --deepcache      # phases 1-2 and 11 (no contract line)
+    python3 chip_smoke.py --trainer        # phases 1-2 and 12 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -33,7 +35,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Ten phases, one line each (plus detail lines); any failure exits non-zero
+Twelve phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -148,9 +150,32 @@ and the final line is printed only when every phase passed:
                  (the merged weights held against W + delta in f32 within
                  bf16's rounding bound); K1-K4 launched in every run, K5-K12
                  and K3's general body never.
+ 11. deepcache -- generate(deepcache_interval=k) at full SD1.5 width: records
+                 one full step through forward_split (the shapes of forward)
+                 and one cached step at UNet batch 2 (bf16) and 8 (W8A8):
+                 the cached step launches only shapes of the full step, fewer
+                 K2/K3/K4 (K3/K7/K8/K9 at W8A8), K3's general body never;
+                 checks every kernel at the cached step's shapes; serves one
+                 512^2 b1 DDIM-50 CFG-7.5 request without the argument and
+                 one at each k = 1, 2, 3 (k = 1 must give the same uint8
+                 image; each k's launches counted from 0; the drift from
+                 k = 1 printed beside the TPU's p99), then W8A8 b4 at k = 1
+                 and k = 2 (K7/K8/K9 launched, K4 not).
+ 12. trainer  -- train_lora_dreambooth_torch.main at full SD1.5 width: the
+                 f16 diffusers directory of phase 10 and a DreamBooth
+                 directory of 4 instance and 4 prior 512^2 PNGs; 2 updates
+                 of b2+2 with accumulation 2, EMA, rank 128, on the cached
+                 encoders (launches of K1-K6 counted from 0, K7-K12 none),
+                 then uncached on the same seed (its shapes recorded, every
+                 kernel checked there; the end states compared), a resume
+                 from the epoch checkpoint, and the checkpoint served by
+                 inference_torch --lora_ckpt (one-step b1: the same image as
+                 a manual merge_lora_, the merged weights within bf16's
+                 rounding bound of W + delta); s/step, peak memory and the
+                 checkpoint's bytes.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds,
-and phase 10's checkpoints, removed when it ends).
+and phases 10-12's checkpoints, data and logs, removed when each ends).
 """
 
 from __future__ import annotations
@@ -1836,16 +1861,14 @@ def check_one_step(model, src):
     return ok, rel
 
 
-def check_lora_merge(model, src, lora_path):
+def check_lora_merge(model, src, lora, label: str = "kohya merge"):
     """The merged bf16 weights against W + delta in f32 (W the f16 source),
     element by element in units of the rounding bound u (|W| + |delta|)
     (at most 2 + u), beside the unmerged W's distance in the same units
     (the delta the merge adds) and the largest error relative to
-    max|W + delta|."""
+    max|W + delta|.  ``lora``: {"unet": {path: entry}[, "text_encoder": ...]}."""
     from stable_diffusion_tpu_torch.models.lora import lora_delta
-    from stable_diffusion_tpu_torch.utils import model_converter as mc
 
-    lora = mc.load_lora_kohya(lora_path)
     worst, weakest, rel, ok = 0.0, float("inf"), 0.0, True
     for target, entries in lora.items():
         params = dict(getattr(model, target).named_parameters())
@@ -1860,7 +1883,7 @@ def check_lora_merge(model, src, lora_path):
             rel = max(rel, (w.float() - ref).abs().max().item() / ref.abs().max().item())
             worst, weakest = max(worst, err), min(weakest, unmerged)
             ok &= err <= 2 + BF16_U < unmerged
-    say(f"  kohya merge, {sum(map(len, lora.values()))} targets: max |merged - (W + delta)| / "
+    say(f"  {label}, {sum(map(len, lora.values()))} targets: max |merged - (W + delta)| / "
         f"(u (|W| + |delta|)) = {worst:.3f} (bound {2 + BF16_U:.4f}, u = 2^-8), the unmerged W's "
         f">= {weakest:.1f}; max|merged - (W + delta)| / max|W + delta| = {rel:.3e} "
         f"{'ok' if ok else 'BAD'}")
@@ -1916,6 +1939,7 @@ def phase_cli(counters, card: str):
 
     import inference_torch as cli
     from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils import model_converter as mc
 
     import importlib.util
 
@@ -1965,7 +1989,8 @@ def phase_cli(counters, card: str):
     model = cli.load_model(cli.parse_args(lora_argv))
     torch.cuda.synchronize()
     load_s["diffusers + kohya"] = time.perf_counter() - t0
-    ok_lora, lora_err = check_lora_merge(model, src, os.path.join(CLI_DIR, "lora.safetensors"))
+    ok_lora, lora_err = check_lora_merge(
+        model, src, mc.load_lora_kohya(os.path.join(CLI_DIR, "lora.safetensors")))
     good, secs["ddpm 50, no CFG, b1, kohya LoRA"], launches = cli_requests(
         model, lora_argv, 1, counters, "ddpm 50, no CFG, b1, kohya LoRA", card, seed=5100)
     ok_r &= good
@@ -1987,6 +2012,342 @@ def cli_line(cl) -> str:
             + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
                         f"{v['ms']:.2f} ms, bound {v['bound_ms']:.2f}" for k, v in cl["summary"].items())
             + " per pass set")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: DeepCache (generate(deepcache_interval=k)), bf16 and W8A8
+# ---------------------------------------------------------------------------
+
+DEEPCACHE_KS = (1, 2, 3)
+DEEPCACHE_W8A8_K = 2    # the JAX package's deployed serving setup: b4 W8A8 + DeepCache k = 2
+# bench.py:440 noted this p99 of |image(k = 2) - image(k = 1)| on [0, 1] on
+# the TPU: printed beside the card's, not gated (another chip, other weights)
+DEEPCACHE_TPU_P99 = 0.064
+
+
+def record_split_step_shapes(unet, counters, batch: int, ctx_dim: int = 768):
+    """The launch shapes of one full step through the split UNet
+    (``forward_split`` at t = 500) and of one cached step on its deep feature
+    (``forward_cached`` at t = 480), at UNet batch ``batch`` on 64^2
+    latents; and whether the full step's shapes are ``forward``'s."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.randn((batch, 64, 64, 4), generator=gen, device="cuda").bfloat16()
+    cond = torch.randn((batch, 77, ctx_dim), generator=gen, device="cuda").bfloat16()
+
+    def recorded(fn):
+        for c in counters.values():
+            c.record()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.stop_recording() for k, c in counters.items()}
+
+    t = lambda v: torch.tensor([v], device="cuda")  # noqa: E731
+    _, plain = recorded(lambda: unet(x, t(500), cond, impl="cuda"))
+    (_, deep), full = recorded(lambda: unet.forward_split(x, t(500), cond, impl="cuda"))
+    _, cached = recorded(lambda: unet.forward_cached(x, t(480), cond, deep, impl="cuda"))
+    return full, cached, full == plain
+
+
+def cached_within_full(full, cached, kernels, fewer, label: str) -> bool:
+    """A cached step launches only shapes of the full step, fewer of each
+    kernel in ``fewer``, and K3's general body never."""
+    ok = True
+    for k in kernels:
+        extra = set(cached[k]) - set(full[k])
+        nf, nc = sum(full[k].values()), sum(cached[k].values())
+        good = not extra and (nc < nf if k in fewer else nc <= nf)
+        ok &= good
+        say(f"  {label} {k}: full step {len(full[k])} shapes {nf} launches, cached step "
+            f"{len(cached[k])} shapes {nc} launches, shapes outside the full step's "
+            f"{sorted(extra, key=str)} {'ok' if good else 'BAD'}")
+    return ok & no_general_body(full, f"{label} full step") & no_general_body(cached, f"{label} cached step")
+
+
+def deepcache_requests(pipe, counters, ks, batch: int, label: str, card: str):
+    """One 512^2 DDIM-50 CFG-7.5 request of ``batch`` lanes a k (the same ids
+    and seed; k None: the call without the argument), the launches of each
+    counted from 0: {k: (uint8 images, seconds, launches)}."""
+    out = {}
+    cond, uncond = request_ids(11, batch)
+    for k in ks:
+        for c in counters.values():
+            c.reset()
+        kw = {} if k is None else {"deepcache_interval": k}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
+                            inference_steps=SERVE_STEPS, seed=6000, output_dtype="uint8", **kw)
+        secs = time.perf_counter() - t0
+        out[k] = (img, secs, {n: c.launches for n, c in counters.items()})
+        good = img.shape == (batch, 512, 512, 3) and int(img.max()) > int(img.min())
+        say(f"  {card}: {label} b{batch} k={'none' if k is None else k}: {secs:.3f} s "
+            f"launches {{{', '.join(f'{n}: {v}' for n, v in out[k][2].items() if v)}}} "
+            f"{'ok' if good else 'BAD'}")
+        if not good:
+            raise RuntimeError(f"{label} k={k}: a degenerate image")
+    return out
+
+
+def drift(img, ref):
+    d = np.abs(img.astype(np.float32) - ref.astype(np.float32)) / 255.0
+    return float(d.mean()), float(np.percentile(d, 99))
+
+
+def phase_deepcache(counters, card: str):
+    pipe = build_pipeline(torch.bfloat16, "cuda", seed=40)
+    # (a) the split UNet's shapes at UNet batch 2 (CFG b1): a full and a cached step
+    full, cached, same = record_split_step_shapes(pipe.unet, counters, 2)
+    say(f"  deepcache full step through forward_split: the shapes of forward "
+        f"{'(the same)' if same else 'BAD: other shapes'}")
+    ok_s = same and cached_within_full(full, cached, SERVING_KERNELS, ("K2", "K3", "K4"),
+                                       "deepcache bf16")
+    ok_k, summary = check_kernels(cached, SERVING_KERNELS, "deepcache")
+    # (b) requests: the call without the argument, then k = 1, 2, 3
+    runs = deepcache_requests(pipe, counters, (None, *DEEPCACHE_KS), 1, "deepcache", card)
+    same1 = bool(np.array_equal(runs[1][0], runs[None][0]))
+    ok_r = same1
+    say(f"  deepcache k=1 vs the request without the argument: "
+        f"{'the same uint8 image' if same1 else 'BAD: another image'}")
+    for k in DEEPCACHE_KS[1:]:
+        mean, p99 = drift(runs[k][0], runs[1][0])
+        fewer = all(runs[k][2][n] < runs[1][2][n] for n in ("K2", "K3", "K4"))
+        ok_r &= fewer and runs[k][2]["K3:general"] == 0
+        say(f"  deepcache k={k} vs k=1: |d| on [0, 1] mean {mean:.4f} p99 {p99:.4f} (TPU record, "
+            f"bench.py:440: p99 {DEEPCACHE_TPU_P99}); K2/K3/K4 launches {runs[k][2]['K2']}/"
+            f"{runs[k][2]['K3']}/{runs[k][2]['K4']} vs {runs[1][2]['K2']}/{runs[1][2]['K3']}/"
+            f"{runs[1][2]['K4']} {'ok' if fewer else 'BAD'}")
+    # (c) W8A8 b4 (UNet batch 8) with k = 2: the cached step's shapes and a request
+    qpipe, _ = w8a8_pipeline(pipe)
+    qfull, qcached, qsame = record_split_step_shapes(qpipe.unet, counters, 2 * W8A8_BATCH)
+    ok_s &= qsame and cached_within_full(qfull, qcached, W8A8_PATH_KERNELS, ("K3", *W8A8_KERNELS),
+                                         "deepcache w8a8")
+    have = tuple(k for k in W8A8_PATH_KERNELS if qcached[k])
+    ok_q, qsummary = check_kernels(qcached, have, "deepcache-w8a8")
+    ok_k &= ok_q
+    qruns = deepcache_requests(qpipe, counters, (1, DEEPCACHE_W8A8_K), W8A8_BATCH,
+                               "deepcache w8a8", card)
+    qk = qruns[DEEPCACHE_W8A8_K][2]
+    ok_r &= (all(qk[k] > 0 for k in W8A8_KERNELS) and qk["K4"] == 0 and qk["K3:general"] == 0
+             and all(qk[k] < qruns[1][2][k] for k in W8A8_KERNELS))
+    mean, p99 = drift(qruns[DEEPCACHE_W8A8_K][0], qruns[1][0])
+    say(f"  deepcache w8a8 k={DEEPCACHE_W8A8_K} vs k=1: |d| on [0, 1] mean {mean:.4f} p99 {p99:.4f}")
+    del qpipe, pipe
+    torch.cuda.empty_cache()
+    secs = {f"b1 k={'none' if k is None else k}": v[1] for k, v in runs.items()}
+    secs.update({f"w8a8 b{W8A8_BATCH} k={k}": v[1] for k, v in qruns.items()})
+    ok = ok_s and ok_k and ok_r
+    return ok, dict(summary=summary, w8a8_summary=qsummary, secs=secs,
+                    launches={k: v[2] for k, v in runs.items()},
+                    w8a8_launches={k: v[2] for k, v in qruns.items()},
+                    p99={k: drift(runs[k][0], runs[1][0])[1] for k in DEEPCACHE_KS[1:]},
+                    w8a8_p99=p99)
+
+
+def deepcache_line(dc) -> str:
+    return ("512^2 DDIM 50 CFG 7.5: s/request " + ", ".join(f"{k} {v:.3f}" for k, v in dc["secs"].items())
+            + "; image p99 vs k=1 " + ", ".join(f"k={k} {v:.4f}" for k, v in dc["p99"].items())
+            + f", w8a8 k={DEEPCACHE_W8A8_K} {dc['w8a8_p99']:.4f}"
+            + "".join(f"; {label} cached step " + ", ".join(
+                f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel {v['ms']:.2f} ms, "
+                f"bound {v['bound_ms']:.2f}" for k, v in dc[key].items())
+                for label, key in (("bf16", "summary"), ("w8a8", "w8a8_summary"))))
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the trainer CLI (train_lora_dreambooth_torch.py) at full SD1.5 width
+# ---------------------------------------------------------------------------
+
+TRAINER_DIR = os.path.join(REPO, "build", "trainer")
+TRAINER_IMAGES = 4      # instance images, and as many prior images
+TRAINER_ARGS = ["--img_size", "512", "--batch_size", "2", "--gradient_accumulation_steps", "2",
+                "--max_train_steps", "2", "--use_ema", "--lr", "1e-4", "--seed", "0",
+                "--device", "cuda"]
+# Cached and uncached runs on one seed see the same batches and noise; they
+# differ by the bf16 rounding of the text tower run at batch 2 (the two
+# prompts, cached) or 4 (uncached).  The first step's loss comes before any
+# update: within bf16's rounding of a loss.  An Adam update is about
+# lr * sign(g), so an element whose gradient lies within that rounding of 0
+# may move 2 lr the other way: at most this share of the LoRA elements may
+# differ by more than lr / 2 (tests/test_train_cli.py's rule for the JAX CLI).
+TRAINER_LOSS_REL = 2e-2
+TRAINER_GROSS_SHARE = 0.02
+
+
+class timed_train_steps:
+    """``training.make_train_step`` wrapped inside the block: each step the
+    CLI takes is timed (synchronized) and its loss kept."""
+
+    def __enter__(self):
+        from stable_diffusion_tpu_torch import training as T
+
+        self.T, self.orig, self.secs, self.losses = T, T.make_train_step, [], []
+
+        def make(*a, **kw):
+            fn = self.orig(*a, **kw)
+
+            def step(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fn(state, batch)
+                self.losses.append(float(m["loss"]))
+                self.secs.append(time.perf_counter() - t0)
+                return state, m
+            return step
+
+        T.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.T.make_train_step = self.orig
+
+
+def write_dreambooth_data(root: str):
+    """4 instance and 4 prior 512^2 PNGs (request_image's fields), each set
+    with its label.txt."""
+    from PIL import Image
+
+    for d, label, seed in (("instance_data", "a photo of sks dog", 70),
+                           ("class_prior_data", "a photo of a dog", 80)):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        for i in range(TRAINER_IMAGES):
+            Image.fromarray(request_image(seed + i)).save(os.path.join(root, d, f"{i}.png"))
+        with open(os.path.join(root, d, "label.txt"), "w") as f:
+            f.write(label)
+
+
+def trainer_run(argv, counters, label: str, card: str, record: bool = False):
+    """``train_lora_dreambooth_torch.main(argv)`` with the launches counted
+    from 0 (and their shapes with ``record``): (state, steps, launches,
+    shapes, seconds, peak GiB)."""
+    import train_lora_dreambooth_torch as tcli
+
+    for c in counters.values():
+        c.reset()
+        if record:
+            c.record()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_train_steps() as steps:
+        state = tcli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: c.launches for k, c in counters.items()}
+    shapes = {k: c.stop_recording() for k, c in counters.items()} if record else None
+    say(f"  {card}: trainer {label}: {secs:.2f} s of main(), s/step "
+        f"{[round(x, 4) for x in steps.secs]}, losses {[round(x, 5) for x in steps.losses]}, peak_mem "
+        f"{peak:.2f} GiB, launches {{{', '.join(f'{k}: {launches[k]}' for k in KERNELS)}}}")
+    return state, steps, launches, shapes, secs, peak
+
+
+def compare_end_states(a, b, losses_a, losses_b, lr: float) -> bool:
+    """The cached and uncached runs' LoRA trees and EMAs (see TRAINER_GROSS_SHARE)."""
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+
+    total = gross = 0
+    worst = 0.0
+    trees = [{"lora": t["lora"], "ema": t["ema"]} for t in (a, b)]
+    for x, y in zip(*map(tree_leaves, trees)):
+        d = (x.float() - y.float()).abs()
+        total += d.numel()
+        gross += int((d > 0.5 * lr).sum())
+        worst = max(worst, d.max().item())
+    rel0 = abs(losses_a[0] - losses_b[0]) / max(abs(losses_b[0]), 1e-30)
+    ok = (a["step"] == b["step"] and rel0 <= TRAINER_LOSS_REL
+          and gross <= TRAINER_GROSS_SHARE * total)
+    say(f"  trainer cached vs uncached: steps {a['step']} / {b['step']}; first loss {losses_a[0]:.5f} "
+        f"vs {losses_b[0]:.5f} (rel {rel0:.2e}, tol {TRAINER_LOSS_REL}); {gross} of {total} LoRA + "
+        f"EMA elements differ by more than lr/2 ({gross / total:.2e}, tol {TRAINER_GROSS_SHARE}); "
+        f"max |d| {worst:.3e} {'ok' if ok else 'BAD'}")
+    return ok
+
+
+def phase_trainer(counters, card: str):
+    import shutil
+
+    import inference_torch as cli
+    from stable_diffusion_tpu_torch.models.lora import merge_lora_
+    from stable_diffusion_tpu_torch.utils.checkpoint import load_train_checkpoint
+
+    src = write_cli_checkpoints()
+    write_dreambooth_data(os.path.join(TRAINER_DIR, "data"))
+    base = ["--model_path", os.path.join(CLI_DIR, "sd15"), "--tokenizer_dir",
+            os.path.join(CLI_DIR, "tokenizer"), "--data_dir", os.path.join(TRAINER_DIR, "data"),
+            "--log_dir", os.path.join(TRAINER_DIR, "logs"), *TRAINER_ARGS]
+    lr = float(TRAINER_ARGS[TRAINER_ARGS.index("--lr") + 1])
+    run = lambda name, *extra: base + ["--checkpoint_dir", os.path.join(TRAINER_DIR, name), *extra]  # noqa: E731
+    # (a) the main path: the CLI on the cached encoders, every launch counted
+    cached, st_c, launches, _, secs_c, peak = trainer_run(run("cached"), counters, "cached", card)
+    ok_l = all(launches[k] > 0 for k in TRAIN_KERNELS) and all(
+        launches[k] == 0 for k in KERNELS if k not in TRAIN_KERNELS)
+    ok_l &= no_general_body(launches, "trainer cached run")
+    ckpt_path = os.path.join(TRAINER_DIR, "cached", "epoch-1.ckpt")
+    ckpt_bytes = os.path.getsize(ckpt_path)
+    # (b) uncached, the same seed: the shapes of the whole run, and the end states
+    plain, st_u, launches_u, shapes, secs_u, peak_u = trainer_run(
+        run("uncached", "--no-cache_latents"), counters, "uncached", card, record=True)
+    ok_l &= all(launches_u[k] > 0 for k in TRAIN_KERNELS)
+    ok_e = compare_end_states(cached, plain, st_c.losses, st_u.losses, lr)
+    say("  trainer uncached run shapes: " + ", ".join(
+        f"{k} {len(shapes[k])} shapes {sum(shapes[k].values())} calls" for k in TRAIN_KERNELS))
+    ok_k = no_general_body(shapes, "trainer uncached run")
+    ok_c, summary = check_kernels(shapes, TRAIN_KERNELS, "trainer")
+    ok_k &= ok_c
+    # (c) resume from the cached run's last checkpoint
+    resumed, _, _, _, secs_r, _ = trainer_run(run("cached", "--pretrained_path", ckpt_path),
+                                              counters, "resumed", card)
+    written = sorted(f for f in os.listdir(os.path.join(TRAINER_DIR, "cached")) if f.endswith(".ckpt"))
+    ok_resume = resumed["step"] == 2 * cached["step"] and written == [f"epoch-{i}.ckpt" for i in range(4)]
+    say(f"  trainer resume from epoch-1.ckpt: step {cached['step']} -> {resumed['step']}, "
+        f"checkpoints {written} {'ok' if ok_resume else 'BAD'}")
+    del cached, plain, resumed
+    torch.cuda.empty_cache()
+    # (d) the checkpoint served: inference_torch --lora_ckpt, one-step b1
+    argv = ["--model_path", os.path.join(CLI_DIR, "sd15"), "--tokenizer_dir",
+            os.path.join(CLI_DIR, "tokenizer"), "--prompt", "a photo of sks dog", "--device", "cuda",
+            "--one_step", "--n_samples", "1", "--seed", "7", "--output_dir", os.path.join(TRAINER_DIR, "out")]
+    lora_argv = argv + ["--lora_ckpt", ckpt_path]
+    for c in counters.values():
+        c.reset()
+    imgs_main = cli.main(lora_argv)
+    ok_srv = os.listdir(os.path.join(TRAINER_DIR, "out")) == ["img_0_0.jpg"]
+    lora = load_train_checkpoint(ckpt_path)["state"]["lora"]
+    model = cli.load_model(cli.parse_args(lora_argv))
+    ok_merge, merge_err = check_lora_merge(model, src, lora, "trained LoRA merged by --lora_ckpt")
+    del model
+    manual = cli.load_model(cli.parse_args(argv))
+    merge_lora_(manual.unet, lora["unet"])
+    imgs_manual = cli.inference(cli.parse_args(lora_argv), manual, save=False)
+    unmerged = cli.inference(cli.parse_args(argv), cli.load_model(cli.parse_args(argv)), save=False)
+    same = bool(np.array_equal(imgs_main[0], imgs_manual[0]))
+    moved = drift(imgs_main[0], unmerged[0])
+    ok_srv &= same and moved[1] > 0
+    say(f"  trainer checkpoint served (one-step b1): inference_torch --lora_ckpt vs a manual "
+        f"merge_lora_ of the same tree: {'the same uint8 image' if same else 'BAD: another image'}; "
+        f"vs the unmerged model |d| mean {moved[0]:.4f} p99 {moved[1]:.4f} "
+        f"{'ok' if ok_srv else 'BAD'}")
+    del manual
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    ok = ok_l and ok_e and ok_k and ok_resume and ok_srv and ok_merge
+    say(f"  {card}: trainer s/step (cached run) median {statistics.median(st_c.secs):.4f}, "
+        f"main() {secs_c:.2f} s cached, {secs_u:.2f} s uncached, {secs_r:.2f} s resumed; peak_mem "
+        f"{peak:.2f} GiB cached, {peak_u:.2f} uncached; checkpoint {ckpt_bytes} bytes")
+    return ok, dict(summary=summary, launches=launches, secs=st_c.secs, main_s=secs_c,
+                    peak_gib=peak, ckpt_bytes=ckpt_bytes, merge_err=merge_err)
+
+
+def trainer_line(tr) -> str:
+    return (f"SD1.5 LoRA r128 DreamBooth 512^2 b2+2 through train_lora_dreambooth_torch: s/step "
+            f"median {statistics.median(tr['secs']):.4f} ({len(tr['secs'])} steps), main() "
+            f"{tr['main_s']:.2f} s, peak_mem {tr['peak_gib']:.2f} GiB, checkpoint {tr['ckpt_bytes']} "
+            f"bytes, merge max rel={tr['merge_err']:.3e}; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, bound {v['bound_ms']:.2f}" for k, v in tr["summary"].items())
+            + " per run")
 
 
 def _kernel_group(name: str) -> str:
@@ -2832,6 +3193,14 @@ def main() -> int:
         ok10, cl = phase_cli(counters, card)
         say(f"phase 10 cli: {'ok' if ok10 else 'FAIL'}, " + cli_line(cl))
         return 0 if ok10 else 1
+    if "--deepcache" in sys.argv[1:]:
+        ok11, dc = phase_deepcache(counters, card)
+        say(f"phase 11 deepcache: {'ok' if ok11 else 'FAIL'}, " + deepcache_line(dc))
+        return 0 if ok11 else 1
+    if "--trainer" in sys.argv[1:]:
+        ok12, tr = phase_trainer(counters, card)
+        say(f"phase 12 trainer: {'ok' if ok12 else 'FAIL'}, " + trainer_line(tr))
+        return 0 if ok12 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -2934,6 +3303,18 @@ def main() -> int:
     if not ok10:
         return 1
 
+    # 11. DeepCache: the split UNet at k = 1, 2, 3 (bf16 b1) and k = 2 (W8A8 b4)
+    ok11, dc = phase_deepcache(counters, card)
+    say(f"phase 11 deepcache: {'ok' if ok11 else 'FAIL'}, " + deepcache_line(dc))
+    if not ok11:
+        return 1
+
+    # 12. the trainer CLI at full SD1.5 width: cached, uncached, resumed, served
+    ok12, tr = phase_trainer(counters, card)
+    say(f"phase 12 trainer: {'ok' if ok12 else 'FAIL'}, " + trainer_line(tr))
+    if not ok12:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -2947,7 +3328,12 @@ def main() -> int:
     # two img2img requests and its inpaint request) under img2img_*, and
     # their CLI figures (one pass set: a b1 no-CFG DDPM step and decode, a
     # b1 and a b4 one-step pass; launches over phase 10's CLI runs) under
-    # cli_*.
+    # cli_*; K1-K4's DeepCache figures (the cached step at UNet batch 2;
+    # launches over phase 11's b1 k = 2 request) under deepcache_*, K1-K3's
+    # and K7-K9's W8A8 ones (the cached step at UNet batch 8; launches over
+    # the b4 k = 2 request) under deepcache_w8a8_*, and K1-K6's trainer CLI
+    # figures (one uncached run's shapes; launches over the cached run) under
+    # trainer_*.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -2972,16 +3358,23 @@ def main() -> int:
                 row[extra] = s[extra]
         if KERNELS[k].get("bf16"):
             row["bf16_call"] = KERNELS[k]["bf16"]
-        if k == "K3":  # launches by body: phase 5's, 7's, 6's, 8's (switches off), 9's and 10's
+        if k == "K3":  # launches by body: phase 5's, 7's, 6's, 8's (switches off), 9's-12's
             for tag, m in (("", launches), ("train_", train["launches"]), ("w8a8_", w8["launches"]),
                            ("sd21_", sd["launches_off"]), ("img2img_", i2["launches"]),
-                           ("cli_", cl["launches"])):
+                           ("cli_", cl["launches"]), ("deepcache_", dc["launches"][2]),
+                           ("deepcache_w8a8_", dc["w8a8_launches"][DEEPCACHE_W8A8_K]),
+                           ("trainer_", tr["launches"])):
                 row[f"{tag}bodies"] = {b: m[f"K3:{b}"] for b in K3_BODY_NAMES}
+        dc2 = dc["launches"][2]
+        w8dc = dc["w8a8_launches"][DEEPCACHE_W8A8_K]
         for tag, other, n2 in (("train", tsum, train["launches"]), ("w8a8", wsum, w8["launches"]),
                                ("sd21", sd["summary"], sd["launches_off"]),
                                ("img2img", i2["summary"], i2["launches"]),
-                               ("cli", cl["summary"], cl["launches"])):
-            if serving and k in other:
+                               ("cli", cl["summary"], cl["launches"]),
+                               ("deepcache", dc["summary"], dc2),
+                               ("deepcache_w8a8", dc["w8a8_summary"], w8dc),
+                               ("trainer", tr["summary"], tr["launches"])):
+            if k in other and (serving or tag.startswith(("deepcache", "trainer"))):
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],
                             f"{tag}_max_rel_err": t["max_rel_err"], f"{tag}_ms": t["ms"],

@@ -11,8 +11,10 @@ port's pipeline.
 only.  ``--device cuda`` (the default) runs the hand-written kernels, which
 take bf16, so ``--dtype float32`` is refused there; ``--device cpu`` runs the
 plain PyTorch versions in either dtype.  Nothing moves to the CPU by itself:
-``--device cuda`` without a card raises.  A kohya ``--lora_ckpt``
-(``.safetensors``) is merged into the weights at load.  Images go to
+``--device cuda`` without a card raises.  ``--lora_ckpt`` is merged into the
+weights at load: a kohya ``.safetensors`` file, or a ``.ckpt`` training
+checkpoint of ``train_lora_dreambooth_torch.py`` (its LoRA tree; the JAX
+trainer's ``.msgpack`` / orbax checkpoints raise ``ValueError``).  Images go to
 ``--output_dir`` as ``img_{i}_{j}.jpg`` (request i, lane j), written with
 PIL.
 """
@@ -43,7 +45,8 @@ def build_parser():
     parser.add_argument("--uncond_prompt", metavar="", default="", type=str, help="Unconditional prompt")
     parser.add_argument("--n_samples", metavar="", default=3, type=int, help="Number of generated images")
     parser.add_argument("--lora_ckpt", metavar="", default="", type=str,
-                        help="kohya LoRA .safetensors to merge into the weights")
+                        help="kohya LoRA .safetensors, or a training checkpoint (.ckpt) of "
+                             "train_lora_dreambooth_torch.py, to merge into the weights")
     parser.add_argument("--do_cfg", action=argparse.BooleanOptionalAction, help="Activate CFG")
     parser.add_argument("--cfg_scale", metavar="", default=7.5, type=float, help="CFG scale")
     parser.add_argument("--strength", metavar="", default=1.0, type=float, help="img2img strength")
@@ -92,26 +95,33 @@ def check_device(args):
 
 def load_model(args):
     """The pipeline of ``--model_path`` on ``--device`` in ``--dtype``, with
-    the tokenizer of ``--tokenizer_dir`` and a kohya ``--lora_ckpt`` merged."""
+    the tokenizer of ``--tokenizer_dir`` and ``--lora_ckpt`` merged (a kohya
+    file, or a training checkpoint's LoRA tree; the LoRA is read first, so a
+    bad file fails before the model loads)."""
     from stable_diffusion_tpu_torch.models.lora import merge_lora_
     from stable_diffusion_tpu_torch.pipeline import StableDiffusion
     from stable_diffusion_tpu_torch.tokenizer import load_tokenizer
     from stable_diffusion_tpu_torch.utils import model_converter as mc
+    from stable_diffusion_tpu_torch.utils.checkpoint import load_train_checkpoint
 
     device, dtype, impl = check_device(args)
-    if args.lora_ckpt.endswith((".ckpt", ".msgpack", ".orbax")):
-        raise NotImplementedError(f"--lora_ckpt {args.lora_ckpt}: the port loads kohya .safetensors "
-                                  "files; training checkpoints come with the trainer CLI, which is "
-                                  "not ported yet")
-    if args.lora_ckpt and not args.lora_ckpt.endswith(".safetensors"):
-        raise ValueError(f"--lora_ckpt {args.lora_ckpt}: expected a kohya .safetensors file")
+    lora = None
+    if args.lora_ckpt.endswith(".safetensors"):
+        lora = mc.load_lora_kohya(args.lora_ckpt)
+    elif args.lora_ckpt.endswith((".ckpt", ".msgpack", ".orbax")):
+        # a training checkpoint of train_lora_dreambooth_torch.py: its LoRA
+        # tree (not the EMA), as JAX's inference.py merges it
+        lora = load_train_checkpoint(args.lora_ckpt)["state"]["lora"]
+    elif args.lora_ckpt:
+        raise ValueError(f"--lora_ckpt {args.lora_ckpt}: expected a kohya .safetensors file or a "
+                         "training checkpoint (.ckpt)")
     tokenizer = load_tokenizer(args.tokenizer_dir) if args.tokenizer_dir else None
     model = StableDiffusion.from_pretrained(args.model_path, sd_version=args.sd_version, dtype=dtype,
                                             tokenizer=tokenizer, impl=impl, device=device)
-    if args.lora_ckpt:
-        lora = mc.load_lora_kohya(args.lora_ckpt)
+    if lora is not None:
         merge_lora_(model.unet, lora["unet"])
-        merge_lora_(model.text_encoder, lora["text_encoder"])
+        if "text_encoder" in lora:
+            merge_lora_(model.text_encoder, lora["text_encoder"])
     return model
 
 

@@ -12,7 +12,19 @@ sites: with SD_TPU_FUSED_MM on, the resblock 1x1 shortcut + residual, the
 transformer's ``conv_output`` + residual and the attention pre-LN
 projections run K10, the transformer's GroupNorm -> ``conv_input`` K11;
 with SD_TPU_WINOGRAD=1 the routed 3x3 convs run K12 (ops/winograd.py).
-The DeepCache split is not ported yet.
+
+DeepCache (JAX ``unet_shallow_encoder``, ``unet_deep``,
+``unet_shallow_decoder``, ``unet_apply_split``, ``unet_apply_cached``):
+the body is written once, as three parts cut where JAX cuts it, and
+``forward`` is their composition.  :meth:`UNet.shallow_encoder` is
+``conv_in`` and stage 0 (its skips and the downsampled ``down0``),
+:meth:`UNet.deep` stages 1..n-1, the bottleneck and every decoder stage
+but the last (the feature entering the last stage, ``block_out_channels[1]``
+channels at the latent resolution), :meth:`UNet.shallow_decoder` the last
+decoder stage and the output head.  :meth:`UNet.forward_cached` runs the
+two shallow parts around a held deep feature: every layer it reaches is a
+layer of the full pass at the same shape, so it launches a subset of the
+full pass's kernel shapes.
 
 Quantized (utils/quantize_model.py): the call sites hand the int8 holders
 to the layers, so a calibrated UNet runs every W8A8 linear (attention
@@ -298,20 +310,30 @@ class UNet(nn.Module):
         return torch.utils.checkpoint.checkpoint(run, x, t_embed, cond, *tensors,
                                                  use_reentrant=False)
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
-                impl: str = "auto", gradient_checkpointing: bool = False) -> torch.Tensor:
-        """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
-        cond: (B, 77, cross_dim).  Returns the epsilon prediction."""
+    def shallow_encoder(self, x, t_embed, cond, *, impl: str = "auto",
+                        gradient_checkpointing: bool = False):
+        """``conv_in`` + stage 0 -> (stage-0 skips [conv_in, b0, b1], down0)."""
         cfg = self.cfg
-        remat = gradient_checkpointing
-        eps = cfg.norm_eps
-        heads = cfg.heads_per_stage
-        n = cfg.num_stages
-        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
-
         h = layers.conv2d(self.encoder.conv_in, x)
         skips = [h]
-        for i in range(n):
+        stage = self.encoder.down["0"]
+        for j in range(cfg.layers_per_block):
+            h = self._block(stage.block[str(j)], h, t_embed, cond, cfg.heads_per_stage[0], impl,
+                            gradient_checkpointing)
+            skips.append(h)
+        return skips, layers.conv2d(stage.downsample.conv, h, stride=2, padding=1)
+
+    def deep(self, down0, t_embed, cond, *, impl: str = "auto",
+             gradient_checkpointing: bool = False):
+        """Stages 1..n-1, the bottleneck and the decoder stages before the
+        last; ``down0`` is the first skip.  Returns the feature entering the
+        last decoder stage."""
+        cfg = self.cfg
+        remat, eps, heads, n = (gradient_checkpointing, cfg.norm_eps, cfg.heads_per_stage,
+                                cfg.num_stages)
+        h = down0
+        skips = [down0]
+        for i in range(1, n):
             stage = self.encoder.down[str(i)]
             for j in range(cfg.layers_per_block):
                 h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl, remat)
@@ -325,17 +347,52 @@ class UNet(nn.Module):
         h = transformer_apply(mid["1"], h, cond, num_heads=heads[-1], impl=impl)
         h = resblock_apply(mid["2"], h, t_embed, eps=eps, impl=impl)
 
-        for u, i in enumerate(reversed(range(n))):
+        for u, i in enumerate(reversed(range(1, n))):
             stage = self.decoder.up[str(u)]
             prev_hw = skips[-1].shape[2]
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=-1)
                 h = self._block(stage.block[str(j)], h, t_embed, cond, heads[i], impl, remat)
-            if i != 0:
-                if not (skips and skips[-1].shape[2] == prev_hw):
-                    h = layers.upsample_nearest_2x(h)
-                h = layers.conv3x3(stage.upsample.conv, h, impl=impl)
+            if not (skips and skips[-1].shape[2] == prev_hw):
+                h = layers.upsample_nearest_2x(h)
+            h = layers.conv3x3(stage.upsample.conv, h, impl=impl)
+        return h
 
+    def shallow_decoder(self, deep_h, skips, t_embed, cond, *, impl: str = "auto",
+                        gradient_checkpointing: bool = False):
+        """The last decoder stage on ``deep_h`` and the stage-0 skips, then
+        the output head."""
+        cfg = self.cfg
+        stage = self.decoder.up[str(cfg.num_stages - 1)]
+        h, skips = deep_h, list(skips)
+        for j in range(cfg.layers_per_block + 1):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = self._block(stage.block[str(j)], h, t_embed, cond, cfg.heads_per_stage[0], impl,
+                            gradient_checkpointing)
         out = self.output
-        h = group_norm_silu(h, out["0"].weight, out["0"].bias, eps=eps, silu=True, impl=impl)
+        h = group_norm_silu(h, out["0"].weight, out["0"].bias, eps=cfg.norm_eps, silu=True,
+                            impl=impl)
         return layers.conv2d(out["2"], h)
+
+    def forward_split(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
+                      impl: str = "auto", gradient_checkpointing: bool = False):
+        """The full pass -> (epsilon prediction, the deep feature to hold)."""
+        kw = dict(impl=impl, gradient_checkpointing=gradient_checkpointing)
+        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
+        skips, down0 = self.shallow_encoder(x, t_embed, cond, **kw)
+        deep_h = self.deep(down0, t_embed, cond, **kw)
+        return self.shallow_decoder(deep_h, skips, t_embed, cond, **kw), deep_h
+
+    def forward_cached(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor,
+                       deep_h: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """A cached step: the shallow stage recomputed around ``deep_h``."""
+        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
+        skips, _ = self.shallow_encoder(x, t_embed, cond, impl=impl)
+        return self.shallow_decoder(deep_h, skips, t_embed, cond, impl=impl)
+
+    def forward(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
+                impl: str = "auto", gradient_checkpointing: bool = False) -> torch.Tensor:
+        """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
+        cond: (B, 77, cross_dim).  Returns the epsilon prediction."""
+        return self.forward_split(x, timestep, cond, impl=impl,
+                                  gradient_checkpointing=gradient_checkpointing)[0]

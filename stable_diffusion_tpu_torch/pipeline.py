@@ -10,6 +10,9 @@ and eps = uncond + s * (cond - uncond); ``inpaint`` takes [cond, uncond]
 and eps = cond + s * (cond - uncond), and at every step replaces the latent
 outside the mask by the encoded image re-noised with the predicted noise.
 DDPM takes the model output as eps under any prediction type, as JAX does.
+``generate`` takes JAX's ``deepcache_interval`` (DeepCache: the full UNet
+every k-th step, its shallow stage around the held deep feature between);
+``inpaint`` and ``generate_in_one_step`` take none, as in JAX.
 The port cannot replay ``jax.random``: every draw (encode noise, starting or
 q-sample noise, inpaint's mask noise, the per-step noises) can be passed in
 (the tests pass the noise JAX drew); the rest are drawn in that order from
@@ -296,18 +299,32 @@ class StableDiffusion:
 
     def _denoise(self, latents, context, ts, prev_ts, table, *, cfg_scale: float, do_cfg: bool,
                  order: str, sampler: str, prediction_type: str, eta: float, draws: _Draws,
-                 step_noise=None, blend: Optional[Callable] = None) -> torch.Tensor:
+                 step_noise=None, blend: Optional[Callable] = None,
+                 deepcache_interval: int = 1) -> torch.Tensor:
         """The denoise loop: CFG UNet step, ``blend(latents, t, eps)`` (inpaint),
         then the sampler's step; DDPM takes a fresh noise every step, DDIM
-        one only when eta > 0."""
+        one only when eta > 0.  With ``deepcache_interval`` k > 1 (JAX
+        ``_denoise_scan``): the full UNet at steps i % k == 0, which also
+        gives the deep feature to hold, and the cached pass on the held
+        feature between them; the held feature starts as zeros."""
         needs_noise = sampler == "ddpm" or eta > 0
         if step_noise is not None and needs_noise:
             want = (len(ts), *latents.shape)
             step_noise = draws("step_noise", step_noise, want)
+        k = int(deepcache_interval)
+        if k > 1:
+            b, h, w = latents.shape[0] * (2 if do_cfg else 1), *latents.shape[1:3]
+            deep = torch.zeros((b, h, w, self.unet.cfg.block_out_channels[1]),
+                               dtype=latents.dtype, device=latents.device)
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
             model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
             t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
-            pred = self.unet(model_in, t_in, context, impl=self.impl)
+            if k <= 1:
+                pred = self.unet(model_in, t_in, context, impl=self.impl)
+            elif i % k == 0:
+                pred, deep = self.unet.forward_split(model_in, t_in, context, impl=self.impl)
+            else:
+                pred = self.unet.forward_cached(model_in, t_in, context, deep, impl=self.impl)
             eps = cfg_combine(pred, cfg_scale, order) if do_cfg else pred
             if blend is not None:
                 latents = blend(latents, t, eps)
@@ -324,9 +341,9 @@ class StableDiffusion:
                  img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
                  cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
                  sampler: str = "ddim", use_cosine_schedule: bool = False, eta: float = 0.0,
-                 seed: int = 0, initial_latents=None, encode_noise=None, latent_noise=None,
-                 step_noise=None, return_latents: bool = False,
-                 output_dtype: str = "float32") -> np.ndarray:
+                 seed: int = 0, deepcache_interval: int = 1, initial_latents=None,
+                 encode_noise=None, latent_noise=None, step_noise=None,
+                 return_latents: bool = False, output_dtype: str = "float32") -> np.ndarray:
         """txt2img, or img2img with ``input_image`` (an (H, W, 3) array or PIL
         image, preprocessed to ``img_size`` and encoded) or ``input_latents``
         (the unscaled latent of one image, or of each lane).
@@ -335,6 +352,9 @@ class StableDiffusion:
         sampler: "ddim" (eta as given) or "ddpm"; ``use_cosine_schedule``
         picks the cosine tables.  img2img runs the last ``int(steps *
         strength)`` steps from the latent q-sampled at the first of them.
+        ``deepcache_interval`` k > 1 runs the full UNet every k-th step and
+        the DeepCache pass (the shallow stage around the held deep feature)
+        between; k <= 1 is the exact loop.
         Injected draws: ``initial_latents`` (txt2img start), ``encode_noise``
         (1, H/8, W/8, 4), ``latent_noise`` (B, H/8, W/8, 4; img2img's
         q-sample), ``step_noise`` (steps run, B, H/8, W/8, 4); the others
@@ -375,7 +395,7 @@ class StableDiffusion:
         latents = self._denoise(latents, context, ts, prev_ts, table, cfg_scale=cfg_scale,
                                 do_cfg=do_cfg, order="uncond_first", sampler=sampler,
                                 prediction_type=sched.prediction_type, eta=eta, draws=draws,
-                                step_noise=step_noise)
+                                step_noise=step_noise, deepcache_interval=deepcache_interval)
         if return_latents:
             return latents.float().cpu().numpy()
         return _finish(self.vae.decode(latents, impl=impl), output_dtype, "generate")

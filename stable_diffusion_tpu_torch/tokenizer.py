@@ -11,8 +11,8 @@ each CJK ideograph, NFC, lower case, words joined by single spaces); cut it
 with CLIP's pattern; map each piece's UTF-8 bytes to the printable symbols
 of ``bytes_to_unicode``; merge by BPE rank (the file's merges ``[1 : 49152
 - 256 - 2 + 1]``); look each symbol up, unknown ones as the unk token.
-``batch_encode_plus`` adds bos and eos, truncates to ``max_length`` and
-pads with the pad token (SD1.5's files pad with ``<|endoftext|>``,
+``__call__`` and ``batch_encode_plus`` add bos and eos, truncate to
+``max_length`` and pad with the pad token (SD1.5's files pad with ``<|endoftext|>``,
 SD2.1's with ``!``, id 0).
 
 CLIP's pattern needs ``\\p{L}`` and ``\\p{N}``, which the standard ``re``
@@ -33,7 +33,9 @@ import re
 import sys
 import types
 import unicodedata
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 MAX_LENGTH = 77
 _MERGES_KEPT = 49152 - 256 - 2 + 1
@@ -118,9 +120,10 @@ def _token_content(value) -> Optional[str]:
 
 
 class CLIPTokenizer:
-    """The CLIP tokenizer of one vocabulary; ``tokenize``, ``encode`` and
-    ``batch_encode_plus`` as ``transformers.CLIPTokenizer``'s (single
-    sequences)."""
+    """The CLIP tokenizer of one vocabulary; ``tokenize``, ``encode``,
+    ``__call__``, ``pad`` and ``batch_encode_plus`` as
+    ``transformers.CLIPTokenizer``'s for what the pipeline and the trainer's
+    dataset ask of it (ids only, no attention mask)."""
 
     def __init__(self, vocab_file: str, merges_file: str, *, bos_token: str = "<|startoftext|>",
                  eos_token: str = "<|endoftext|>", unk_token: str = "<|endoftext|>",
@@ -226,6 +229,38 @@ class CLIPTokenizer:
             ids = ids[:max(max_length - 2, 0)]
         return [self.bos_token_id, *ids, self.eos_token_id]
 
+    def __call__(self, text: Union[str, Sequence[str]], *, padding: Union[bool, str] = False,
+                 truncation: bool = False,
+                 max_length: int = MAX_LENGTH) -> types.SimpleNamespace:
+        """``.input_ids`` of one prompt (a list of ids) or of each of a list
+        of prompts: bos, the ids, eos; cut to ``max_length`` with
+        ``truncation``; padded to it on the right with the pad token under
+        ``padding="max_length"`` ("do_not_pad" and False leave it)."""
+        if padding not in (False, "do_not_pad", "max_length"):
+            raise ValueError(f"padding={padding!r}: only 'max_length' and 'do_not_pad' are ported")
+        rows = [self.encode(t, max_length=max_length if truncation else None)
+                for t in ([text] if isinstance(text, str) else text)]
+        if padding == "max_length":
+            rows = [ids + [self.pad_token_id] * max(max_length - len(ids), 0) for ids in rows]
+        return types.SimpleNamespace(input_ids=rows[0] if isinstance(text, str) else rows)
+
+    def pad(self, encoded, *, padding: str = "max_length", max_length: int = MAX_LENGTH,
+            return_tensors: str = "np") -> dict:
+        """``{"input_ids": (rows, max_length) int64 array}``: the rows of
+        ``encoded["input_ids"]`` padded on the right with the pad token (the
+        call the trainer's dataset makes).  A row longer than
+        ``max_length`` raises rather than give a ragged batch."""
+        if padding != "max_length" or return_tensors != "np":
+            raise ValueError(f"padding={padding!r}, return_tensors={return_tensors!r}: only "
+                             "'max_length' and 'np' are ported")
+        rows = [list(r) for r in encoded["input_ids"]]
+        if any(len(r) > max_length for r in rows):
+            raise ValueError(f"a row of {max(map(len, rows))} ids is longer than {max_length}")
+        ids = np.full((len(rows), max_length), self.pad_token_id, np.int64)
+        for i, r in enumerate(rows):
+            ids[i, :len(r)] = r
+        return {"input_ids": ids}
+
     def batch_encode_plus(self, prompts: Sequence[str], *, padding: str = "max_length",
                           max_length: int = MAX_LENGTH,
                           truncation: bool = True) -> types.SimpleNamespace:
@@ -234,9 +269,7 @@ class CLIPTokenizer:
         call the pipeline makes, as JAX's makes it of ``transformers``)."""
         if padding != "max_length":
             raise ValueError(f"padding={padding!r}: only 'max_length' is ported")
-        rows = [self.encode(p, max_length=max_length if truncation else None) for p in prompts]
-        return types.SimpleNamespace(
-            input_ids=[ids + [self.pad_token_id] * max(max_length - len(ids), 0) for ids in rows])
+        return self(list(prompts), padding=padding, truncation=truncation, max_length=max_length)
 
 
 def load_tokenizer(directory: str) -> CLIPTokenizer:

@@ -18,8 +18,7 @@ the same rule).  Run it under ``torch.no_grad()`` or give it inputs that
 want no gradient.
 
 The prompt-corpus sweeps (``calibrate_cond_encoder``, ``calibrate_unet``)
-and ``quantize_text_encoder_static`` are not ported yet: the sweeps need a
-tokenizer vocabulary, which is not in the repository.
+and ``quantize_text_encoder_static`` are not ported yet.
 """
 
 from __future__ import annotations

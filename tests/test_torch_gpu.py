@@ -1368,3 +1368,126 @@ def test_tiny_one_step_kernels_vs_plain(gen, batch):
     assert got.shape == (batch, 64, 64, 3) and np.isfinite(got).all()
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
     assert rel <= 5e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# DeepCache's split UNet and the trainer's checkpoints on the card
+# ---------------------------------------------------------------------------
+
+SERVING_COUNTERS = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4}
+
+
+def _sd15_unet():
+    from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from stable_diffusion_tpu_torch.utils.weights import build, init_random_
+
+    return init_random_(build(UNet, UNetConfig.sd15(), device="cuda", dtype=torch.bfloat16), 0)
+
+
+def _recorded(fn):
+    """K1-K4's launch shapes (Counters) in ``fn()``, and K3's general-body
+    launches."""
+    counters = {**SERVING_COUNTERS, "general": flash_attention.K3_BY_BODY["general"]}
+    for c in counters.values():
+        c.record()
+    try:
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        shapes = {k: c.stop_recording() for k, c in counters.items()}
+    return out, shapes
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_split_unet_shapes_are_a_subset_of_the_full_unets(gen, batch):
+    """At 512^2 (64^2 latents), UNet batch 1 and 2: every K1-K4 shape of
+    ``forward_split`` is one of ``forward``'s at the same counts (the split
+    is the same body), and a cached step launches only shapes of the full
+    pass, fewer K2, K3 and K4 than it, and never K3's general body."""
+    unet = _sd15_unet()
+    x = _rn(gen, batch, 64, 64, 4)
+    cond = _rn(gen, batch, 77, 768)
+    t = torch.tensor([500], device="cuda")
+    full, full_shapes = _recorded(lambda: unet(x, t, cond, impl="cuda"))
+    (split, deep), split_shapes = _recorded(lambda: unet.forward_split(x, t, cond, impl="cuda"))
+    assert torch.equal(full, split) and split_shapes == full_shapes
+    assert deep.shape == (batch, 64, 64, 640)
+    cached, cached_shapes = _recorded(
+        lambda: unet.forward_cached(x, torch.tensor([480], device="cuda"), cond, deep, impl="cuda"))
+    assert torch.isfinite(cached).all()
+    for k in SERVING_COUNTERS:
+        assert set(cached_shapes[k]) <= set(full_shapes[k]), k
+    for k in ("K2", "K3", "K4"):
+        assert 0 < sum(cached_shapes[k].values()) < sum(full_shapes[k].values()), k
+    assert not cached_shapes["general"] and not full_shapes["general"]
+
+
+def test_deepcache_request_launches_fewer_kernels(gen):
+    """Two DDIM steps at 512^2 with CFG: k = 2 (a full step, then a cached
+    one) launches fewer K2, K3 and K4 than k = 1 (two full steps), the text
+    encode and the decode the same in both; its image is finite."""
+    import numpy as np
+
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils.weights import init_random_
+
+    pipe = StableDiffusion.for_version("1.5", device="cuda", dtype=torch.bfloat16, impl="cuda")
+    for i, m in enumerate((pipe.unet, pipe.text_encoder, pipe.vae)):
+        init_random_(m, i)
+    ids, unc = np.arange(77)[None] % 49408, np.zeros((1, 77), np.int64)
+    launches = {}
+    for k in (1, 2):
+        before = {n: c.launches for n, c in SERVING_COUNTERS.items()}
+        img = pipe.generate(ids, unc, img_size=(512, 512), inference_steps=2, seed=0,
+                            deepcache_interval=k, output_dtype="uint8")
+        launches[k] = {n: c.launches - before[n] for n, c in SERVING_COUNTERS.items()}
+        assert img.shape == (1, 512, 512, 3) and int(img.max()) > int(img.min())
+    for n in ("K2", "K3", "K4"):
+        assert 0 < launches[2][n] < launches[1][n], (n, launches)
+
+
+def test_train_checkpoint_loads_back_onto_cuda_bit_for_bit(gen, tmp_path):
+    """A train state after two micro-steps (one update) of a tiny UNet on the
+    card with the 8-bit Adam, EMA and accumulation 2, saved and loaded onto
+    cuda: every tensor on the card, of its dtype, equal bit for bit."""
+    from stable_diffusion_tpu_torch import optim, training as T
+    from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from stable_diffusion_tpu_torch.schedulers import schedule as S
+    from stable_diffusion_tpu_torch.utils import checkpoint as ckpt
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+    from stable_diffusion_tpu_torch.utils.weights import build, init_random_
+
+    unet = init_random_(build(UNet, UNetConfig(block_out_channels=(32, 64, 64, 64),
+                                               attention_head_dim=(2, 4, 4, 4),
+                                               cross_attention_dim=24, t_embed_dim=16),
+                              device="cuda", dtype=torch.bfloat16), 0)
+    cfg = T.TrainConfig(rank=4, alpha=4.0, use_ema=True, ema_start=0, grad_accum_steps=2,
+                        use_8bit_adam=True)
+    state = T.init_train_state(gen, {"unet": unet}, cfg)
+    step = T.make_train_step({"unet": unet}, schedule=S.make_schedule(), train_cfg=cfg,
+                             impl="cuda")
+    for _ in range(2):
+        t, noise, vnoise = T.sample_noise_for_latents(gen, (4, 8, 8, 4), dtype=torch.bfloat16)
+        state, _ = step(state, {"t": t, "noise": noise, "vae_noise": vnoise,
+                                "latent_mean": _rn(gen, 4, 8, 8, 4),
+                                "latent_std": _rn(gen, 4, 8, 8, 4).abs(),
+                                "text_emb": _rn(gen, 4, 77, 24)})
+    path = ckpt.save_train_checkpoint(str(tmp_path / "epoch-0"), {"epoch": 0, "state": state})
+    back = ckpt.load_train_checkpoint(path, device=torch.device("cuda"))["state"]
+    assert back["step"] == state["step"] == 2
+    assert isinstance(tree_leaves(back["opt_state"]["inner"][1]["mu"])[0], optim.Q8)
+
+    def tensors(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in tensors(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return []
+
+    a, b = tensors(state), tensors(back)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert y.is_cuda and y.dtype == x.dtype and torch.equal(x, y)

@@ -125,8 +125,17 @@ def test_kohya_lora_merges_to_jax_weights(model_dir, tmp_path, name):
 
 
 def test_training_checkpoint_lora_waits_for_the_trainer(model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="trainer CLI"):
+    """The trainer is ported (train_lora_dreambooth_torch.py; its .ckpt
+    checkpoints load, tests/test_torch_train_cli.py): a .ckpt is read as one
+    (a missing file raises FileNotFoundError, not NotImplementedError), and
+    the JAX trainer's msgpack and orbax checkpoints raise ValueError naming
+    their format, before the model loads."""
+    with pytest.raises(FileNotFoundError):
         cli.load_model(cli.parse_args(_argv(model_dir, tmp_path, "--lora_ckpt", "run/step.ckpt")))
+    for path, kind in (("run/epoch-0.msgpack", "msgpack"), ("run/epoch-0.orbax", "orbax")):
+        with pytest.raises(ValueError, match=kind):
+            cli.load_model(cli.parse_args(["--model_path", str(tmp_path / "absent"), "--device",
+                                           "cpu", "--lora_ckpt", path]))
 
 
 def test_unknown_inputs_raise(model_dir, tmp_path):

@@ -245,14 +245,15 @@ def test_emulated_gn_stats_far_from_zero_and_one_pass_fails():
 def test_port_imports_neither_triton_nor_jax():
     """K1 is CUDA C++ now: no module of the port imports Triton (nor JAX,
     nor the JAX package), at any depth of the module; neither do the port's
-    CLI (inference_torch.py) and the checkpoints chip_smoke.py writes
-    (tests/torch_checkpoints.py).  None of them imports ``transformers``,
-    ``safetensors`` or ``regex``: the port carries its own reader and
-    tokenizer."""
+    CLIs (inference_torch.py, train_lora_dreambooth_torch.py) and the
+    checkpoints chip_smoke.py writes (tests/torch_checkpoints.py).  None of
+    them imports ``transformers``, ``safetensors`` or ``regex``: the port
+    carries its own reader and tokenizer."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     banned = ("triton", "jax", "jaxlib", "stable_diffusion_tpu", "transformers", "safetensors",
               "regex")
-    extra = [root.parent / "inference_torch.py", root.parent / "tests" / "torch_checkpoints.py"]
+    extra = [root.parent / "inference_torch.py", root.parent / "train_lora_dreambooth_torch.py",
+             root.parent / "tests" / "torch_checkpoints.py"]
     for path in [*root.rglob("*.py"), *extra]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -286,7 +287,8 @@ def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
     nor PIL at import."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     smoke = root.parent / "chip_smoke.py"
-    for path in [*root.rglob("*.py"), smoke, root.parent / "inference_torch.py"]:
+    for path in [*root.rglob("*.py"), smoke, root.parent / "inference_torch.py",
+                 root.parent / "train_lora_dreambooth_torch.py"]:
         for node in _outside_functions(ast.parse(path.read_text())):
             for name in _imported(node):
                 assert name.split(".")[0] != "PIL", (path, name)

@@ -192,6 +192,33 @@ def test_tiny_unet_matches_jax(tiny, monkeypatch):
     assert rel > CONV_QUANT_MIN_REL_L2, rel
 
 
+def test_tiny_unet_cached_matches_jax(tiny, monkeypatch):
+    """DeepCache on the calibrated full-W8A8 tiny UNet: ``forward_split``
+    (output and deep feature) at t = 999, then ``forward_cached`` on another
+    latent at t = 499 on that feature, against JAX's ``unet_apply_split`` /
+    ``unet_apply_cached`` taking its W8A8 conv branch at every calibrated
+    resblock conv; at the 4x4 latents of test_tiny_unet_matches_jax and
+    1e-4 (the code-flip caveat of this file's docstring: no code flips
+    here)."""
+    full = _port_quantized(tiny, tiny["jq"])
+    x4, x4b = np.random.default_rng(5).standard_normal((2, 2, 4, 4, 4), dtype=np.float32)
+    (_, t, ctx), (_, t2, _) = tiny["batches"]
+    monkeypatch.setattr(jconv, "gn_silu_conv3x3", _jax_w8a8_conv_branch(jconv.gn_silu_conv3x3))
+
+    def split_then_cached(p, x, xb, t, t2, c):
+        out, deep = junet.unet_apply_split(p, x, t, c, tiny["ucfg"], impl="xla")
+        return out, deep, junet.unet_apply_cached(p, xb, t2, c, deep, tiny["ucfg"], impl="xla")
+
+    want = jax.jit(split_then_cached)(tiny["jq"], x4, x4b, t, t2, ctx)
+    with torch.no_grad():
+        out, deep = full.forward_split(_t(x4), _t(t.astype(np.int64)), _t(ctx), impl="torch")
+        cached = full.forward_cached(_t(x4b), _t(t2.astype(np.int64)), _t(ctx), deep,
+                                     impl="torch")
+    for got, w in zip((out, deep, cached), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-4)
+    assert np.abs(cached.numpy() - out.numpy()).max() > 1e-2  # another step's input
+
+
 def test_tiny_txt2img_matches_jax(tiny):
     """2 DDIM steps, CFG 5, 32x32: the port's pipeline with the W8A8-linear
     UNet against the JAX pipeline on the same trees and JAX's noise."""

@@ -138,6 +138,32 @@ def test_ids_equal_transformers(vocab_dir, convention):
     assert got.input_ids[-1][0] == ours.bos_token_id and got.input_ids[-1][76] == ours.eos_token_id
 
 
+@pytest.mark.parametrize("convention", ["sd15", "sd21"])
+def test_call_and_pad_equal_transformers(vocab_dir, convention):
+    """What the trainer's dataset asks of its tokenizer: ``tok(prompt,
+    padding="do_not_pad", truncation=True, max_length=77).input_ids`` and
+    ``tok.pad({"input_ids": rows}, padding="max_length", max_length=77,
+    return_tensors="np")["input_ids"]``, and a list of prompts padded in the
+    call, as ``transformers.CLIPTokenizer`` gives them."""
+    from transformers import CLIPTokenizer as HF
+
+    d = _configure(vocab_dir, convention, "<|endoftext|>" if convention == "sd15" else "!")
+    hf, ours = HF.from_pretrained(str(d)), T.load_tokenizer(str(d))
+    kw = dict(padding="do_not_pad", truncation=True, max_length=77)
+    rows = [ours(p, **kw).input_ids for p in PROMPTS]
+    assert rows == [hf(p, **kw).input_ids for p in PROMPTS]
+    assert max(map(len, rows)) == 77 and min(map(len, rows)) == 2
+    pad = dict(padding="max_length", max_length=77, return_tensors="np")
+    got = ours.pad({"input_ids": rows}, **pad)["input_ids"]
+    want = hf.pad({"input_ids": rows}, **pad)["input_ids"]
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    both = dict(padding="max_length", truncation=True, max_length=77)
+    assert ours(PROMPTS[:3], **both).input_ids == hf(PROMPTS[:3], **both).input_ids
+    with pytest.raises(ValueError, match="longer"):
+        ours.pad({"input_ids": [[1] * 78]}, padding="max_length", max_length=77)
+
+
 def test_merges_were_learned_and_used(vocab_dir):
     """The vocabulary carries real merges, so the BPE loop is exercised:
     a frequent word is one symbol, an unseen one many."""
