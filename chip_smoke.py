@@ -1,10 +1,11 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the twelve phases below
+    python3 chip_smoke.py                  # the thirteen phases below
     python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
     python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
     python3 chip_smoke.py --deepcache      # phases 1-2 and 11 (no contract line)
     python3 chip_smoke.py --trainer        # phases 1-2 and 12 (no contract line)
+    python3 chip_smoke.py --evaluation     # phases 1-2 and 13 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -35,7 +36,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Twelve phases, one line each (plus detail lines); any failure exits non-zero
+Thirteen phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -173,13 +174,36 @@ and the final line is printed only when every phase passed:
                  a manual merge_lora_, the merged weights within bf16's
                  rounding bound of W + delta); s/step, peak memory and the
                  checkpoint's bytes.
+ 13. evaluation -- the evaluation path at full width on seeded weights:
+                 writes an HF-layout CLIP ViT-L/14 CLIPModel directory (the
+                 port's writer, f16); records K3's shapes in the vision
+                 tower at b1 and b8 (s = 257, 16 heads of 64, the ring body)
+                 and checks and times them; holds the CLIP score (b8) of the
+                 bf16 kernels against plain f32 (each embedding's relative
+                 L2, the derived score bound); calibrates and quantizes the
+                 ViT-L text tower (quantize_text_encoder_static): K8 at every
+                 linear of a b1 and a b2 forward, counted from 0 and checked
+                 at each shape, the output against the plain W8A8 path in
+                 f32 and the unquantized bf16 tower; calibrate_cond_encoder
+                 over the default prompts and calibrate_unet on a short
+                 SD1.5 denoise; class2img at 512^2 b1 (a ClassEncoder
+                 embedding as a one-token context: K3's cross body on one
+                 key, checked at its 4 shapes; two timed requests); a
+                 VQ-VAE round trip at 512^2 b1 (K1-K3 checked at its shapes)
+                 and one EMA codebook update; Inception pool3 at b8 and the
+                 FID of two seeded sets; evaluation_torch.main on phase 10's
+                 f16 directory with two COCO-style images, the CLIP score
+                 and CLIP-FID (one config, one scale: JAX's results keys;
+                 K1-K4 launched, K5-K12 never).  Writes under build/eval and
+                 build/cli, removed at the end.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds,
-and phases 10-12's checkpoints, data and logs, removed when each ends).
+and phases 10-13's checkpoints, data and logs, removed when each ends).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -1763,11 +1787,11 @@ def tests_module(name: str):
     return mod
 
 
-def write_cli_checkpoints():
+def write_cli_checkpoints(ldm_and_kohya: bool = True):
     """Full-width SD1.5 from a seed (init_random_ in f16 on the card), written
-    under build/cli as a diffusers directory and as one LDM .ckpt, with a
-    synthesized CLIP vocabulary and a rank-4 kohya file.  Returns the f16
-    source tensors (host) by model."""
+    under build/cli as a diffusers directory and (``ldm_and_kohya``) as one
+    LDM .ckpt, with a synthesized CLIP vocabulary and (``ldm_and_kohya``) a
+    rank-4 kohya file.  Returns the f16 source tensors (host) by model."""
     from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
     from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
     from stable_diffusion_tpu_torch.pipeline import scheduler_config_for
@@ -1785,19 +1809,23 @@ def write_cli_checkpoints():
                            unet_config=SD15_JSON["unet"], text_config=SD15_JSON["text_encoder"],
                            vae_config=SD15_JSON["vae"], scheduler_config=scheduler_config_for("1.5"))
     t2 = time.perf_counter()
-    torch.save({"state_dict": TC.to_ldm(src["unet"], src["vae"], src["text_encoder"], version="1.5")},
-               os.path.join(CLI_DIR, "sd15.ckpt"))
+    if ldm_and_kohya:
+        torch.save({"state_dict": TC.to_ldm(src["unet"], src["vae"], src["text_encoder"],
+                                            version="1.5")}, os.path.join(CLI_DIR, "sd15.ckpt"))
     t3 = time.perf_counter()
     merges = TC.write_vocab(os.path.join(CLI_DIR, "tokenizer"))
-    modules = {"unet": build(UNet, UNetConfig.sd15(), device="meta"),
-               "text_encoder": build(CLIPTextModel, CLIPTextConfig.vit_l(), device="meta")}
-    safetensors_io.save_file(TC.kohya_state(modules, CLI_LORA, rank=4, alpha=4.0, seed=31),
-                             os.path.join(CLI_DIR, "lora.safetensors"))
+    if ldm_and_kohya:
+        modules = {"unet": build(UNet, UNetConfig.sd15(), device="meta"),
+                   "text_encoder": build(CLIPTextModel, CLIPTextConfig.vit_l(), device="meta")}
+        safetensors_io.save_file(TC.kohya_state(modules, CLI_LORA, rank=4, alpha=4.0, seed=31),
+                                 os.path.join(CLI_DIR, "lora.safetensors"))
     n = sum(v.numel() for sd in src.values() for v in sd.values())
     say(f"  wrote SD1.5 in f16 ({n / 1e9:.3f} B parameters, {2 * n / 2 ** 30:.2f} GiB): seeded "
-        f"weights {t1 - t0:.1f} s, diffusers directory {t2 - t1:.1f} s, LDM .ckpt (torch.save) "
-        f"{t3 - t2:.1f} s; tokenizer of {len(merges)} merges; kohya rank-4 file over "
-        f"{sum(map(len, CLI_LORA.values()))} targets")
+        f"weights {t1 - t0:.1f} s, diffusers directory {t2 - t1:.1f} s"
+        + (f", LDM .ckpt (torch.save) {t3 - t2:.1f} s" if ldm_and_kohya else "")
+        + f"; tokenizer of {len(merges)} merges"
+        + (f"; kohya rank-4 file over {sum(map(len, CLI_LORA.values()))} targets"
+           if ldm_and_kohya else ""))
     return src
 
 
@@ -2348,6 +2376,424 @@ def trainer_line(tr) -> str:
             + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
                         f"{v['ms']:.2f} ms, bound {v['bound_ms']:.2f}" for k, v in tr["summary"].items())
             + " per run")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the evaluation path (evaluation_torch.py) at full width
+# ---------------------------------------------------------------------------
+
+EVAL_DIR = os.path.join(REPO, "build", "eval")
+# The CLIP score, bf16 kernels against plain f32 (TF32 off) on the same
+# weights: each projected embedding within CLIP_EMBED_REL_L2 in relative L2
+# (bf16 through 24 and 12 pre-LN layers: the golden's bound for a deep bf16
+# stack).  Unit vectors moved by relative eps_a and eps_b move their cosine
+# by at most 2 (eps_a + eps_b), so the score (100 cos, clamped at 0) moves
+# by at most 100 * 2 * 2 * CLIP_EMBED_REL_L2 points.
+CLIP_EMBED_REL_L2 = 5e-2
+CLIP_SCORE_ATOL = 100 * 2 * 2 * CLIP_EMBED_REL_L2
+# The W8A8 ViT-L text tower on K8 (bf16) against the plain W8A8 path in f32
+# (TF32 off) on the same int8 weights and scales: as phase 6's step, the
+# bf16 rounding of the activations between quantizers and the codes it
+# moves across a half step; relative L2 of the last hidden state.
+TEXT_W8A8_REL_L2 = 5e-2
+TEXT_W8A8_LINEARS = 12 * 4  # a layer's fused QKV, out projection, fc1 and fc2
+EVAL_STEPS = 4              # DDIM steps of the class2img requests and evaluation_torch.main
+EVAL_FID_BATCH = 8
+CLASS2IMG_CLASSES = 1000
+CLIP_VIT_L14 = {
+    "architectures": ["CLIPModel"], "projection_dim": 768,
+    "text_config": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                    "num_attention_heads": 12, "max_position_embeddings": 77,
+                    "vocab_size": 49408, "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5,
+                    "projection_dim": 768},
+    "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                      "num_attention_heads": 16, "image_size": 224, "patch_size": 14,
+                      "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5, "projection_dim": 768}}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+class no_tf32:
+    """TF32 off inside the block (the plain f32 references)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def recorded(counters, fn):
+    """Run ``fn`` with every launch counted from 0 and its shape recorded:
+    (result, launches, shapes)."""
+    for c in counters.values():
+        c.reset()
+        c.record()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: c.launches for k, c in counters.items()},
+            {k: c.stop_recording() for k, c in counters.items()})
+
+
+def write_clip_dir(root: str) -> float:
+    """An HF-layout CLIP ViT-L/14 ``CLIPModel`` directory (config.json and an
+    f16 model.safetensors, the port's writer) from a seed; returns seconds."""
+    from stable_diffusion_tpu_torch.models import clip as clip_m
+    from stable_diffusion_tpu_torch.utils import safetensors_io
+
+    t0 = time.perf_counter()
+    cfg = CLIP_VIT_L14
+    model = clip_m.init_clip_model(50, clip_m.CLIPTextConfig.from_dict(cfg["text_config"]),
+                                   clip_m.CLIPVisionConfig.from_dict(cfg["vision_config"]),
+                                   cfg["projection_dim"], device="cuda", dtype=torch.float16)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    os.makedirs(root, exist_ok=True)
+    safetensors_io.save_file(state, os.path.join(root, "model.safetensors"))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    n = sum(v.numel() for v in state.values())
+    secs = time.perf_counter() - t0
+    say(f"  wrote CLIP ViT-L/14 (vision 24x1024, 16 heads, 224/14; text 12x768; projection 768) "
+        f"in f16: {n / 1e6:.1f} M parameters, {secs:.1f} s")
+    return secs
+
+
+def median_s(fn, n: int = 5) -> float:
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def eval_clip(counters, clip_dir: str):
+    """(2) K3 in the vision tower at b1 and b8; (3) the CLIP score, bf16
+    kernels against plain f32."""
+    import evaluation_torch
+    from stable_diffusion_tpu_torch import fid as fid_m
+    from stable_diffusion_tpu_torch.models import clip as clip_m
+
+    model = fid_m.load_clip_model(clip_dir, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    px = {b: torch.rand((b, 224, 224, 3), generator=gen, device="cuda") * 255 for b in (1, 8)}
+    ids = {b: torch.randint(0, 49408, (b, 77), generator=gen, device="cuda") for b in (1, 8)}
+    mean = torch.tensor(clip_m.CLIP_MEAN, device="cuda")
+    std = torch.tensor(clip_m.CLIP_STD, device="cuda")
+    norm = lambda p: (p / 255.0 - mean) / std  # noqa: E731
+
+    def both():
+        with torch.no_grad():
+            for b in (1, 8):
+                clip_m.clip_image_embed(model, norm(px[b]), impl="cuda")
+
+    _, launches, shapes = recorded(counters, both)
+    want = {(b, 257, 257, 16, 64) for b in (1, 8)}
+    ok = set(shapes["K3"]) == want and launches["K3:ring"] == launches["K3"] == 2 * 24
+    say(f"  eval vision tower K3 shapes {sorted(shapes['K3'])} (want {sorted(want)}), launches "
+        f"{launches['K3']} (ring {launches['K3:ring']}) {'ok' if ok else 'BAD'}")
+    ok_k, summary = check_kernels(shapes, ("K3",), "eval-vision")
+    ok &= ok_k
+
+    with torch.no_grad():
+        ei, et = (clip_m.clip_image_embed(model, norm(px[8]), impl="cuda").float(),
+                  clip_m.clip_text_embed(model, ids[8], impl="cuda").float())
+        score = clip_m.clip_score(model, px[8], ids[8], impl="cuda")
+        del model
+        ref = fid_m.load_clip_model(clip_dir, device="cuda", dtype=torch.float32)
+        with no_tf32():
+            ri, rt = (clip_m.clip_image_embed(ref, norm(px[8]), impl="torch"),
+                      clip_m.clip_text_embed(ref, ids[8], impl="torch"))
+            rscore = clip_m.clip_score(ref, px[8], ids[8], impl="torch")
+        del ref
+    cos = torch.nn.functional.cosine_similarity
+    d_score = float((score - rscore).abs().max())
+    d_cos = float((cos(ei, et) - cos(ri, rt)).abs().max())
+    rel_i, rel_t = rel_l2(ei, ri), rel_l2(et, rt)
+    ok_s = (rel_i <= CLIP_EMBED_REL_L2 and rel_t <= CLIP_EMBED_REL_L2
+            and d_score <= CLIP_SCORE_ATOL and bool(torch.isfinite(score).all()))
+    say(f"  eval clip_score b8 bf16 kernels vs plain f32: image embed rel_l2 {rel_i:.3e}, text embed "
+        f"{rel_t:.3e} (<= {CLIP_EMBED_REL_L2}), cosine max |d| {d_cos:.3e}, score max |d| "
+        f"{d_score:.3f} (<= {CLIP_SCORE_ATOL}); scores {[round(float(x), 3) for x in score]}, "
+        f"plain {[round(float(x), 3) for x in rscore]}, cosines "
+        f"{[round(float(x), 4) for x in cos(ri, rt)]} {'ok' if ok_s else 'BAD'}")
+    scorer = evaluation_torch.load_clip_scorer(clip_dir, device="cuda", impl="cuda")
+    img_np = px[1].cpu().numpy()
+    ids_np = ids[1].cpu().numpy()
+    s_score = median_s(lambda: scorer(img_np, ids_np))
+    return ok and ok_s, dict(vision=summary, vision_launches=launches, s_per_score=s_score,
+                             score_rel=(rel_i, rel_t), score_d=d_score)
+
+
+def eval_text_w8a8(counters, clip_dir: str):
+    """(4) the W8A8 ViT-L text tower: calibrated, quantized, K8 at every
+    linear; (5) calibrate_cond_encoder over the default prompts."""
+    import copy
+
+    from stable_diffusion_tpu_torch import fid as fid_m
+    from stable_diffusion_tpu_torch.tokenizer import load_tokenizer
+    from stable_diffusion_tpu_torch.utils import quantize_model as QM
+
+    text = fid_m.load_clip_model(clip_dir, device="cuda").text_model
+    rng = np.random.default_rng(56)
+    batches = [rng.integers(0, 49408, (2, 77)) for _ in range(4)]
+    t0 = time.perf_counter()
+    qtext = QM.quantize_text_encoder_static(copy.deepcopy(text), batches, impl="cuda")
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    n_w8a8 = sum(1 for m in qtext.modules() if getattr(m, "w8a8", False))
+    ids = {b: torch.as_tensor(rng.integers(0, 49408, (b, 77)), device="cuda") for b in (1, 2)}
+
+    def forward():
+        with torch.no_grad():
+            return {b: qtext(ids[b], impl="cuda") for b in (1, 2)}
+
+    outs, launches, shapes = recorded(counters, forward)
+    ok = (n_w8a8 == 6 * 12 and launches["K8"] == 2 * TEXT_W8A8_LINEARS
+          and all(launches[k] == 0 for k in KERNELS if k != "K8"))
+    want_shapes = {(m, k, n, False, False) for m in (77, 154)
+                   for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768))}
+    ok &= set(shapes["K8"]) == want_shapes
+    say(f"  eval text W8A8: {n_w8a8} W8A8 linears calibrated in {cal_s:.2f} s; one b1 and one b2 "
+        f"forward launch K8 {launches['K8']} times (want {2 * TEXT_W8A8_LINEARS}), shapes "
+        f"{sorted(shapes['K8'])}, other kernels {sum(launches[k] for k in KERNELS if k != 'K8')} "
+        f"{'ok' if ok else 'BAD'}")
+    q_scales = {float(l.self_attn.q_proj.act_scale) == float(l.self_attn.k_proj.act_scale)
+                == float(l.self_attn.v_proj.act_scale) for l in qtext.encoder.layers.values()}
+    ok &= q_scales == {True}
+    ok_k, summary = check_kernels(shapes, ("K8",), "eval-text-w8a8")
+    ok &= ok_k
+    with torch.no_grad(), no_tf32():
+        plain16 = qtext(ids[2], impl="torch")  # the plain W8A8 path in bf16: a witness
+        q32 = copy.deepcopy(qtext).float()
+        ref = q32(ids[2], impl="torch")
+        base = text(ids[2], impl="cuda")
+        del q32
+    rel_q, rel_b, rel_w = rel_l2(outs[2], ref), rel_l2(base, ref), rel_l2(plain16, ref)
+    ok_t = rel_q <= TEXT_W8A8_REL_L2
+    ok &= ok_t
+    say(f"  eval text W8A8 b2 last hidden state: rel_l2 {rel_q:.3e} from the plain W8A8 path in f32 "
+        f"(<= {TEXT_W8A8_REL_L2}); the plain W8A8 path in bf16 {rel_w:.3e} and the unquantized "
+        f"bf16 tower {rel_b:.3e} from it {'ok' if ok_t else 'BAD'}")
+    TC = tests_module("torch_checkpoints")
+    TC.write_vocab(os.path.join(EVAL_DIR, "tokenizer"))
+    tok = load_tokenizer(os.path.join(EVAL_DIR, "tokenizer"))
+    t0 = time.perf_counter()
+    cond = QM.calibrate_cond_encoder(lambda m, i: m(i, impl="cuda"), text, tok)
+    torch.cuda.synchronize()
+    cond_s = time.perf_counter() - t0
+    ok_c = cond["n_prompts"] == len(QM.DEFAULT_CALIBRATION_PROMPTS) and np.isfinite(
+        cond["activation_absmax"]) and cond["activation_absmax"] > 0
+    say(f"  eval calibrate_cond_encoder over {cond['n_prompts']} prompts: activation_absmax "
+        f"{cond['activation_absmax']:.4f} in {cond_s:.2f} s {'ok' if ok_c else 'BAD'}")
+    del text, qtext
+    torch.cuda.empty_cache()
+    return ok and ok_c, dict(text=summary, text_launches=launches,
+                             text_rel=(rel_q, rel_b, rel_w), cond=cond)
+
+
+def eval_sd15(counters, card: str):
+    """(5) calibrate_unet with a short SD1.5 denoise; (6) class2img at 512^2
+    b1: a class embedding as a one-token context, K3's cross body on one key."""
+    from stable_diffusion_tpu_torch.models import clip as clip_m
+    from stable_diffusion_tpu_torch.utils import quantize_model as QM
+
+    pipe = build_pipeline(torch.bfloat16, "cuda", seed=52)
+    cond, uncond = request_ids(57)
+    t0 = time.perf_counter()
+    cal = QM.calibrate_unet(
+        lambda lat, gen: pipe.generate(cond, uncond, initial_latents=lat, inference_steps=EVAL_STEPS,
+                                       seed=57, return_latents=True),
+        latent_shape=(1, 64, 64, 4), steps=EVAL_STEPS, seed=57, device="cuda")
+    cal_s = time.perf_counter() - t0
+    ok = bool(np.isfinite(cal["latent_absmax"])) and cal["latent_absmax"] > 0
+    say(f"  eval calibrate_unet (SD1.5 512^2, DDIM {EVAL_STEPS}, CFG 7.5): latent_absmax "
+        f"{cal['latent_absmax']:.4f} in {cal_s:.2f} s {'ok' if ok else 'BAD'}")
+
+    enc = clip_m.init_class_encoder(53, CLASS2IMG_CLASSES, 768, device="cuda", dtype=torch.bfloat16)
+
+    def context(label):  # [uncond (the extra row); cond]
+        with torch.no_grad():
+            return enc(torch.tensor([CLASS2IMG_CLASSES, label], device="cuda"))
+
+    _, launches1, shapes = recorded(counters, lambda: pipe.generate(
+        context=context(207), img_size=(512, 512), inference_steps=1, seed=58, output_dtype="uint8"))
+    one_key = {k: n for k, n in shapes["K3"].items() if k[2] == 1}
+    ok_c = (sorted(one_key) == [(2, 64, 1, 8, 160), (2, 256, 1, 8, 160), (2, 1024, 1, 8, 80),
+                                (2, 4096, 1, 8, 40)]
+            and not any(k[2] == 77 for k in shapes["K3"]) and launches1["K3:cross"] == 16
+            and launches1["K3:general"] == 0)
+    say(f"  eval class2img one step: K3 one-key shapes {sorted(one_key)} (cross body launches "
+        f"{launches1['K3:cross']}, no 77-key shape) {'ok' if ok_c else 'BAD'}")
+    ok_k, summary = check_kernels({"K3": collections.Counter(one_key)}, ("K3",), "eval-class2img")
+    secs, imgs = [], []
+    for i, label in enumerate((207, 417)):
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs.append(pipe.generate(context=context(label), img_size=(512, 512),
+                                  inference_steps=EVAL_STEPS, seed=59 + i, output_dtype="uint8"))
+        secs.append(time.perf_counter() - t0)
+        launches = {k: c.launches for k, c in counters.items()}
+    ok_r = (all(im.shape == (1, 512, 512, 3) and im.max() > im.min() for im in imgs)
+            and all(launches[k] > 0 for k in SERVING_KERNELS)
+            and all(launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS)
+            and launches["K3:general"] == 0)
+    say(f"  {card}: eval class2img 512^2 b1 DDIM {EVAL_STEPS} CFG 7.5: s/image "
+        f"{[round(s, 3) for s in secs]}, launches {{{', '.join(f'{k}: {launches[k]}' for k in KERNELS)}}} "
+        f"{'ok' if ok_r else 'BAD'}")
+    del pipe, enc
+    torch.cuda.empty_cache()
+    return ok and ok_c and ok_k and ok_r, dict(class2img=summary, class2img_launches=launches,
+                                               class2img_s=secs, cal_unet=cal)
+
+
+def eval_vqvae_inception(counters, card: str):
+    """(7) a VQ-VAE round trip at 512^2 b1 and one EMA update; (8) Inception
+    pool3 at b8 and the FID of two seeded sets."""
+    from stable_diffusion_tpu_torch import fid as fid_m
+    from stable_diffusion_tpu_torch.models import inception as inc_m
+    from stable_diffusion_tpu_torch.models import vae as vae_m
+
+    vq = vae_m.init_vqvae(54, vae_m.VAEConfig(), 1024, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    x = (torch.rand((1, 512, 512, 3), generator=gen, device="cuda") * 2 - 1).bfloat16()
+
+    def round_trip():
+        with torch.no_grad():
+            quant, loss, idx = vae_m.vqvae_encode(vq, x, impl="cuda")
+            return quant, loss, idx, vae_m.vqvae_decode(vq, quant, impl="cuda")
+
+    (quant, loss, idx, img), launches, shapes = recorded(counters, round_trip)
+    ok = (tuple(vq.decoder.conv_in.weight.shape) == (512, 8, 3, 3) and quant.shape == (1, 64, 64, 8)
+          and img.shape == (1, 512, 512, 3) and bool(torch.isfinite(img.float()).all())
+          and bool(torch.isfinite(loss)) and all(launches[k] > 0 for k in ("K1", "K2", "K3"))
+          and launches["K3:wide"] == 2 and launches["K3:general"] == 0)
+    codes = int(torch.unique(idx).numel())
+    say(f"  eval vqvae 512^2 b1: latent {tuple(quant.shape)}, {codes} codes used, loss "
+        f"{float(loss):.4f}, decoder conv_in {tuple(vq.decoder.conv_in.weight.shape)}, launches "
+        f"K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']} (wide {launches['K3:wide']}) "
+        f"{'ok' if ok else 'BAD'}")
+    ok_k, summary = check_kernels(shapes, ("K1", "K2", "K3"), "eval-vqvae")
+    rt_s = median_s(round_trip, 3)
+    book = vq.quant_embedding.weight.detach().float().clone()
+    state = {"N": torch.ones(1024, device="cuda"), "M": book.clone()}
+    _, state = vae_m.vqvae_ema_codebook_update(vq, state, idx, quant, beta=0.99)
+    moved = int((vq.quant_embedding.weight.float() != book).any(dim=1).sum())
+    ok_e = bool(torch.isfinite(vq.quant_embedding.weight.float()).all()) and 0 < moved <= 1024
+    say(f"  eval vqvae round trip {rt_s:.4f} s; one EMA codebook update: {moved} of 1024 codes "
+        f"changed {'ok' if ok_e else 'BAD'}")
+    del vq, quant, img, x
+    torch.cuda.empty_cache()
+
+    inc = inc_m.init_inception(55, device="cuda")
+    sets = [torch.rand((EVAL_FID_BATCH, 512, 512, 3), generator=gen, device="cuda") for _ in range(2)]
+    with torch.no_grad():
+        feats = [inc_m.pool3_features(inc, s).cpu().numpy() for s in sets]
+        pool_s = median_s(lambda: inc_m.pool3_features(inc, sets[0]), 3)
+    t0 = time.perf_counter()
+    fid = fid_m.fid_from_features(feats[0], feats[1])
+    fid_s = time.perf_counter() - t0
+    ok_f = all(f.shape == (EVAL_FID_BATCH, 2048) and np.isfinite(f).all() for f in feats) and bool(
+        np.isfinite(fid)) and fid > 0
+    say(f"  {card}: eval inception pool3 b{EVAL_FID_BATCH} from 512^2: {pool_s:.4f} s; FID of two "
+        f"seeded sets of {EVAL_FID_BATCH}: {fid:.4f} in {fid_s:.2f} s (host, scipy) "
+        f"{'ok' if ok_f else 'BAD'}")
+    del inc
+    torch.cuda.empty_cache()
+    return ok and ok_k and ok_e and ok_f, dict(vqvae=summary, vqvae_launches=launches,
+                                               vqvae_s=rt_s, pool3_s=pool_s, fid=fid, fid_s=fid_s)
+
+
+def eval_cli(counters, clip_dir: str, card: str):
+    """(9) evaluation_torch.main on an f16 diffusers directory, two synthetic
+    COCO-style images, the CLIP score and CLIP-FID; one config, one scale."""
+    import evaluation_torch as ev
+    from PIL import Image
+
+    write_cli_checkpoints(ldm_and_kohya=False)
+    imgs_dir = os.path.join(EVAL_DIR, "coco")
+    os.makedirs(imgs_dir, exist_ok=True)
+    rng = np.random.default_rng(60)
+    for i in (1, 2):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
+            os.path.join(imgs_dir, f"{i}.jpg"))
+    label = {"images": [{"id": i, "file_name": f"{i}.jpg"} for i in (1, 2)],
+             "annotations": [{"image_id": 1, "id": 10, "caption": "a photo of a cat on a sofa"},
+                             {"image_id": 2, "id": 20, "caption": "a red bus in the street"}]}
+    with open(os.path.join(EVAL_DIR, "captions.json"), "w") as f:
+        json.dump(label, f)
+    argv = ["--model_path", os.path.join(CLI_DIR, "sd15"), "--tokenizer_dir",
+            os.path.join(CLI_DIR, "tokenizer"), "--device", "cuda", "--do_cfg", "--sampler", "ddim",
+            "--num_inference_steps", str(EVAL_STEPS), "--original_imgs_dir", imgs_dir,
+            "--label_file", os.path.join(EVAL_DIR, "captions.json"), "--clip_model_dir", clip_dir,
+            "--fid_backbone", "clip", "--num_samples", "2", "--save_dir",
+            os.path.join(EVAL_DIR, "out"), "--seed", "0"]
+    saved = ev.TEST_CONFIGS, ev.CFG_SCALES, os.getcwd()
+    ev.TEST_CONFIGS, ev.CFG_SCALES = [{"sampler": "ddim", "use_cosine_schedule": False}], [7.5]
+    os.chdir(EVAL_DIR)  # TensorBoard's ./runs, where it is installed
+    try:
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = ev.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        ev.TEST_CONFIGS, ev.CFG_SCALES = saved[:2]
+        os.chdir(saved[2])
+    launches = {k: c.launches for k, c in counters.items()}
+    tag = "7.5_ddim_linearSchedule"
+    ok = (sorted(results) == [tag, f"{tag}/fid"] and all(np.isfinite(v) for v in results.values())
+          and all(launches[k] > 0 for k in SERVING_KERNELS)
+          and all(launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS)
+          and launches["K3:general"] == 0
+          and all(os.path.exists(os.path.join(EVAL_DIR, "out", "fake", tag, f"{s}.jpg"))
+                  for s in ("1_10", "2_20")))
+    say(f"  {card}: eval evaluation_torch.main (f16 SD1.5 directory, 2 COCO-style images, DDIM "
+        f"{EVAL_STEPS}, CFG 7.5, CLIP score and CLIP-FID): {secs:.2f} s, results {results}, launches "
+        f"{{{', '.join(f'{k}: {launches[k]}' for k in KERNELS)}}} {'ok' if ok else 'BAD'}")
+    return ok, dict(results=results, main_s=secs, main_launches=launches)
+
+
+def phase_evaluation(counters, card: str):
+    import shutil
+
+    clip_dir = os.path.join(EVAL_DIR, "clip")
+    try:
+        write_clip_dir(clip_dir)
+        ok1, clip = eval_clip(counters, clip_dir)
+        ok2, text = eval_text_w8a8(counters, clip_dir)
+        ok3, sd = eval_sd15(counters, card)
+        ok4, vq = eval_vqvae_inception(counters, card)
+        ok5, cli = eval_cli(counters, clip_dir, card)
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    out = dict(clip, **text, **sd, **vq, **cli)
+    return ok1 and ok2 and ok3 and ok4 and ok5, out
+
+
+def evaluation_line(ev) -> str:
+    return (f"s/score {ev['s_per_score']:.4f} (b1, host arrays), class2img s/image "
+            f"{[round(s, 3) for s in ev['class2img_s']]}, VQ-VAE round trip {ev['vqvae_s']:.4f} s, "
+            f"pool3 b{EVAL_FID_BATCH} {ev['pool3_s']:.4f} s, FID {ev['fid_s']:.2f} s, "
+            f"evaluation_torch.main {ev['main_s']:.2f} s {ev['results']}; text W8A8 rel_l2 "
+            f"{ev['text_rel'][0]:.3e} (plain bf16 {ev['text_rel'][2]:.3e}, unquantized "
+            f"{ev['text_rel'][1]:.3e}); "
+            + ", ".join(f"{label} {k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.3f} ms, bound {v['bound_ms']:.3f}"
+                        for label in ("vision", "text", "class2img", "vqvae")
+                        for k, v in ev[label].items()))
 
 
 def _kernel_group(name: str) -> str:
@@ -3201,6 +3647,11 @@ def main() -> int:
         ok12, tr = phase_trainer(counters, card)
         say(f"phase 12 trainer: {'ok' if ok12 else 'FAIL'}, " + trainer_line(tr))
         return 0 if ok12 else 1
+    if "--evaluation" in sys.argv[1:]:
+        ok13, ev = phase_evaluation(counters, card)
+        say(f"phase 13 evaluation: {'ok' if ok13 else 'FAIL'}, " + evaluation_line(ev))
+        say(card)
+        return 0 if ok13 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -3315,6 +3766,12 @@ def main() -> int:
     if not ok12:
         return 1
 
+    # 13. the evaluation path: CLIP score, W8A8 text tower, class2img, VQ-VAE, FID, the CLI
+    ok13, ev = phase_evaluation(counters, card)
+    say(f"phase 13 evaluation: {'ok' if ok13 else 'FAIL'}, " + evaluation_line(ev))
+    if not ok13:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -3333,7 +3790,12 @@ def main() -> int:
     # and K7-K9's W8A8 ones (the cached step at UNet batch 8; launches over
     # the b4 k = 2 request) under deepcache_w8a8_*, and K1-K6's trainer CLI
     # figures (one uncached run's shapes; launches over the cached run) under
-    # trainer_*.
+    # trainer_*; phase 13's: K3 in the CLIP vision tower (b1 and b8 image
+    # embeds; launches over those two calls) under eval_vision_*, K3's cross
+    # body on one key (class2img's 4 one-key shapes; launches over a class2img
+    # request) under eval_class2img_*, K1-K3 in the VQ-VAE round trip (512^2
+    # b1) under eval_vqvae_*, and K8 in the W8A8 text tower (a b1 and a b2
+    # forward) under eval_text_w8a8_*.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -3363,7 +3825,10 @@ def main() -> int:
                            ("sd21_", sd["launches_off"]), ("img2img_", i2["launches"]),
                            ("cli_", cl["launches"]), ("deepcache_", dc["launches"][2]),
                            ("deepcache_w8a8_", dc["w8a8_launches"][DEEPCACHE_W8A8_K]),
-                           ("trainer_", tr["launches"])):
+                           ("trainer_", tr["launches"]), ("eval_vision_", ev["vision_launches"]),
+                           ("eval_class2img_", ev["class2img_launches"]),
+                           ("eval_vqvae_", ev["vqvae_launches"]),
+                           ("eval_main_", ev["main_launches"])):
                 row[f"{tag}bodies"] = {b: m[f"K3:{b}"] for b in K3_BODY_NAMES}
         dc2 = dc["launches"][2]
         w8dc = dc["w8a8_launches"][DEEPCACHE_W8A8_K]
@@ -3373,8 +3838,12 @@ def main() -> int:
                                ("cli", cl["summary"], cl["launches"]),
                                ("deepcache", dc["summary"], dc2),
                                ("deepcache_w8a8", dc["w8a8_summary"], w8dc),
-                               ("trainer", tr["summary"], tr["launches"])):
-            if k in other and (serving or tag.startswith(("deepcache", "trainer"))):
+                               ("trainer", tr["summary"], tr["launches"]),
+                               ("eval_vision", ev["vision"], ev["vision_launches"]),
+                               ("eval_class2img", ev["class2img"], ev["class2img_launches"]),
+                               ("eval_vqvae", ev["vqvae"], ev["vqvae_launches"]),
+                               ("eval_text_w8a8", ev["text"], ev["text_launches"])):
+            if k in other and (serving or tag.startswith(("deepcache", "trainer", "eval"))):
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],
                             f"{tag}_max_rel_err": t["max_rel_err"], f"{tag}_ms": t["ms"],

@@ -1,6 +1,8 @@
 """The VAE (port of stable_diffusion_tpu/models/vae.py: ``encoder_apply``,
 ``encode_moments``, ``encode``, ``decode``, ``decoder_apply``,
-``_residual_block``, ``_mid_attention``).  :class:`VAEDecoder` is the decode
+``_residual_block``, ``_mid_attention``, and the VQ-VAE's
+``vqvae_encode``, ``vqvae_decode``, ``vqvae_ema_codebook_update``,
+``init_vqvae``).  :class:`VAEDecoder` is the decode
 half alone (key paths ``decoder.*`` and ``post_quant_conv``); :class:`VAE`
 adds ``encoder.*`` and ``quant_conv``, the whole ``init_vae`` tree.
 
@@ -9,7 +11,9 @@ and ``conv_norm_out`` norms that JAX leaves to XLA), every resblock
 GN+SiLU+3x3 conv and upsampler conv through K2, and the single-head d=512
 mid attention through K3.  The encoder's ``conv_in`` (3 channels), its
 stride-2 downsamplers, ``conv_out``, ``quant_conv`` and the 1x1 shortcuts
-stay plain convs, as JAX computes them outside any kernel too.
+stay plain convs, as JAX computes them outside any kernel too.  The
+VQ-VAE runs the same kernels at the same sites (its decoder's ``conv_in``
+takes 8 channels); its distance product stays plain.
 """
 
 from __future__ import annotations
@@ -157,11 +161,14 @@ class _UpBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    """``z_channels``: the latent channels ``conv_in`` takes (the VQ-VAE's
+    decoder takes 2 * latent_channels); ``cfg.latent_channels`` by default."""
+
+    def __init__(self, cfg: VAEConfig, z_channels: Optional[int] = None):
         super().__init__()
         ch = cfg.base_channels
         top = ch * cfg.ch_mult[-1]
-        self.conv_in = _conv(cfg.latent_channels, top, 3)
+        self.conv_in = _conv(z_channels or cfg.latent_channels, top, 3)
         self.mid_block = _Mid(top)
         up = {}
         block_in = top
@@ -180,6 +187,35 @@ def _mid_apply(mid: _Mid, h: torch.Tensor, eps: float, impl: str) -> torch.Tenso
     return mid.resnets["1"](h, eps=eps, impl=impl)
 
 
+def decoder_apply(d: Decoder, z: torch.Tensor, eps: float, impl: str) -> torch.Tensor:
+    """Latent NHWC (B,h,w,z) -> image (B,8h,8w,3) in [-1,1] (JAX ``decoder_apply``)."""
+    h = _mid_apply(d.mid_block, layers.conv2d(d.conv_in, z), eps, impl)
+    for stage in d.up_blocks.values():
+        for blk in stage.resnets.values():
+            h = blk(h, eps=eps, impl=impl)
+        if hasattr(stage, "upsamplers"):
+            conv = stage.upsamplers["0"].conv
+            h = conv3x3(layers.upsample_nearest_2x(h), conv.weight, conv.bias, impl=impl)
+    h = group_norm_silu(h, d.conv_norm_out.weight, d.conv_norm_out.bias, eps=eps, silu=True,
+                        impl=impl)
+    return layers.conv2d(d.conv_out, h)
+
+
+def encoder_apply(e: Encoder, x: torch.Tensor, eps: float, impl: str) -> torch.Tensor:
+    """Image NHWC (B,H,W,3) -> (B,H/8,W/8,2z) (JAX ``encoder_apply``)."""
+    h = layers.conv2d(e.conv_in, x)
+    for stage in e.down_blocks.values():
+        for blk in stage.resnets.values():
+            h = blk(h, eps=eps, impl=impl)
+        if hasattr(stage, "downsamplers"):
+            h = layers.conv2d(stage.downsamplers["0"].conv, h, stride=2,
+                              padding=((0, 1), (0, 1)))
+    h = _mid_apply(e.mid_block, h, eps, impl)
+    h = group_norm_silu(h, e.conv_norm_out.weight, e.conv_norm_out.bias, eps=eps, silu=True,
+                        impl=impl)
+    return layers.conv2d(e.conv_out, h)
+
+
 class VAEDecoder(nn.Module):
     """The decode half of the VAE: key paths ``post_quant_conv`` and
     ``decoder.*`` of the JAX tree."""
@@ -193,17 +229,7 @@ class VAEDecoder(nn.Module):
 
     def decoder_apply(self, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """Latent NHWC (B,h,w,z) -> image (B,8h,8w,3) in [-1,1]."""
-        d, eps = self.decoder, self.cfg.norm_eps
-        h = _mid_apply(d.mid_block, layers.conv2d(d.conv_in, z), eps, impl)
-        for stage in d.up_blocks.values():
-            for blk in stage.resnets.values():
-                h = blk(h, eps=eps, impl=impl)
-            if hasattr(stage, "upsamplers"):
-                conv = stage.upsamplers["0"].conv
-                h = conv3x3(layers.upsample_nearest_2x(h), conv.weight, conv.bias, impl=impl)
-        h = group_norm_silu(h, d.conv_norm_out.weight, d.conv_norm_out.bias, eps=eps,
-                            silu=True, impl=impl)
-        return layers.conv2d(d.conv_out, h)
+        return decoder_apply(self.decoder, z, self.cfg.norm_eps, impl)
 
     def decode(self, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """Latent -> image in [-1, 1]; divides by the 0.18215 latent scale."""
@@ -222,18 +248,7 @@ class VAE(VAEDecoder):
 
     def encoder_apply(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """Image NHWC (B,H,W,3) -> moments (B,H/8,W/8,2z)."""
-        e, eps = self.encoder, self.cfg.norm_eps
-        h = layers.conv2d(e.conv_in, x)
-        for stage in e.down_blocks.values():
-            for blk in stage.resnets.values():
-                h = blk(h, eps=eps, impl=impl)
-            if hasattr(stage, "downsamplers"):
-                h = layers.conv2d(stage.downsamplers["0"].conv, h, stride=2,
-                                  padding=((0, 1), (0, 1)))
-        h = _mid_apply(e.mid_block, h, eps, impl)
-        h = group_norm_silu(h, e.conv_norm_out.weight, e.conv_norm_out.bias, eps=eps,
-                            silu=True, impl=impl)
-        return layers.conv2d(e.conv_out, h)
+        return encoder_apply(self.encoder, x, self.cfg.norm_eps, impl)
 
     def encode_moments(self, x: torch.Tensor, *, impl: str = "auto"):
         """Image NHWC -> (mean, stdev), each (B,H/8,W/8,z); the log-variance
@@ -253,3 +268,74 @@ class VAE(VAEDecoder):
             return mean + std * noise, mean, std
         draw = torch.randn(std.shape, generator=generator, device=std.device).to(std.dtype)
         return (mean + std * draw) * SD_LATENT_SCALE, mean, std
+
+
+# ---------------------------------------------------------------------------
+# VQ-VAE (JAX ``vqvae_encode``, ``vqvae_decode``, ``vqvae_ema_codebook_update``)
+# ---------------------------------------------------------------------------
+
+
+class VQVAE(nn.Module):
+    """The encoder, a decoder on 2 * latent_channels and a codebook
+    ``quant_embedding`` of ``codebook_size`` codes (JAX ``init_vqvae``'s tree)."""
+
+    def __init__(self, cfg: VAEConfig = VAEConfig(), codebook_size: int = 1024):
+        super().__init__()
+        self.cfg = cfg
+        z2 = 2 * cfg.latent_channels
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg, z_channels=z2)
+        self.quant_embedding = nn.Embedding(codebook_size, z2)
+
+
+def vq_distances(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, K) squared distances in f32, JAX's expansion |z|^2 - 2 z.e + |e|^2."""
+    flat, codebook = flat.float(), codebook.float()
+    return ((flat ** 2).sum(dim=1, keepdim=True) - 2.0 * flat @ codebook.T
+            + (codebook ** 2).sum(dim=1)[None, :])
+
+
+def vqvae_encode(model: VQVAE, x: torch.Tensor, *, impl: str = "auto"):
+    """-> (quantized NHWC, vq + commitment loss (f32), code indices (B, h, w)).
+
+    The nearest code is the argmin of :func:`vq_distances` (a plain product:
+    JAX computes it in XLA), the first index among ties; the quantized
+    latent carries the straight-through gradient to the encoder."""
+    z = encoder_apply(model.encoder, x, model.cfg.norm_eps, impl)
+    b, h, w, c = z.shape
+    flat = z.reshape(-1, c)
+    codebook = model.quant_embedding.weight
+    idx = torch.argmin(vq_distances(flat, codebook), dim=-1)
+    quant = codebook[idx].to(flat.dtype)
+    vq_loss = torch.mean((flat.detach().float() - quant.float()) ** 2)
+    commit_loss = torch.mean((flat.float() - quant.detach().float()) ** 2)
+    quant = flat + (quant - flat).detach()  # straight-through
+    return quant.reshape(b, h, w, c), vq_loss + commit_loss, idx.reshape(b, h, w)
+
+
+def vqvae_decode(model: VQVAE, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    return decoder_apply(model.decoder, z, model.cfg.norm_eps, impl)
+
+
+@torch.no_grad()
+def vqvae_ema_codebook_update(model: VQVAE, ema_state, min_indices: torch.Tensor,
+                              encoder_out: torch.Tensor, *, beta: float = 0.995):
+    """EMA codebook update: state {"N": (K,), "M": (K, c)}, both f32.  The
+    codebook is replaced in place by M / max(N, 1e-8); returns (model, new
+    state) (JAX returns new parameters)."""
+    codebook = model.quant_embedding.weight
+    k, c = codebook.shape
+    flat_z = encoder_out.reshape(-1, c).float()
+    onehot = torch.nn.functional.one_hot(min_indices.reshape(-1).long(), k).float()
+    n_new = beta * ema_state["N"] + (1 - beta) * onehot.sum(dim=0)
+    m_new = beta * ema_state["M"] + (1 - beta) * (onehot.T @ flat_z)
+    codebook.copy_(m_new / torch.clamp(n_new[:, None], min=1e-8))
+    return model, {"N": n_new, "M": m_new}
+
+
+def init_vqvae(seed: int, cfg: VAEConfig = VAEConfig(), codebook_size: int = 1024, *,
+               device="cuda", dtype=torch.float32) -> VQVAE:
+    """A seeded random VQ-VAE on ``device`` (``utils.weights.init_random_``)."""
+    from stable_diffusion_tpu_torch.utils.weights import build, init_random_
+
+    return init_random_(build(VQVAE, cfg, codebook_size, device=device, dtype=dtype), seed)

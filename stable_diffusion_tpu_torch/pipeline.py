@@ -10,7 +10,9 @@ and eps = uncond + s * (cond - uncond); ``inpaint`` takes [cond, uncond]
 and eps = cond + s * (cond - uncond), and at every step replaces the latent
 outside the mask by the encoded image re-noised with the predicted noise.
 DDPM takes the model output as eps under any prediction type, as JAX does.
-``generate`` takes JAX's ``deepcache_interval`` (DeepCache: the full UNet
+``generate`` takes JAX's ``context`` (class2img: a precomputed
+conditioning, a (B, D) one a single token, in place of the ids and the
+text tower) and ``deepcache_interval`` (DeepCache: the full UNet
 every k-th step, its shallow stage around the held deep feature between);
 ``inpaint`` and ``generate_in_one_step`` take none, as in JAX.
 The port cannot replay ``jax.random``: every draw (encode noise, starting or
@@ -146,8 +148,9 @@ def _sampler_step(table, lat, t, pt, eps, noise, sampler: str, prediction_type: 
 
 
 class _Draws:
-    """The noise of one call: each draw is the array passed in (checked for
-    its shape) or the next draw of one seeded generator on the device."""
+    """The noise of one call: each draw is the array or tensor passed in
+    (checked for its shape) or the next draw of one seeded generator on the
+    device."""
 
     def __init__(self, device, dtype, seed: int):
         self.device, self.dtype = device, dtype
@@ -156,7 +159,8 @@ class _Draws:
     def __call__(self, name: str, given, shape) -> torch.Tensor:
         if given is None:
             return torch.randn(shape, generator=self.gen, device=self.device).to(self.dtype)
-        t = torch.tensor(np.asarray(given), device=self.device, dtype=self.dtype)
+        t = (given.to(device=self.device, dtype=self.dtype) if isinstance(given, torch.Tensor)
+             else torch.tensor(np.asarray(given), device=self.device, dtype=self.dtype))
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} {tuple(t.shape)}, expected {tuple(shape)}")
         return t
@@ -337,11 +341,11 @@ class StableDiffusion:
         return latents
 
     @torch.no_grad()
-    def generate(self, cond_ids, uncond_ids=None, *, input_image=None, input_latents=None,
+    def generate(self, cond_ids=None, uncond_ids=None, *, input_image=None, input_latents=None,
                  img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
                  cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
                  sampler: str = "ddim", use_cosine_schedule: bool = False, eta: float = 0.0,
-                 seed: int = 0, deepcache_interval: int = 1, initial_latents=None,
+                 seed: int = 0, deepcache_interval: int = 1, context=None, initial_latents=None,
                  encode_noise=None, latent_noise=None, step_noise=None,
                  return_latents: bool = False, output_dtype: str = "float32") -> np.ndarray:
         """txt2img, or img2img with ``input_image`` (an (H, W, 3) array or PIL
@@ -349,6 +353,9 @@ class StableDiffusion:
         (the unscaled latent of one image, or of each lane).
 
         cond_ids / uncond_ids: (B, 77) token ids (uncond needed with CFG).
+        ``context`` replaces both the ids and the text tower (class2img: a
+        ``ClassEncoder`` embedding): (B', D) is taken as one token, (B', S,
+        D) as it is; with CFG it holds the [uncond; cond] halves, B' = 2B.
         sampler: "ddim" (eta as given) or "ddpm"; ``use_cosine_schedule``
         picks the cosine tables.  img2img runs the last ``int(steps *
         strength)`` steps from the latent q-sampled at the first of them.
@@ -367,10 +374,21 @@ class StableDiffusion:
         dev, dtype, impl = self._device(), self.dtype, self.impl
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
-        if do_cfg and uncond_ids is None:
-            raise ValueError("classifier-free guidance needs uncond_ids")
-        context = self._context(uncond_ids, cond_ids) if do_cfg else self._context(cond_ids)
-        b = int(np.asarray(cond_ids).shape[0])
+        if context is not None:
+            context = torch.as_tensor(context).to(device=dev, dtype=dtype)
+            if context.dim() == 2:
+                context = context[:, None, :]
+            if do_cfg and context.shape[0] % 2:
+                raise ValueError(f"with CFG the context holds [uncond; cond], got "
+                                 f"{context.shape[0]} rows")
+            b = context.shape[0] // (2 if do_cfg else 1)
+        else:
+            if cond_ids is None:
+                raise ValueError("generate needs cond_ids or a context")
+            if do_cfg and uncond_ids is None:
+                raise ValueError("classifier-free guidance needs uncond_ids")
+            context = self._context(uncond_ids, cond_ids) if do_cfg else self._context(cond_ids)
+            b = int(np.asarray(cond_ids).shape[0])
         h, w = img_size
         lat_shape = (b, h // 8, w // 8, 4)
         is_img2img = input_image is not None or input_latents is not None

@@ -17,14 +17,21 @@ run the module it is given (JAX keys by parameter-subtree identity and has
 the same rule).  Run it under ``torch.no_grad()`` or give it inputs that
 want no gradient.
 
-The prompt-corpus sweeps (``calibrate_cond_encoder``, ``calibrate_unet``)
-and ``quantize_text_encoder_static`` are not ported yet.
+``quantize_text_encoder_static`` calibrates a text tower over token-id
+batches and quantizes it: every linear of the W8A8 tower then runs K8 on
+the card (the fused QKV on q_proj's scale, which q, k and v share: they
+read the same input).  The prompt-corpus sweeps ``calibrate_cond_encoder``
+(numpy's 99.9th percentile of |output| over the prompts) and
+``calibrate_unet`` (a denoise from seeded latents) return statistics only,
+as in JAX; ``calibrate_unet``'s latents are drawn from a
+``torch.Generator`` (JAX's ``jax.random`` cannot be replayed), or passed in.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -67,6 +74,8 @@ def quantize_params(module: nn.Module) -> nn.Module:
 
 
 quantize_unet = quantize_params
+quantize_cond_encoder = quantize_params
+quantize_vae = quantize_params
 
 
 def quantize_convs(module: nn.Module) -> nn.Module:
@@ -156,3 +165,54 @@ def quantize_unet_static(unet: nn.Module, sample_batches, *, impl: str = "auto")
             m(b[0], b[1], b[2], impl=impl)
 
     return quantize_params(calibrate_static_activations(apply, unet, sample_batches))
+
+
+def _ids(module: nn.Module, ids) -> torch.Tensor:
+    """Token ids (a tensor, array or nested list) as a long tensor on the module's device."""
+    dev = next(module.parameters()).device
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=dev, dtype=torch.long)
+    return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+
+
+def quantize_text_encoder_static(text_encoder: nn.Module, ids_batches, *,
+                                 impl: str = "auto") -> nn.Module:
+    """Static W8A8 text tower: calibrate every linear over the (B, S) token
+    id batches, then quantize them (in place; copy the float tower first)."""
+    def apply(m, ids):
+        with torch.no_grad():
+            m(_ids(m, ids), impl=impl)
+
+    return quantize_params(calibrate_static_activations(apply, text_encoder, ids_batches))
+
+
+def calibrate_cond_encoder(apply_fn: Callable, module: nn.Module, tokenizer,
+                           prompts: Sequence[str] = DEFAULT_CALIBRATION_PROMPTS, *,
+                           percentile: float = 99.9) -> Dict[str, float]:
+    """The prompt corpus through ``apply_fn(module, ids)``, one prompt a call
+    (ids padded to 77 and truncated by ``tokenizer``, on the module's
+    device): the largest per-prompt ``percentile`` of |output|."""
+    stats = []
+    for prompt in prompts:
+        ids = tokenizer([prompt], padding="max_length", max_length=77, truncation=True).input_ids
+        with torch.no_grad():
+            out = apply_fn(module, _ids(module, ids))
+        stats.append(np.percentile(np.abs(out.float().cpu().numpy()), percentile))
+    return {"activation_absmax": float(np.max(stats)), "n_prompts": len(prompts)}
+
+
+def calibrate_unet(denoise_fn: Callable, *, latent_shape=(1, 64, 64, 4), steps: int = 50,
+                   seed: int = 0, latents=None, device="cuda") -> Dict[str, float]:
+    """A denoise from random latents as a calibration sweep:
+    ``denoise_fn(latents, generator)`` runs the loop and returns the final
+    latents.  The latents (f32) are ``latents`` when given, else drawn from
+    ``torch.Generator(device).manual_seed(seed)``, which is then handed to
+    ``denoise_fn`` for its own draws."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if latents is None:
+        latents = torch.randn(latent_shape, generator=gen, device=device)
+    else:
+        latents = torch.tensor(np.asarray(latents), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        out = denoise_fn(latents, gen)
+    return {"latent_absmax": float(torch.as_tensor(out).abs().max()), "steps": steps}

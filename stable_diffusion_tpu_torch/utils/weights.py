@@ -8,7 +8,9 @@ inverse of stable_diffusion_tpu/utils/torch_interop.py ``convert_tensor``:
 ``bias`` as it is.  The int8 forms (utils/quantize_model.py) follow the
 same rules: ``kernel_q`` -> ``weight_q`` laid out as ``kernel`` (int8 kept),
 ``kernel_scale`` (1, out) -> ``weight_scale`` (out,), ``act_scale`` as it
-is (the scales stay f32).  That module cannot be imported here (importing anything
+is (the scales stay f32).  ``class_embedding`` (the CLIP vision tower),
+``logit_scale`` and BatchNorm's ``running_mean`` / ``running_var``
+(Inception) keep their names.  That module cannot be imported here (importing anything
 under ``stable_diffusion_tpu`` imports jax), so ``flatten_tree`` and the
 layout rules are written again.
 """
@@ -55,8 +57,10 @@ def _is_embedding(parts) -> bool:
 
 
 _QUANT_LEAVES = {"weight_q": "kernel_q", "weight_scale": "kernel_scale"}
-_TORCH_NAMES = {"kernel_q": "weight_q", "kernel_scale": "weight_scale", "bias": "bias",
-                "act_scale": "act_scale"}
+# leaves that keep their name (the rest of a layer's leaves become ``weight``)
+_TORCH_NAMES = {"kernel_q": "weight_q", "kernel_scale": "weight_scale",
+                **{n: n for n in ("bias", "act_scale", "class_embedding", "logit_scale",
+                                  "running_mean", "running_var")}}
 _KERNELS = ("kernel", "kernel_q")
 
 
@@ -144,12 +148,13 @@ def jax_param_shapes(module: nn.Module) -> Dict[str, tuple]:
     return shapes
 
 
-def build(cls, cfg, *, device="cuda", dtype=torch.float32) -> nn.Module:
-    """Construct a module without running its initialisers (meta device),
-    then allocate uninitialised storage on ``device`` (the card unless the
-    caller asks for the CPU); load or initialise the weights afterwards."""
+def build(cls, *args, device="cuda", dtype=torch.float32) -> nn.Module:
+    """Construct ``cls(*args)`` (a config, as a rule) without running its
+    initialisers (meta device), then allocate uninitialised storage on
+    ``device`` (the card unless the caller asks for the CPU); load or
+    initialise the weights afterwards."""
     with torch.device("meta"):
-        mod = cls(cfg)
+        mod = cls(*args)
     return mod.to_empty(device=device).to(dtype)
 
 

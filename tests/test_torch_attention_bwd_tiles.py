@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from stable_diffusion_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's SMs
 LOG2E = 1.4426950408889634

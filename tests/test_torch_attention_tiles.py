@@ -39,6 +39,10 @@ import pytest
 import torch
 
 from stable_diffusion_tpu_torch.ops import flash_attention as fa
+try:
+    from tests.torch_threads import one_thread  # noqa: F401
+except ModuleNotFoundError:  # loaded by file on the card, where another ``tests`` package
+    pass                     # shadows this one: tests/test_torch_gpu.py reads its shapes
 
 SMS = 132  # an H100 SXM's SMs
 LOG2E = 1.4426950408889634

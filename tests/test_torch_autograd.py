@@ -34,6 +34,7 @@ from stable_diffusion_tpu_torch.ops import flash_attention as tfa
 from stable_diffusion_tpu_torch.ops import groupnorm as tgn
 from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _t(a):

@@ -18,6 +18,7 @@ from stable_diffusion_tpu_torch.models import clip as tclip
 from stable_diffusion_tpu_torch.models import unet as tunet
 from stable_diffusion_tpu_torch.models import vae as tvae
 from stable_diffusion_tpu_torch.utils import weights as W
+from tests.torch_threads import one_thread  # noqa: F401
 
 _DECODE_HALF = ("decoder", "post_quant_conv")
 

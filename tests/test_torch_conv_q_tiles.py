@@ -33,6 +33,7 @@ from stable_diffusion_tpu.ops import conv as jconv
 from stable_diffusion_tpu_torch.ops import conv
 from stable_diffusion_tpu_torch.ops.groupnorm import gn_silu_prologue
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, quantize_act
+from tests.torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's SMs
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared memory a block can use, and an SM has (227, 228 KB)

@@ -18,6 +18,10 @@ import pytest
 import torch
 
 from stable_diffusion_tpu_torch.ops import conv
+try:
+    from tests.torch_threads import one_thread  # noqa: F401
+except ModuleNotFoundError:  # loaded by file on the card, where another ``tests`` package
+    pass                     # shadows this one: tests/test_torch_gpu.py reads its shapes
 
 SMS = 132  # an H100 SXM's SMs
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared memory a block can use, and an SM has (227, 228 KB)

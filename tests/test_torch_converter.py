@@ -27,6 +27,7 @@ from stable_diffusion_tpu_torch.utils import model_converter as mc
 from stable_diffusion_tpu_torch.utils import safetensors_io
 from stable_diffusion_tpu_torch.utils.weights import build, to_jax_params
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODELS = {
     "unet": (UNet, UNetConfig(**C.TINY_UNET), lambda k: junet.init_unet(k, junet.UNetConfig(**C.TINY_UNET))),

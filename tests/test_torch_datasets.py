@@ -13,6 +13,7 @@ from stable_diffusion_tpu_torch.tokenizer import load_tokenizer
 from stable_diffusion_tpu_torch.utils import datasets as tds
 from stable_diffusion_tpu_torch.utils import native as tnative
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 class FakeTok:

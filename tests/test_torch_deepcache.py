@@ -30,6 +30,7 @@ from stable_diffusion_tpu_torch.models.vae import VAEConfig
 from stable_diffusion_tpu_torch.pipeline import StableDiffusion
 from stable_diffusion_tpu_torch.utils.weights import init_random_, to_jax_params
 from test_torch_img2img import TEXT, UNET, VAE, _ids, _image, _img2img_draws
+from tests.torch_threads import one_thread  # noqa: F401
 
 CONFIGS = {
     "sd15": dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=2,
@@ -40,17 +41,6 @@ CONFIGS = {
 SPLIT_TOL = 1e-5
 PIPE_ATOL = 1e-4
 STEPS = 4  # k = 3 runs full, cached, cached, full
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the box's
-    cores, and torch's thread pools then contend (the tiny models here run
-    10-40x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _init(module, seed):

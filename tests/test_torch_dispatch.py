@@ -14,6 +14,7 @@ import torch
 
 from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm
 from stable_diffusion_tpu_torch.utils.device import use_kernel
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -28,6 +28,7 @@ from stable_diffusion_tpu.ops import ffn as jffn
 from stable_diffusion_tpu_torch.ops import ffn
 from stable_diffusion_tpu_torch.ops.linear import layer_norm_plain
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, int_matmul, quantize_act
+from tests.torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's SMs
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # shared memory a block can use, and an SM has (227, 228 KB)

@@ -28,6 +28,7 @@ from stable_diffusion_tpu_torch.pipeline import StableDiffusion, scheduler_confi
 from stable_diffusion_tpu_torch.tokenizer import load_tokenizer
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params, to_jax_params
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_txt2img.npz")
 TEXT = dict(C.TINY_TEXT, vocab_size=64)  # the golden's text tower

@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from stable_diffusion_tpu.ops import linear as jfl
 from stable_diffusion_tpu_torch.ops import linear as tfl
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 

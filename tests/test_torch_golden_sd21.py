@@ -17,6 +17,7 @@ import hashlib
 import os
 
 import numpy as np
+from tests.torch_threads import one_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "full_sd21_ddim2.npz")
 LATENT_HW = 96

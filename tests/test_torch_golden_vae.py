@@ -18,6 +18,7 @@ import hashlib
 import os
 
 import numpy as np
+from tests.torch_threads import one_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "full_vae_encode.npz")
 IMAGE_HW = 256

@@ -702,6 +702,58 @@ def test_k8_linear_q(gen, shape):
     _check(got, linear.matmul_w8a8_plain(x.float(), q, scale, act, bias.float(), f(r), f(lw), f(lb)))
 
 
+@pytest.mark.parametrize("m", [77, 154])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072), (3072, 768)])
+def test_k8_w8a8_text_tower_shapes(gen, m, k, n):
+    """The W8A8 ViT-L text tower's linears (fused QKV, out projection, fc1,
+    fc2) at b1 (M = 77) and with CFG (154): K8 launched once, against the
+    plain version."""
+    x = _rn(gen, m, k, scale=2.0)
+    q, scale = _q8(gen, n, k)
+    bias = _rn(gen, n, scale=0.1)
+    act = _act(x)
+    before = linear.K8.launches
+    got = linear.matmul_w8a8(x, q, scale, act, bias, impl="cuda")
+    assert linear.K8.launches == before + 1
+    _check(got, linear.matmul_w8a8_plain(x.float(), q, scale, act, bias.float()))
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_k3_ring_body_at_the_vision_tower(gen, b):
+    """CLIP ViT-L/14 at 224: s = 257 = 4 * 64 + 1 (a last key tile of one key
+    and a ragged last query tile), 16 heads of 64, q/k/v a fused QKV's
+    split; the planner's ring variant through the entry point and every
+    compiled ring variant at d = 64 through the raw kernel."""
+    q, k, v = _qkv(gen, b, 257, 16, 64)
+    plan = flash_attention.attention_plan(b, 257, 257, 16, 64, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+    assert plan.body == "ring", plan
+    ref = flash_attention.attention_plain(q.float(), k.float(), v.float())
+    before = flash_attention.K3.launches
+    _check(flash_attention.attention(q, k, v, impl="cuda"), ref)
+    assert flash_attention.K3.launches == before + 1
+    for variant in _ring_variants(64):
+        _check(flash_attention.attention_kernel(q, k, v, _plan=variant), ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160),
+                                   (2, 64, 8, 160)])
+def test_k3_cross_body_with_one_key(gen, shape):
+    """Class2img's cross-attention: one context token, so one key, at every
+    cross site of the SD1.5 UNet at 512^2 with CFG; the cross body, against
+    the plain version (each query's output is that key's value)."""
+    b, sq, h, d = shape
+    q, k, v = _rn(gen, b, sq, h, d), _rn(gen, b, 1, h, d), _rn(gen, b, 1, h, d)
+    plan = flash_attention.attention_plan(b, sq, 1, h, d, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+    assert plan.body == "cross", plan
+    before = flash_attention.K3.launches
+    got = flash_attention.attention(q, k, v, impl="cuda")
+    assert flash_attention.K3.launches == before + 1
+    _check(got, flash_attention.attention_plain(q.float(), k.float(), v.float()))
+    _check(got, v.float().expand(b, sq, h, d))
+
+
 @pytest.mark.parametrize("variant", linear.LQ_VARIANTS)
 @pytest.mark.parametrize("shape", [(616, 768, 320, True, True), (8, 768, 200, False, True)])
 @pytest.mark.parametrize("ksplit", [1, 3])

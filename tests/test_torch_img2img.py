@@ -32,6 +32,7 @@ from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig
 from stable_diffusion_tpu_torch.models.unet import UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAEConfig
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-4
 DDIM_ATOL = 2e-4

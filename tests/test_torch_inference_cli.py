@@ -27,6 +27,7 @@ from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.utils import safetensors_io
 from stable_diffusion_tpu_torch.utils.weights import build, from_jax_params, to_jax_params
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 UNET_JSON = dict(C.TINY_UNET, block_out_channels=[32, 64, 64, 64], attention_head_dim=[2, 4, 4, 4])
 VAE_JSON = {"block_out_channels": [32, 32, 32, 32], "latent_channels": 4}

@@ -22,6 +22,7 @@ from stable_diffusion_tpu_torch.ops import conv as tconv
 from stable_diffusion_tpu_torch.ops import ffn as tffn
 from stable_diffusion_tpu_torch.ops import flash_attention as tfa
 from stable_diffusion_tpu_torch.ops import groupnorm as tgn
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _t(a):

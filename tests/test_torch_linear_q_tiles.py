@@ -27,6 +27,7 @@ import torch
 from stable_diffusion_tpu.ops import linear as jlin
 from stable_diffusion_tpu_torch.ops import linear as L
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, int_matmul, quantize_act
+from tests.torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's SMs
 

@@ -33,6 +33,7 @@ from stable_diffusion_tpu.ops import linear as jlin
 from stable_diffusion_tpu_torch.models.unet import UNetConfig
 from stable_diffusion_tpu_torch.ops import linear as L
 from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift_plain
+from tests.torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's SMs
 TOL = 1e-5

@@ -15,6 +15,7 @@ from stable_diffusion_tpu_torch.models import clip as tclip
 from stable_diffusion_tpu_torch.models import unet as tunet
 from stable_diffusion_tpu_torch.models import vae as tvae
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-4
 

@@ -38,6 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from stable_diffusion_tpu_torch.ops import _cuda, ffn, groupnorm as gn
+try:
+    from tests.torch_threads import one_thread  # noqa: F401
+except ModuleNotFoundError:  # loaded by file on the card, where another ``tests`` package
+    pass                     # shadows this one: tests/test_torch_gpu.py reads its shapes
 
 SMS = 132  # an H100 SXM's SMs
 REL = 1e-5
@@ -244,8 +248,10 @@ def test_emulated_gn_stats_far_from_zero_and_one_pass_fails():
 
 def test_port_imports_neither_triton_nor_jax():
     """K1 is CUDA C++ now: no module of the port imports Triton (nor JAX,
-    nor the JAX package), at any depth of the module; neither do the port's
-    CLIs (inference_torch.py, train_lora_dreambooth_torch.py) and the
+    nor the JAX package), at any depth of the module, the evaluation path's
+    modules (fid.py, models/inception.py) included; neither do the port's
+    CLIs (inference_torch.py, train_lora_dreambooth_torch.py,
+    evaluation_torch.py) and the
     checkpoints chip_smoke.py writes (tests/torch_checkpoints.py).  None of
     them imports ``transformers``, ``safetensors`` or ``regex``: the port
     carries its own reader and tokenizer."""
@@ -253,8 +259,10 @@ def test_port_imports_neither_triton_nor_jax():
     banned = ("triton", "jax", "jaxlib", "stable_diffusion_tpu", "transformers", "safetensors",
               "regex")
     extra = [root.parent / "inference_torch.py", root.parent / "train_lora_dreambooth_torch.py",
-             root.parent / "tests" / "torch_checkpoints.py"]
-    for path in [*root.rglob("*.py"), *extra]:
+             root.parent / "evaluation_torch.py", root.parent / "tests" / "torch_checkpoints.py"]
+    modules = list(root.rglob("*.py"))
+    assert {root / "fid.py", root / "models" / "inception.py"} <= set(modules)
+    for path in [*modules, *extra]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
@@ -288,7 +296,7 @@ def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     smoke = root.parent / "chip_smoke.py"
     for path in [*root.rglob("*.py"), smoke, root.parent / "inference_torch.py",
-                 root.parent / "train_lora_dreambooth_torch.py"]:
+                 root.parent / "train_lora_dreambooth_torch.py", root.parent / "evaluation_torch.py"]:
         for node in _outside_functions(ast.parse(path.read_text())):
             for name in _imported(node):
                 assert name.split(".")[0] != "PIL", (path, name)

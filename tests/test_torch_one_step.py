@@ -19,6 +19,7 @@ from stable_diffusion_tpu_torch.models.vae import VAEConfig
 from stable_diffusion_tpu_torch.pipeline import StableDiffusion
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 TEXT = dict(C.TINY_TEXT, vocab_size=64)
 IDS = (np.arange(2 * 77).reshape(2, 77) * 7) % 64

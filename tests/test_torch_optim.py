@@ -24,6 +24,7 @@ from stable_diffusion_tpu_torch.models import lora as tlora
 from stable_diffusion_tpu_torch.models import unet as tunet
 from stable_diffusion_tpu_torch.schedulers import schedule as TS
 from stable_diffusion_tpu_torch.utils.weights import lora_from_jax, lora_to_jax
+from tests.torch_threads import one_thread  # noqa: F401
 
 UNET = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),
             cross_attention_dim=32, t_embed_dim=16)

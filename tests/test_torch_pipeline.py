@@ -21,6 +21,7 @@ from stable_diffusion_tpu_torch.models.unet import UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAEConfig
 from stable_diffusion_tpu_torch.pipeline import StableDiffusion, cfg_combine
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_txt2img.npz")
 UNET = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),

@@ -16,6 +16,7 @@ from stable_diffusion_tpu_torch.models import layers as TL
 from stable_diffusion_tpu_torch.ops import attention as TA
 from stable_diffusion_tpu_torch.schedulers import schedule as TS
 from stable_diffusion_tpu_torch.utils.weights import from_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -38,6 +38,7 @@ from stable_diffusion_tpu_torch.ops import linear as tlin
 from stable_diffusion_tpu_torch.ops import quantize as tquant
 from stable_diffusion_tpu_torch.utils import quantize_model as TQ
 from stable_diffusion_tpu_torch.utils import weights as W
+from tests.torch_threads import one_thread  # noqa: F401
 
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))

@@ -33,6 +33,7 @@ from stable_diffusion_tpu_torch.models import layers as tlayers
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.utils import quantize_model as TQ
 from stable_diffusion_tpu_torch.utils import weights as W
+from tests.torch_threads import one_thread  # noqa: F401
 
 UNET = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),
             cross_attention_dim=24, t_embed_dim=16)

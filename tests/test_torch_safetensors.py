@@ -15,6 +15,7 @@ from safetensors.torch import load_file as st_load
 from safetensors.torch import save_file as st_save
 
 from stable_diffusion_tpu_torch.utils import safetensors_io as S
+from tests.torch_threads import one_thread  # noqa: F401
 
 DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.int64, torch.int32, torch.int8,
           torch.uint8, torch.bool]

@@ -12,6 +12,7 @@ import torch
 
 from stable_diffusion_tpu.schedulers import schedule as JS
 from stable_diffusion_tpu_torch.schedulers import schedule as TS
+from tests.torch_threads import one_thread  # noqa: F401
 
 STEP_ATOL = 1e-6
 

@@ -23,6 +23,7 @@ from stable_diffusion_tpu_torch.models.vae import VAEConfig
 from stable_diffusion_tpu_torch.ops import linear, winograd
 from stable_diffusion_tpu_torch.pipeline import StableDiffusion, scheduler_config_for
 from stable_diffusion_tpu_torch.utils.weights import build, from_jax_params, to_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 UNET = dict(block_out_channels=(32, 64, 64, 64), attention_head_dim=(2, 4, 4, 4),
             cross_attention_dim=24, t_embed_dim=16)

@@ -17,6 +17,7 @@ import pytest
 import regex
 
 from stable_diffusion_tpu_torch import tokenizer as T
+from tests.torch_threads import one_thread  # noqa: F401
 
 TEXT = ("a photo of a cat sitting on the mat, a painting of a dog in the style of van gogh. "
         "an astronaut riding a horse on the moon; highly detailed, 4k, trending on artstation. "

@@ -32,6 +32,7 @@ from stable_diffusion_tpu_torch.utils import checkpoint as ckpt
 from stable_diffusion_tpu_torch.utils.tree import tree_leaves
 from stable_diffusion_tpu_torch.utils.weights import init_random_
 from tests import torch_checkpoints as C
+from tests.torch_threads import one_thread  # noqa: F401
 
 UPDATES = 2
 SCALARS = []  # (tag, values, epoch) of every add_scalars call
@@ -49,17 +50,6 @@ class _Writer:
 
     def close(self):
         pass
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the box's
-    cores, and torch's thread pools then contend (the tiny models here run
-    10-40x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -16,6 +16,7 @@ from stable_diffusion_tpu.utils.torch_interop import flatten_tree
 from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.models import vae as tvae
 from stable_diffusion_tpu_torch.utils import weights as W
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-4
 KW = dict(ch_mult=(1, 2), base_channels=32)

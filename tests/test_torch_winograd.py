@@ -18,6 +18,7 @@ from stable_diffusion_tpu.ops import conv as jconv
 from stable_diffusion_tpu.ops import winograd as jwg
 from stable_diffusion_tpu_torch.ops import conv as tconv
 from stable_diffusion_tpu_torch.ops import winograd as twg
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 SHAPES = [(1, 16, 16, 128, 128), (2, 8, 32, 320, 320), (1, 16, 16, 192, 256)]

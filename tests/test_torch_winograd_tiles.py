@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from stable_diffusion_tpu.ops import winograd as jwg
 from stable_diffusion_tpu_torch.ops import winograd as W
 from stable_diffusion_tpu_torch.ops.groupnorm import gn_scale_shift_plain, gn_silu_prologue
+from tests.torch_threads import one_thread  # noqa: F401
 
 # (B, H, W, Cin, Cout, prologue) of every K12 call in one switched SD2.1
 # 768^2 CFG step (chip_smoke.py phase 8 records the same 24 keys): the UNet
