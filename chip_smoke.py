@@ -1,11 +1,13 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the thirteen phases below
+    python3 chip_smoke.py                  # the fifteen phases below
     python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
     python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
     python3 chip_smoke.py --deepcache      # phases 1-2 and 11 (no contract line)
     python3 chip_smoke.py --trainer        # phases 1-2 and 12 (no contract line)
     python3 chip_smoke.py --evaluation     # phases 1-2 and 13 (no contract line)
+    python3 chip_smoke.py --demo           # phases 1-2 and 14 (no contract line)
+    python3 chip_smoke.py --sharded        # phases 1-2 and 15 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -36,7 +38,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Thirteen phases, one line each (plus detail lines); any failure exits non-zero
+Fifteen phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -196,9 +198,28 @@ and the final line is printed only when every phase passed:
                  and CLIP-FID (one config, one scale: JAX's results keys;
                  K1-K4 launched, K5-K12 never).  Writes under build/eval and
                  build/cli, removed at the end.
+ 14. demo     -- the Gradio demo, demo/app_torch.py, at full SD1.5 width:
+                 tests/gradio_stub.py (loaded by file) stands in for gradio;
+                 phase 10's f16 directory and vocabulary loaded by
+                 initialize_model(device="cuda"); the three recorded click
+                 handlers (txt2img, img2img, inpaint) at DDIM 50 CFG 7.5, b1
+                 and b2, each with a gr.Progress that must end at 1.0 (K1-K4
+                 launched, K5-K12 and K3's general body never); the b1
+                 txt2img request again as one call: the same launches, the
+                 image within DEMO_SEGMENT_REL_L2 of the segmented one.
+ 15. sharded  -- StableDiffusion.shard on a torch.distributed mesh: two
+                 ranks (this script with --shard-rank, tcp://localhost) share
+                 the card over gloo as a (1, 2) tensor-parallel mesh, then one
+                 rank runs over NCCL as a 1x1 mesh; SD1.5 512^2 b1 DDIM
+                 SHARD_STEPS CFG 7.5 on seeded weights: the tp=2 image within
+                 SHARD_IMAGE_REL_L2 of rank 0's unsharded image (the two
+                 ranks' equal; the 1x1 image the unsharded one); the shapes
+                 K3 (4 of 8 heads) and K4 (hidden 640 / 1280 / 2560) get on a
+                 shard, each checked and timed there; seconds a request a
+                 mesh.  Writes under build/shard, removed at the end.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds,
-and phases 10-13's checkpoints, data and logs, removed when each ends).
+and phases 10-15's checkpoints, data and logs, removed when each ends).
 """
 
 from __future__ import annotations
@@ -866,21 +887,23 @@ def _case(kernel: str, key, gen):
                     also=also, device=device, group=group,
                     note=f"{k3_note(plan)} exps={b * h * sq * sk}")
     elif kernel == "K4":
-        m, c = key
-        args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
-                rn(8 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1),
+        m, c = key[:2]
+        hid = key[2] if len(key) > 2 else 4 * c  # a tensor-parallel shard's hidden width
+        args = [rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * hid, c, scale=c ** -0.5),
+                rn(2 * hid, scale=0.1), rn(c, hid, scale=hid ** -0.5), rn(c, scale=0.1),
                 rn(m, c)]
 
         def run(*a, impl):
-            return ffn.geglu_ffn(*a[:7], a[7], impl=impl)
-        plan = ffn.ffn_plan(m, c, torch.cuda.get_device_properties(0).multi_processor_count)
-        nbytes = 2 * (3 * m * c + 12 * c * c + 11 * c)
-        # the design's own device-memory bytes: the function's, h (M x 4C
+            return ffn.geglu_ffn(*a[:7], a[7], hidden=hid, impl=impl)
+        plan = ffn.ffn_plan(m, c, torch.cuda.get_device_properties(0).multi_processor_count,
+                            hidden=hid)
+        nbytes = 2 * (3 * m * c + 3 * c * hid + 2 * hid + 3 * c)
+        # the design's own device-memory bytes: the function's, h (M x H
         # bf16) written and read back, and the split-K partials (f32)
-        design = nbytes + 2 * 2 * m * 4 * c + (2 * 4 * plan.ksplit2 * m * c if plan.ksplit2 > 1 else 0)
-        work = dict(flops=24 * m * c * c, bytes=nbytes, rate=BF16_TC_FLOPS,
-                    also={"g1": lambda: ffn.geglu_ffn_kernel(*args, _parts=1),
-                          "g2": lambda: ffn.geglu_ffn_kernel(*args, _parts=2)},
+        design = nbytes + 2 * 2 * m * hid + (2 * 4 * plan.ksplit2 * m * c if plan.ksplit2 > 1 else 0)
+        work = dict(flops=6 * m * c * hid, bytes=nbytes, rate=BF16_TC_FLOPS,
+                    also={"g1": lambda: ffn.geglu_ffn_kernel(*args, hidden=hid, _parts=1),
+                          "g2": lambda: ffn.geglu_ffn_kernel(*args, hidden=hid, _parts=2)},
                     note=f"plan=G1 {plan.g1} nsplit{plan.nsplit1} G2 {plan.g2} "
                          f"ksplit{plan.ksplit2} design_bytes={design} "
                          f"design_bound_ms={design / HBM_BYTES_PER_S * 1e3:.4f}")
@@ -2796,6 +2819,363 @@ def evaluation_line(ev) -> str:
                         for k, v in ev[label].items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the Gradio demo (demo/app_torch.py) at full SD1.5 width
+# ---------------------------------------------------------------------------
+
+DEMO_STEPS = 50
+DEMO_SAMPLES = (1, 2)
+# A segmented request (the demo's gr.Progress) against the one call: the same
+# kernels in the same order on the same draws, so equal bit for bit where
+# every launch is deterministic; bf16's rounding through 50 steps otherwise
+# (the golden's bf16 bound, relative L2 of the [0, 1] images).
+DEMO_SEGMENT_REL_L2 = 5e-2
+
+
+def load_demo_app():
+    """demo/app_torch.py loaded from its file, with tests/gradio_stub.py
+    (loaded by file too) standing in for gradio: (app, stub)."""
+    import importlib.util
+
+    stub = tests_module("gradio_stub")
+    spec = importlib.util.spec_from_file_location("app_torch",
+                                                  os.path.join(REPO, "demo", "app_torch.py"))
+    app = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(app)
+    return app, stub
+
+
+def phase_demo(counters, card: str):
+    """The demo's three recorded click handlers at DDIM 50, b1 and b2, each
+    with a gr.Progress, on the f16 directory phase 10 writes, loaded by
+    ``initialize_model(device="cuda")``; then the b1 txt2img request as one
+    call, its image and launches against the segmented request's."""
+    import shutil
+
+    from PIL import Image
+
+    saved = sys.modules.get("gradio")
+    app, stub = load_demo_app()
+    sys.modules["gradio"] = stub
+    try:
+        write_cli_checkpoints(ldm_and_kohya=False)
+        t0 = time.perf_counter()
+        pipe, _ = app.initialize_model(os.path.join(CLI_DIR, "sd15"),
+                                       os.path.join(CLI_DIR, "tokenizer"), device="cuda")
+        load_s = time.perf_counter() - t0
+        events = {e["tab"]: e for e in app.build_demo().events}
+        ok = sorted(events) == ["img2img", "inpaint", "txt2img"] and pipe.impl == "cuda"
+        image = Image.fromarray(request_image(90))
+        layer = np.zeros((512, 512, 4), np.uint8)
+        layer[..., 3] = request_mask()
+        payload = {"background": image, "layers": [Image.fromarray(layer, "RGBA")]}
+        inputs = {"txt2img": (), "img2img": (image,), "inpaint": (payload,)}
+        pipe.generate(prompt=CLI_PROMPT, inference_steps=1, img_size=app.IMG_SIZE)  # warm-up
+        secs, runs = {}, {}
+        for tab in ("txt2img", "img2img", "inpaint"):
+            for n in DEMO_SAMPLES:
+                progress = stub.Progress()
+                for c in counters.values():
+                    c.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = events[tab]["fn"](*inputs[tab], CLI_PROMPT, "", n, False, 7.5, 0.8,
+                                        DEMO_STEPS, "ddim", progress=progress)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                fracs = [f for f, _ in progress.calls]
+                # one bar a request (inpaint runs one a sample), each from 0 to 1.0
+                bars = np.split(np.asarray(fracs), np.flatnonzero(np.asarray(fracs) == 0.0)[1:])
+                arrs = [np.asarray(o) for o in out]
+                good = (len(out) == n and all(a.shape == (512, 512, 3) and a.max() > a.min()
+                                              for a in arrs)
+                        and len(bars) == (n if tab == "inpaint" else 1)
+                        and all(b[0] == 0.0 and b[-1] == 1.0 and (np.diff(b) > 0).all()
+                                for b in bars)
+                        and all(launches[k] > 0 for k in SERVING_KERNELS)
+                        and all(launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS)
+                        and launches["K3:general"] == 0)
+                ok &= good
+                secs[f"{tab} b{n}"] = s
+                runs[(tab, n)] = (arrs, launches)
+                say(f"  {card}: demo {tab} n_samples={n} DDIM {DEMO_STEPS} CFG 7.5 through the "
+                    f"click handler: {s:.3f} s, {len(progress.calls)} progress calls ending at "
+                    f"{fracs[-1]:.3f}, launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}} "
+                    f"{'ok' if good else 'BAD'}")
+        # the b1 txt2img request as one call (no progress callback)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = pipe.generate(prompt=CLI_PROMPT, uncond_prompt="", batch_size=1, cfg_scale=7.5,
+                            strength=0.8, inference_steps=DEMO_STEPS, sampler="ddim",
+                            img_size=app.IMG_SIZE)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = {k: c.launches for k, c in counters.items()}
+        one_u8 = (np.clip(one, 0, 1) * 255).round().astype(np.uint8)
+        seg_u8, seg_launches = runs[("txt2img", 1)][0][0], runs[("txt2img", 1)][1]
+        rel = rel_l2(torch.tensor(seg_u8), torch.tensor(one_u8[0]))
+        same = bool(np.array_equal(seg_u8, one_u8[0]))
+        good = rel <= DEMO_SEGMENT_REL_L2 and one_launches == seg_launches
+        ok &= good
+        say(f"  {card}: demo txt2img b1 as one call: {one_s:.3f} s, launches equal to the "
+            f"segmented request's: {one_launches == seg_launches}; image rel_l2 {rel:.3e} "
+            f"({'bit for bit' if same else 'not bit for bit'}) {'ok' if good else 'BAD'}")
+    finally:
+        if saved is None:
+            sys.modules.pop("gradio", None)
+        else:
+            sys.modules["gradio"] = saved
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return ok, dict(load_s=load_s, secs=secs, one_s=one_s, rel=rel, same=same,
+                    launches=runs[("txt2img", 1)][1])
+
+
+def demo_line(dm) -> str:
+    return (f"f16 SD1.5 directory loaded in {dm['load_s']:.2f} s; DDIM {DEMO_STEPS} CFG 7.5 s/request "
+            + ", ".join(f"{k} {v:.3f}" for k, v in dm["secs"].items())
+            + f"; txt2img b1 one call {dm['one_s']:.3f} s, image rel_l2 to the segmented "
+            f"{dm['rel']:.3e}{' (bit for bit)' if dm['same'] else ''}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: sharded serving (parallel/mesh.py, StableDiffusion.shard)
+# ---------------------------------------------------------------------------
+
+SHARD_DIR = os.path.join(REPO, "build", "shard")
+SHARD_SIZE = (512, 512)
+SHARD_STEPS = 10        # DDIM steps a request (cut from 50: gloo moves each sum through the host)
+SHARD_SEED = 50         # the weights: init_random_ from this seed, the same on every rank
+SHARD_TIMEOUT = 420     # seconds a world may take
+# The tensor-parallel image against the unsharded one: the row-parallel
+# products summed over two ranks in f32 on the host, then rounded to bf16,
+# where the unsharded kernels round one product: bf16's rounding through
+# the steps (the golden's bf16 bound, relative L2 of the uint8 images).
+SHARD_IMAGE_REL_L2 = 5e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _CollectiveTimer:
+    """While entered, times each ``Mesh.all_reduce`` that crosses ranks (the
+    card synchronised on entry and exit, so the rank's own queued work is
+    not counted) and, inside it, the ``dist.all_reduce`` call alone; the
+    rest is the host copies and the f32 casts of a gloo mesh.  ``read``
+    returns the sums since the last read."""
+
+    def __init__(self, pmesh):
+        self.pmesh, self.sums = pmesh, dict(calls=0, all_reduce_s=0.0, wire_s=0.0, mib=0.0)
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        mesh_cls, sums = self.pmesh.Mesh, self.sums
+        inner_mesh, inner_dist = mesh_cls.all_reduce, dist.all_reduce
+
+        def wire(t, *a, **k):
+            t0 = time.perf_counter()
+            r = inner_dist(t, *a, **k)
+            sums["wire_s"] += time.perf_counter() - t0
+            sums["mib"] += t.numel() * t.element_size() / 2 ** 20
+            return r
+
+        def all_reduce(mesh, t, axis=self.pmesh.MODEL_AXIS):
+            if mesh.size(axis) == 1:
+                return inner_mesh(mesh, t, axis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = inner_mesh(mesh, t, axis)
+            torch.cuda.synchronize()
+            sums["all_reduce_s"] += time.perf_counter() - t0
+            sums["calls"] += 1
+            return r
+
+        self._undo = (inner_mesh, inner_dist)
+        mesh_cls.all_reduce, dist.all_reduce = all_reduce, wire
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        self.pmesh.Mesh.all_reduce, dist.all_reduce = self._undo
+
+    def read(self):
+        out = dict(self.sums)
+        self.sums.update(calls=0, all_reduce_s=0.0, wire_s=0.0, mib=0.0)
+        return out
+
+
+def shard_rank_main(argv) -> int:
+    """One rank of phase 15 (``--shard-rank RANK WORLD PORT DATA MODEL``): the
+    seeded SD1.5 pipeline on the card, rank 0's unsharded request (before
+    the mesh), the mesh and ``shard``, the kernel shapes of one sharded
+    step, then SERVE_REQUESTS timed requests; rank 0 writes its results
+    under SHARD_DIR."""
+    import torch.distributed as dist
+
+    from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear, winograd
+    from stable_diffusion_tpu_torch.parallel import mesh as pmesh
+
+    rank, world, port, data, model = map(int, argv[:5])
+    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
+                "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
+                "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
+                "K12": winograd.K12}
+    counters.update({f"K3:{b}": c for b, c in flash_attention.K3_BY_BODY.items()})
+    device = pmesh.init_distributed(rank, world, f"tcp://localhost:{port}", device="cuda")
+    tag = f"{data}x{model}"
+    try:
+        pipe = build_pipeline(torch.bfloat16, "cuda", seed=SHARD_SEED)
+        cond, uncond = request_ids(70)
+        kw = dict(img_size=SHARD_SIZE, cfg_scale=7.5, inference_steps=SHARD_STEPS, seed=7000,
+                  output_dtype="uint8")
+        out = {"backend": dist.get_backend(), "device": str(device)}
+        pipe.generate(cond, uncond, **dict(kw, inference_steps=1))  # warm-up
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            np.save(os.path.join(SHARD_DIR, f"unsharded_{tag}.npy"), pipe.generate(cond, uncond, **kw))
+            out["unsharded_s"] = time.perf_counter() - t0
+        dist.barrier()
+        mesh = pmesh.make_mesh(data, model)
+        pipe.shard(mesh)
+        _, _, shapes = recorded(counters, lambda: pipe.generate(cond, uncond,
+                                                                **dict(kw, inference_steps=1)))
+        secs, comm = [], []
+        timer = _CollectiveTimer(pmesh)
+        for _ in range(SERVE_REQUESTS):
+            for c in counters.values():
+                c.reset()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timer:
+                img = pipe.generate(cond, uncond, **kw)
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            comm.append(timer.read())
+        np.save(os.path.join(SHARD_DIR, f"rank{rank}_{tag}.npy"), img)
+        out.update(secs=secs, comm=comm, launches={k: c.launches for k, c in counters.items()},
+                   shapes={k: [[list(key), n] for key, n in shapes[k].items()] for k in ("K3", "K4")},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        with open(os.path.join(SHARD_DIR, f"rank{rank}_{tag}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_world(world: int, data: int, model: int, label: str) -> bool:
+    """Start ``world`` ranks of ``shard_rank_main`` and wait for them (every
+    one stopped on a timeout); their output's tail goes to the log."""
+    env = dict(os.environ)
+    if os.path.isdir("/sys/class/net/lo"):  # the collectives' bootstrap stays on loopback
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+                               str(world), str(port), str(data), str(model)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    ok, deadline = True, time.monotonic() + SHARD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log, _ = p.communicate()
+                log += f"\n(killed after {SHARD_TIMEOUT} s)"
+            if p.returncode != 0:
+                ok = False
+                say(f"  shard {label} rank {r}: exit {p.returncode}\n" + log[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ok
+
+
+def phase_sharded(counters, card: str):
+    """SD1.5 512^2 b1 DDIM (SHARD_STEPS) CFG 7.5 on a tensor-parallel mesh
+    (1, 2): two ranks sharing the card over gloo; then one rank over NCCL
+    as a 1x1 mesh.  The sharded image against rank 0's unsharded one; K3
+    and K4 at the shapes a shard gives them (4 of 8 heads; hidden 4C / 2),
+    checked there against their plain versions; seconds a request a mesh."""
+    import shutil
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    torch.cuda.empty_cache()
+    try:
+        ok = _run_world(2, 1, 2, "tp=2 gloo") and _run_world(1, 1, 1, "1x1 nccl")
+        if not ok:
+            return False, {}
+        res = {}
+        for tag, world in (("1x2", 2), ("1x1", 1)):
+            res[tag] = [json.load(open(os.path.join(SHARD_DIR, f"rank{r}_{tag}.json")))
+                        for r in range(world)]
+            for r in range(world):
+                res[tag][r]["img"] = np.load(os.path.join(SHARD_DIR, f"rank{r}_{tag}.npy"))
+        base = np.load(os.path.join(SHARD_DIR, "unsharded_1x2.npy"))
+        base_nccl = np.load(os.path.join(SHARD_DIR, "unsharded_1x1.npy"))
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    tp, one = res["1x2"], res["1x1"][0]
+    rel = rel_l2(torch.from_numpy(tp[0]["img"]), torch.from_numpy(base))
+    ranks_equal = bool(np.array_equal(tp[0]["img"], tp[1]["img"]))
+    one_equal = bool(np.array_equal(one["img"], base_nccl)) and bool(np.array_equal(base, base_nccl))
+    shapes = {k: collections.Counter({tuple(key): n for key, n in tp[0]["shapes"][k]})
+              for k in ("K3", "K4")}
+    hidden = sorted({key[2] for key in shapes["K4"] if len(key) == 3})
+    heads = sorted({key[3] for key in shapes["K3"]})
+    launches = tp[0]["launches"]
+    good = (rel <= SHARD_IMAGE_REL_L2 and ranks_equal and one_equal
+            and tp[0]["backend"] == "gloo" and one["backend"] == "nccl"
+            and hidden == [640, 1280, 2560] and all(len(key) == 3 for key in shapes["K4"])
+            and 4 in heads and 8 not in heads
+            and all(launches[k] > 0 for k in SERVING_KERNELS) and launches["K3:general"] == 0
+            and all(launches[k] == 0 for k in KERNELS if k not in SERVING_KERNELS))
+    say(f"  {card}: shard tp=2 (two ranks on one card, {tp[0]['backend']}): image rel_l2 to the "
+        f"unsharded {rel:.3e}, ranks' images equal: {ranks_equal}; 1x1 ({one['backend']}) equal "
+        f"to the unsharded: {one_equal}; K4 hidden widths {hidden}, K3 heads {heads}; launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}} {'ok' if good else 'BAD'}")
+    ok_k, summary = check_kernels(shapes, ("K3", "K4"), "shard")
+    secs = {"unsharded": tp[0]["unsharded_s"], "1x2 gloo": tp[0]["secs"],
+            "1x1 nccl": one["secs"]}
+    for r, rank in enumerate(tp):
+        for i, (s, c) in enumerate(zip(rank["secs"], rank["comm"])):
+            say(f"  {card}: shard tp=2 rank {r} request {i}: {s:.3f} s, {c['calls']} all-reduces "
+                f"of {c['mib']:.1f} MiB in all: {c['all_reduce_s']:.3f} s inside Mesh.all_reduce, "
+                f"of which {c['wire_s']:.3f} s in gloo's all_reduce and "
+                f"{c['all_reduce_s'] - c['wire_s']:.3f} s in host copies and casts; "
+                f"{s - c['all_reduce_s']:.3f} s outside the collectives")
+    return good and ok_k, dict(summary=summary, secs=secs, rel=rel, launches=launches,
+                               peak_gib=[r["peak_gib"] for r in tp], comm=tp[0]["comm"])
+
+
+def sharded_line(sh) -> str:
+    s = sh["secs"]
+    return (f"{SHARD_SIZE[0]}^2 b1 DDIM {SHARD_STEPS} CFG 7.5: s/request unsharded {s['unsharded']:.3f}, "
+            f"tp=2 gloo {[round(v, 3) for v in s['1x2 gloo']]}, 1x1 nccl "
+            f"{[round(v, 3) for v in s['1x1 nccl']]}; image rel_l2 {sh['rel']:.3e}; peak GiB a rank "
+            f"{[round(v, 2) for v in sh['peak_gib']]}; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.2f}"
+                        for k, v in sh["summary"].items()) + " per sharded pass")
+
+
 def _kernel_group(name: str) -> str:
     if name in ("partial_stats", "finalize", "apply"):  # an older checkout's Triton K1 (--root)
         return "K1"
@@ -3652,6 +4032,14 @@ def main() -> int:
         say(f"phase 13 evaluation: {'ok' if ok13 else 'FAIL'}, " + evaluation_line(ev))
         say(card)
         return 0 if ok13 else 1
+    if "--demo" in sys.argv[1:]:
+        ok14, dm = phase_demo(counters, card)
+        say(f"phase 14 demo: {'ok' if ok14 else 'FAIL'}, " + demo_line(dm))
+        return 0 if ok14 else 1
+    if "--sharded" in sys.argv[1:]:
+        ok15, sh = phase_sharded(counters, card)
+        say(f"phase 15 sharded: {'ok' if ok15 else 'FAIL'}, " + (sharded_line(sh) if sh else ""))
+        return 0 if ok15 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -3772,6 +4160,18 @@ def main() -> int:
     if not ok13:
         return 1
 
+    # 14. the Gradio demo's handlers, with gr.Progress, on the f16 SD1.5 directory
+    ok14, dm = phase_demo(counters, card)
+    say(f"phase 14 demo: {'ok' if ok14 else 'FAIL'}, " + demo_line(dm))
+    if not ok14:
+        return 1
+
+    # 15. sharded serving: tp=2 over gloo on the one card, a 1x1 mesh over NCCL
+    ok15, sh = phase_sharded(counters, card)
+    say(f"phase 15 sharded: {'ok' if ok15 else 'FAIL'}, " + (sharded_line(sh) if sh else ""))
+    if not ok15:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -3795,7 +4195,10 @@ def main() -> int:
     # body on one key (class2img's 4 one-key shapes; launches over a class2img
     # request) under eval_class2img_*, K1-K3 in the VQ-VAE round trip (512^2
     # b1) under eval_vqvae_*, and K8 in the W8A8 text tower (a b1 and a b2
-    # forward) under eval_text_w8a8_*.
+    # forward) under eval_text_w8a8_*; K3's and K4's on a tensor-parallel
+    # rank (phase 15: one sharded CFG step's shapes; launches over a tp=2
+    # request of SHARD_STEPS steps) under shard_*, and K1-K4's launches in
+    # the demo's b1 txt2img request (phase 14) under demo_launches.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -3842,7 +4245,8 @@ def main() -> int:
                                ("eval_vision", ev["vision"], ev["vision_launches"]),
                                ("eval_class2img", ev["class2img"], ev["class2img_launches"]),
                                ("eval_vqvae", ev["vqvae"], ev["vqvae_launches"]),
-                               ("eval_text_w8a8", ev["text"], ev["text_launches"])):
+                               ("eval_text_w8a8", ev["text"], ev["text_launches"]),
+                               ("shard", sh["summary"], sh["launches"])):
             if k in other and (serving or tag.startswith(("deepcache", "trainer", "eval"))):
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],
@@ -3851,6 +4255,8 @@ def main() -> int:
                             f"{tag}_library_ms": t["library_ms"]})
                 row.update({f"{tag}_{extra}": t[extra] for extra in ("also_ms", "groups")
                             if extra in t})
+        if serving:  # phase 14: the demo's b1 txt2img request, in segments
+            row["demo_launches"] = dm["launches"][k]
         row["pass"] = row.pop("pass_")
         kernels.append(row)
     # K5 + K6 as the one function they compute, per train micro-step
@@ -3867,6 +4273,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--shard-rank" in sys.argv[1:]:  # one rank of phase 15, started by phase_sharded
+        sys.exit(shard_rank_main(sys.argv[sys.argv.index("--shard-rank") + 1:]))
     try:
         code = main()
     except Exception:  # any phase's failure: report it and exit non-zero

@@ -5,8 +5,12 @@
 // Replaces: stable_diffusion_tpu/ops/ffn.py:67 bf16 `_make_kernel` (launched
 // by `_ffn_call`, reached through `geglu_ffn` -> `_ln_ffn_res`).
 //
-// What bounds it on Hopper: the products, 24*M*C^2 FLOPs (x W1 is 16 M C^2,
-// h W2 8 M C^2; 20 GFLOP at every full SD1.5 site), on the tensor cores:
+// The hidden width H is 4C in a whole model and 4C / tp on a rank of a
+// tensor-parallel mesh (parallel/mesh.py: each rank holds matching value
+// and gate halves of W1 and the matching columns of W2); H % 64 == 0.
+//
+// What bounds it on Hopper: the products, 6*M*C*H FLOPs (x W1 is 4 M C H,
+// h W2 2 M C H; 20 GFLOP at every full SD1.5 site), on the tensor cores:
 // far above the ~295 FLOP/byte ridge at every path shape but the 77-token
 // sized M.  So the products must run at the wgmma rate, and the weights
 // must not be re-streamed from L2 by small row blocks.
@@ -20,6 +24,7 @@
 // at (8192, 320), ~12.5 us, against >= 20 us of products).
 //
 // G1: h = (LN(x) W1^T + b1), split into value and gate, value * gelu_erf(gate).
+// h is (M, H); W1 (2H, C), its first H rows the values.
 // * A block owns BM rows (128: two warpgroups of 64 rows, where the rows'
 //   A fits shared memory with the ring; else 64, the two warpgroups
 //   splitting N) and a contiguous range of N tiles.  Its rows of x are
@@ -29,7 +34,7 @@
 //   for every N tile: wgmma's A comes from registers.
 // * W1 stays in PyTorch's layout; G1's loads pair its rows: each 64 rows
 //   of a slab are 32 value rows, then the 32 gate rows of the same hidden
-//   units (slab row r of tile t is W1 row u, or 4C + u for r & 32, with u
+//   units (slab row r of tile t is W1 row u, or H + u for r & 32, with u
 //   = 64 t + 32 (r >> 6) + (r & 31)), so a warpgroup's accumulators hold
 //   each value beside its gate and the GeGLU is taken in the epilogue, in
 //   f32 with erff, stored as bf16 pairs (the tile's biases fetched while
@@ -118,10 +123,10 @@ struct UpArgs {
   const bf16* x;     // (M, C)
   const bf16* ln_w;  // (C)
   const bf16* ln_b;  // (C)
-  const bf16* w1;    // (8C, C): value rows, then gate rows
-  const bf16* b1;    // (8C) PyTorch's order: value biases, then gate biases
-  bf16* h;           // (M, 4C)
-  int M, C, nsplit;
+  const bf16* w1;    // (2H, C): value rows, then gate rows
+  const bf16* b1;    // (2H) PyTorch's order: value biases, then gate biases
+  bf16* h;           // (M, H)
+  int M, C, H, nsplit;
   float eps;
 };
 
@@ -140,10 +145,10 @@ __global__ void __launch_bounds__(UP_THREADS, STAGES == 2 ? 2 : 1) ffn_up_kernel
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
   const int wg_m = BM == 128 ? wg * 64 : 0, wg_n = BM == 128 ? 0 : wg * NWG;
-  const int C = a.C, H = 4 * C;
+  const int C = a.C, H = a.H;
   const int kchunks = (C + KC - 1) / KC;
   const int m0 = blockIdx.x * BM;
-  const int ntiles = C / 16;  // 8C / UP_N
+  const int ntiles = H / 64;  // 2H / UP_N
   const int t0 = blockIdx.y * ntiles / a.nsplit, t1 = (blockIdx.y + 1) * ntiles / a.nsplit;
   const int nsteps = (t1 - t0) * kchunks;  // one step a (tile, K chunk)
   const int j8 = tid & 7;
@@ -296,13 +301,13 @@ __global__ void __launch_bounds__(UP_THREADS, STAGES == 2 ? 2 : 1) ffn_up_kernel
 }
 
 struct DnArgs {
-  const bf16* h;     // (M, 4C)
-  const bf16* w2;    // (C, 4C)
+  const bf16* h;     // (M, K): K = H
+  const bf16* w2;    // (C, K)
   const bf16* b2;    // (C)
   const bf16* res;   // (M, C) or null
   bf16* out;         // (M, C)
   float* ws;         // (ksplit, M, C) f32 partials when ksplit > 1
-  int M, C, ksplit;
+  int M, C, K, ksplit;
 };
 
 // G2: BM rows (a warpgroup each 64) x BN columns; grid (column block, row
@@ -317,7 +322,7 @@ __global__ void __launch_bounds__(2 * BM) ffn_down_kernel(DnArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C = a.C, K = 4 * C;
+  const int C = a.C, K = a.K;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kch = K / KC;
   const int c_begin = blockIdx.z * kch / a.ksplit, c_end = (blockIdx.z + 1) * kch / a.ksplit;
@@ -438,13 +443,13 @@ int attrs_of(F fn, int threads, int smem, int* out) {
 #define SDTK_FFN_DN_VARIANTS(X) X(64, 160, 3, 0) X(64, 128, 4, 0) X(64, 64, 6, 0)
 
 // The block, its arguments packed as int64 (a[i]): x, ln_w, ln_b, w1,
-// b1, w2, b2, res, h, ws, out (pointers), M, C, (bm1, st1, as1) a compiled
-// G1 variant, nsplit1, (bm2, bn2, st2, as2) a compiled G2 variant,
+// b1, w2, b2, res, h, ws, out (pointers), M, C, H, (bm1, st1, as1) a
+// compiled G1 variant, nsplit1, (bm2, bn2, st2, as2) a compiled G2 variant,
 // ksplit2, parts, eps (its f32 bits), stream.  Shape rules (checked by the
-// Python wrapper, which also plans): C % 16 == 0 and C <=
-// 1280, every tensor contiguous and 16-byte aligned, the G1 variant's
-// up_smem within a block, 1 <= nsplit1 <= C / 16, 1 <= ksplit2 <= C / 16
-// with ws (ksplit2, M, C) f32 when ksplit2 > 1; h (M, 4C) bf16 scratch;
+// Python wrapper, which also plans): C % 16 == 0 and C <= 1280, H % 64 ==
+// 0, every tensor contiguous and 16-byte aligned, the G1 variant's
+// up_smem within a block, 1 <= nsplit1 <= H / 64, 1 <= ksplit2 <= H / 64
+// with ws (ksplit2, M, C) f32 when ksplit2 > 1; h (M, H) bf16 scratch;
 // res may be null.  Launches G1 (parts & 1), then G2 and, split, the
 // reduce (parts & 2): 3 runs the block; 1 or 2 times one GEMM alone.  An
 // unknown variant returns cudaErrorInvalidValue.
@@ -454,14 +459,16 @@ extern "C" int sdtk_ffn(const long long* a) {
              *w1 = (const void*)a[3], *b1 = (const void*)a[4], *w2 = (const void*)a[5],
              *b2 = (const void*)a[6], *res = (const void*)a[7];
   void *h = (void*)a[8], *ws = (void*)a[9], *out = (void*)a[10];
-  const int M = (int)a[11], C = (int)a[12], bm1 = (int)a[13], st1 = (int)a[14], as1 = (int)a[15],
-            nsplit1 = (int)a[16], bm2 = (int)a[17], bn2 = (int)a[18], st2 = (int)a[19],
-            as2 = (int)a[20], ksplit2 = (int)a[21], parts = (int)a[22], eps_bits = (int)a[23];
+  const int M = (int)a[11], C = (int)a[12], H = (int)a[13], bm1 = (int)a[14], st1 = (int)a[15],
+            as1 = (int)a[16], nsplit1 = (int)a[17], bm2 = (int)a[18], bn2 = (int)a[19],
+            st2 = (int)a[20], as2 = (int)a[21], ksplit2 = (int)a[22], parts = (int)a[23],
+            eps_bits = (int)a[24];
   float eps;
   memcpy(&eps, &eps_bits, sizeof eps);
-  void* stream = (void*)a[24];
-  if (M < 1 || C % 16 != 0 || C > MAX_C || up_smem(bm1, st1, C) > kMaxSmem || nsplit1 < 1 ||
-      nsplit1 > C / 16 || ksplit2 < 1 || ksplit2 > C / 16 || (ksplit2 > 1 && ws == nullptr))
+  void* stream = (void*)a[25];
+  if (M < 1 || C % 16 != 0 || C > MAX_C || H < 64 || H % 64 != 0 ||
+      up_smem(bm1, st1, C) > kMaxSmem || nsplit1 < 1 || nsplit1 > H / 64 || ksplit2 < 1 ||
+      ksplit2 > H / KC || (ksplit2 > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
@@ -469,7 +476,7 @@ extern "C" int sdtk_ffn(const long long* a) {
     UpArgs u{static_cast<const bf16*>(x),   static_cast<const bf16*>(ln_w),
              static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w1),
              static_cast<const bf16*>(b1),  static_cast<bf16*>(h),
-             M, C, nsplit1, eps};
+             M, C, H, nsplit1, eps};
     const int smem = up_smem(bm1, st1, C);
     const dim3 grid((unsigned)((M + bm1 - 1) / bm1), (unsigned)nsplit1);
     err = cudaErrorInvalidValue;
@@ -488,7 +495,7 @@ extern "C" int sdtk_ffn(const long long* a) {
   }
   DnArgs d{static_cast<const bf16*>(h), static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
            static_cast<const bf16*>(res), static_cast<bf16*>(out), static_cast<float*>(ws),
-           M, C, ksplit2};
+           M, C, H, ksplit2};
   const dim3 grid((unsigned)((C + bn2 - 1) / bn2), (unsigned)((M + bm2 - 1) / bm2), (unsigned)ksplit2);
   const int smem = dn_smem(bm2, bn2, st2);
   err = cudaErrorInvalidValue;

@@ -12,6 +12,12 @@ int8 k, v on the context, each with its own scale, and both an int8 output
 projection with the residual (K8 on the card).  While a calibration
 capture of the linears runs, q, k and v go through ``layers.linear`` one at
 a time, as JAX's ``FORCE_UNFUSED_QKV``.
+
+Tensor parallelism (parallel/mesh.py): a rank of a "model" axis of tp holds
+E / tp rows of q/k/v (num_heads / tp whole heads) and E / tp columns of
+out_proj.  The fused QKV is split by the local width, the attention (K3 on
+the card) runs on the local heads, and the out projection's partial product
+is summed over "model" before its bias and the residual are added, once.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.ops.attention import sdpa
 from stable_diffusion_tpu_torch.ops.linear import (ln_matmul, ln_matmul_w8a8, matmul_residual,
                                                    matmul_w8a8)
+from stable_diffusion_tpu_torch.parallel.mesh import row_parallel
 from stable_diffusion_tpu_torch.utils.device import cached
 
 
@@ -106,7 +113,8 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
     """x: (B, Sq, E); cond: (B, Sk, Ck) or None.  Returns (B, Sq, E).
 
     ``ln``/``residual``, when given, apply the caller's pre-LN and add the
-    residual after the output projection."""
+    residual after the output projection.  A tensor-parallel shard runs the
+    rank's heads (``num_heads`` stays the whole model's)."""
     kv_in = x if cond is None else cond.to(x.dtype)
     b, sq, e = x.shape
     d = e // num_heads
@@ -115,11 +123,14 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
     if isinstance(qp, layers.QLinear) and qp.w8a8 and not unfused:
         return _w8a8_attention(mod, x, kv_in, cond, num_heads, causal, impl, ln, residual, ln_eps)
     dense = isinstance(qp, nn.Linear) and not unfused
+    # the rank's width and heads: E and num_heads unless q_proj is a shard
+    el = qp.weight.shape[0] if isinstance(qp, nn.Linear) else e
+    heads = el // d
     if cond is None and dense:
         w, bias = mod.fused_qkv()
         qkv = (torch.nn.functional.linear(x, w, bias) if ln is None
                else ln_matmul(ln.weight, ln.bias, x, w, bias, eps=ln_eps, impl=impl))
-        q, k, v = (t.reshape(b, sq, num_heads, d) for t in qkv.split(e, dim=-1))
+        q, k, v = (t.reshape(b, sq, heads, d) for t in qkv.split(el, dim=-1))
     else:
         sk = kv_in.shape[1]
         if ln is not None and dense:
@@ -130,12 +141,13 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
                 if cond is None:
                     kv_in = x
             q = layers.linear(qp, x, impl=impl)
-        q = q.reshape(b, sq, num_heads, d)
-        k = layers.linear(mod.k_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
-        v = layers.linear(mod.v_proj, kv_in, impl=impl).reshape(b, sk, num_heads, d)
-    out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, e)
+        q = q.reshape(b, sq, heads, d)
+        k = layers.linear(mod.k_proj, kv_in, impl=impl).reshape(b, sk, heads, d)
+        v = layers.linear(mod.v_proj, kv_in, impl=impl).reshape(b, sk, heads, d)
+    out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, el)
     o = mod.out_proj
-    if residual is not None and isinstance(o, nn.Linear) and not unfused:
+    if (residual is not None and isinstance(o, nn.Linear) and not unfused
+            and row_parallel(o) is None):
         return matmul_residual(out, o.weight, o.bias, residual, impl=impl)
     out = layers.linear(o, out, impl=impl)
     return out if residual is None else out + residual

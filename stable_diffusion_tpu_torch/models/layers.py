@@ -32,6 +32,7 @@ from stable_diffusion_tpu_torch.ops import conv as conv_ops
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_plain
 from stable_diffusion_tpu_torch.ops.linear import layer_norm_plain, matmul_w8a8
 from stable_diffusion_tpu_torch.ops.quantize import dequantize_tensor, quantize_tensor
+from stable_diffusion_tpu_torch.parallel.mesh import reduce_add, row_parallel
 from stable_diffusion_tpu_torch.utils.device import cached
 
 
@@ -142,7 +143,9 @@ def _conv_weight(mod: nn.Module, dtype) -> torch.Tensor:
 
 def linear(mod: nn.Module, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """x @ W^T + b; a W8A8 :class:`QLinear` runs the int8 matmul, a
-    weight-only one its dequantized weight."""
+    weight-only one its dequantized weight.  A row-parallel shard
+    (parallel/mesh.py) sums its partial product over "model" before the
+    bias is added, once."""
     if capturing("linear"):
         CAPTURE.record(mod, x)
     if isinstance(mod, QLinear):
@@ -150,6 +153,8 @@ def linear(mod: nn.Module, x: torch.Tensor, *, impl: str = "auto") -> torch.Tens
             return matmul_w8a8(x, mod.weight_q, mod.weight_scale, mod.act_scale,
                                mod.bias, impl=impl)
         return F.linear(x, mod.dequantized(x.dtype), mod.bias)
+    if row_parallel(mod) is not None:
+        return reduce_add(mod, F.linear(x, mod.weight))
     return F.linear(x, mod.weight, mod.bias)
 
 

@@ -55,6 +55,8 @@ from stable_diffusion_tpu_torch.models.attention import MultiheadAttention, mult
 from stable_diffusion_tpu_torch.ops.ffn import geglu_ffn, geglu_ffn_w8a8
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 from stable_diffusion_tpu_torch.ops.linear import gn_matmul, matmul_residual
+from stable_diffusion_tpu_torch.parallel.mesh import reduce_add, row_parallel
+from stable_diffusion_tpu_torch.utils.device import cached
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,8 +215,17 @@ def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
 def ffn_apply(ln: nn.LayerNorm, ffn: nn.ModuleDict, x, *, impl: str):
     """LN -> GeGLU FFN -> +x (JAX ``ops/ffn.geglu_ffn`` on parameter dicts):
     K9 for W8A8 linears, K4 for bf16 or weight-only ones (dequantized), and
-    the layer path while a calibration capture records the linears."""
+    the layer path while a calibration capture records the linears.  A
+    tensor-parallel shard (parallel/mesh.py: the rank's value and gate
+    halves of the projection, the matching columns of ``ffn.1``) runs K4 at
+    the rank's hidden width without b2 or the residual, sums over "model",
+    then adds both once."""
     p0, p1 = ffn["0"].proj, ffn["1"]
+    if row_parallel(p1) is not None and not layers.capturing("linear"):
+        zero = cached(p1, "_tp_zero_b2", [p1.bias], lambda: torch.zeros_like(p1.bias))
+        y = geglu_ffn(x, ln.weight, ln.bias, p0.weight, p0.bias, p1.weight, zero,
+                      hidden=p1.weight.shape[1], impl=impl)
+        return reduce_add(p1, y, x)
     if layers.capturing("linear"):
         h = layers.geglu(ffn["0"], layers.layer_norm(ln, x), impl=impl)
         return layers.linear(p1, h, impl=impl) + x

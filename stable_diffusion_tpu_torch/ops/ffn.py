@@ -5,15 +5,18 @@ K4 (csrc/ffn.cu) replaces stable_diffusion_tpu/ops/ffn.py's bf16
 ``_make_kernel`` (``_ffn_call`` via ``geglu_ffn`` -> ``_ln_ffn_res``): LN ->
 x W1 split into value and gate halves -> (hv + bv) * gelu_erf(hg + bg) ->
 W2 -> +b2 -> +residual.  It runs as two ``wgmma`` GEMMs: G1 (LN prologue,
-GeGLU epilogue) writes the bf16 (M, 4C) GeGLU output, G2 (+b2 +residual
+GeGLU epilogue) writes the bf16 (M, H) GeGLU output, G2 (+b2 +residual
 epilogue, split-K where its tiles leave SMs idle) reads it back; the note at
 the top of the source says what bounds it and why.  :func:`ffn_plan`
 mirrors the C dispatch; the CPU tests hold it and an emulation of both
 GEMMs' schedules.
 
-Weights are in PyTorch's layout: W1 (8C, C) with the value rows first and
-the gate rows second, W2 (C, 4C); G1's loads pair each 32 value rows with
-the 32 gate rows of the same hidden units.  The gradient is the VJP of the plain
+Weights are in PyTorch's layout: W1 (2H, C) with the value rows first and
+the gate rows second, W2 (C, H); G1's loads pair each 32 value rows with
+the 32 gate rows of the same hidden units.  The hidden width H is 4C in a
+whole model (the default) and 4C / tp on a rank of a tensor-parallel mesh
+(parallel/mesh.py keeps matching value and gate halves there); K4 takes any
+H % 64 == 0.  The gradient is the VJP of the plain
 version, recomputed (JAX ``_ln_ffn_res_bwd``).
 
 K9 (csrc/ffn_q.cu) is the static-W8A8 form, replacing ffn.py's int8
@@ -50,9 +53,16 @@ K4 = LaunchCounter()
 K9 = LaunchCounter()
 
 
-def geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5):
+def geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
+                    hidden: int = None):
     """LN -> GeGLU -> W2 (+residual), as the JAX layer path: f32 LN stats, the
-    gelu taken in f32 and cast back (``_ffn_xla``)."""
+    gelu taken in f32 and cast back (``_ffn_xla``).  W1 (2H, C), W2 (C, H):
+    ``hidden`` H (4C when None) is checked against them."""
+    c = x.shape[-1]
+    hidden = 4 * c if hidden is None else hidden
+    require(tuple(w1.shape) == (2 * hidden, c) and tuple(w2.shape) == (c, hidden),
+            f"GeGLU FFN at hidden {hidden}: W1 {tuple(w1.shape)}, W2 {tuple(w2.shape)}, expected "
+            f"{(2 * hidden, c)} and {(c, hidden)}")
     h = F.linear(layer_norm_plain(x, ln_weight, ln_bias, eps), w1, b1)
     value, gate = h.chunk(2, dim=-1)
     h = value * F.gelu(at_least_f32(gate)).to(x.dtype)
@@ -75,7 +85,7 @@ FFN_MAX_KSPLIT = 16
 
 
 class FfnPlan(NamedTuple):
-    """K4's launch at (m, c): G1 variant ``g1`` = (rows a block, stages,
+    """K4's launch at (m, c, hidden): G1 variant ``g1`` = (rows a block, stages,
     async), its N tiles split over ``nsplit1`` blocks a row block; G2
     variant ``g2`` = (rows, columns, stages, async), its K split over
     ``ksplit2`` blocks (f32 partials, reduced in split order).  ``smem1``,
@@ -118,25 +128,30 @@ def _dn_smem(bm: int, bn: int, stages: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None) -> FfnPlan:
-    """K4's launch for an (m, c) call on a card of ``sms`` SMs, as
-    csrc/ffn.cu's entry takes it (``g1`` / ``g2`` name a variant to measure
-    instead of the planner's).
+def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None,
+             hidden: int = None) -> FfnPlan:
+    """K4's launch for an (m, c) call at hidden width ``hidden`` (4C when
+    None; a multiple of 64) on a card of ``sms`` SMs, as csrc/ffn.cu's entry
+    takes it (``g1`` / ``g2`` name a variant to measure instead of the
+    planner's).
 
     G1: 128 rows a block; a two-slab ring, synchronous products and two
     blocks an SM where that fits shared memory (C <= 320), else a
     four-slab ring with products kept in flight across steps, in 64-row
-    blocks where 128 rows do not fit (C = 1280).  Its C / 16 N tiles are
+    blocks where 128 rows do not fit (C = 1280).  Its H / 64 N tiles are
     split over ``nsplit1`` blocks a row block, the count that finishes in
     the fewest waves x (tiles a block + 1, the block's own rows of x being
     about one tile's loads), the fewest splits on a tie.  G2: 64 rows a
     block, two blocks an SM; 160 columns where C % 160 == 0, else 128
     where C % 128 == 0, else 64; where its tiles fill at most half the
-    SMs, K is split into ceil(sms / tiles) parts (at least four 64-channel
-    steps each, at most 16).  The variants are the ones the H100 sweep
+    SMs, its K = H is split into ceil(sms / tiles) parts (at least four
+    64-channel steps each, at most 16).  The variants are the ones the H100 sweep
     (chip_smoke.py --k4-sweep) found fastest per pass."""
     require(c % 16 == 0 and 16 <= c <= FFN_MAX_C and m >= 1,
             f"K4 takes C % 16 == 0 and C <= {FFN_MAX_C}, got C={c}")
+    hidden = 4 * c if hidden is None else hidden
+    require(hidden >= 64 and hidden % 64 == 0,
+            f"K4 takes a hidden width that is a multiple of 64, got {hidden}")
     if g1 is None:
         g1 = ((128, 2, 0) if _up_smem(128, 2, c) + 1024 <= SMEM_SM // 2
               else (128, 4, 1) if _up_smem(128, 4, c) <= SMEM_BLOCK else (64, 4, 1))
@@ -144,7 +159,7 @@ def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None)
             f"K4: G1 variant {g1} does not fit C={c}")
     smem1 = _up_smem(*g1[:2], c)
     resident1 = max(1, min(2 if g1[1] == 2 else 1, SMEM_SM // (smem1 + 1024)))
-    ntiles, mb = c // 16, -(-m // g1[0])
+    ntiles, mb = hidden // 64, -(-m // g1[0])
     best = None
     for ns in range(1, ntiles + 1):
         cost = -(-mb * ns // (sms * resident1)) * (-(-ntiles // ns) + 1)
@@ -156,7 +171,7 @@ def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None)
     tiles2 = -(-m // g2[0]) * -(-c // g2[1])
     ksplit2 = 1
     if 2 * tiles2 <= sms:
-        ksplit2 = max(1, min(-(-sms // tiles2), c // 16 // 4, FFN_MAX_KSPLIT))
+        ksplit2 = max(1, min(-(-sms // tiles2), hidden // 64 // 4, FFN_MAX_KSPLIT))
     return FfnPlan(g1, best[1], g2, ksplit2, smem1, _dn_smem(*g2[:3]))
 
 
@@ -174,11 +189,13 @@ def _scratch(x: torch.Tensor, nbytes: int) -> int:
     return buf.data_ptr()
 
 
-def _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual):
+def _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, hidden):
     """The shape rules; returns (m, c)."""
     c = x.shape[-1]
     params = (ln_weight, ln_bias, w1, b1, w2, b2) + (() if residual is None else (residual,))
-    shapes = ((c,), (c,), (8 * c, c), (8 * c,), (c, 4 * c), (c,), x.shape)
+    shapes = ((c,), (c,), (2 * hidden, c), (2 * hidden,), (c, hidden), (c,), x.shape)
+    require(hidden >= 64 and hidden % 64 == 0,
+            f"K4 takes a hidden width that is a multiple of 64, got {hidden}")
     if not (x.is_cuda and c % 16 == 0 and c <= FFN_MAX_C
             and all(t.shape == s for t, s in zip(params, shapes))
             and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -194,25 +211,28 @@ def _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual):
 
 
 def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
-                     _plan: FfnPlan = None, _parts: int = 3):
-    """Launch K4.  x (..., C) bf16 on CUDA; every parameter bf16 and contiguous.
-    It allocates only its output: the GeGLU output h and split-K partials
-    live in a per-device scratch.  For measuring: ``_plan`` runs another
-    plan; ``_parts`` 1 launches G1 alone, 2 G2 alone (on whatever h the
-    scratch holds, so its output means nothing)."""
+                     hidden: int = None, _plan: FfnPlan = None, _parts: int = 3):
+    """Launch K4.  x (..., C) bf16 on CUDA; every parameter bf16 and
+    contiguous; W1 (2H, C), W2 (C, H) at ``hidden`` H (4C when None; a
+    multiple of 64).  It allocates only its output: the GeGLU output h and
+    split-K partials live in a per-device scratch.  For measuring: ``_plan``
+    runs another plan; ``_parts`` 1 launches G1 alone, 2 G2 alone (on
+    whatever h the scratch holds, so its output means nothing)."""
     require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
-    m, c = _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
-    plan = _plan or ffn_plan(m, c, _cuda.sm_count(x.get_device()))
-    h_bytes = -(-m * 4 * c * 2 // 256) * 256
+    hidden = 4 * x.shape[-1] if hidden is None else hidden
+    m, c = _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, hidden)
+    plan = _plan or ffn_plan(m, c, _cuda.sm_count(x.get_device()), hidden=hidden)
+    h_bytes = -(-m * hidden * 2 // 256) * 256
     h = _scratch(x, h_bytes + (plan.ksplit2 * m * c * 4 if plan.ksplit2 > 1 else 0))
     out = torch.empty_like(x)
     _cuda.check(_cuda.call_packed(
         _cuda.library().sdtk_ffn, x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         None if residual is None else residual.data_ptr(), h,
-        h + h_bytes if plan.ksplit2 > 1 else None, out.data_ptr(), m, c, *plan.g1, plan.nsplit1,
-        *plan.g2, plan.ksplit2, _parts, _cuda.f32_bits(eps), _cuda.stream_handle(x)), "K4 ffn")
-    K4.launched((m, c))
+        h + h_bytes if plan.ksplit2 > 1 else None, out.data_ptr(), m, c, hidden, *plan.g1,
+        plan.nsplit1, *plan.g2, plan.ksplit2, _parts, _cuda.f32_bits(eps),
+        _cuda.stream_handle(x)), "K4 ffn")
+    K4.launched((m, c) if hidden == 4 * c else (m, c, hidden))
     return out
 
 
@@ -236,13 +256,15 @@ def ffn_occupancy(c: int = 320) -> dict:
 
 
 def geglu_ffn(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
-              impl: str = "auto"):
-    """LN -> GeGLU FFN (-> +residual): K4 on the card, the plain version on the CPU."""
+              hidden: int = None, impl: str = "auto"):
+    """LN -> GeGLU FFN (-> +residual): K4 on the card, the plain version on
+    the CPU.  ``hidden``: the width H of W1 (2H, C) and W2 (C, H), 4C when
+    None (a rank's shard of a tensor-parallel FFN holds 4C / tp)."""
     args = (x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
-    plain = functools.partial(geglu_ffn_plain, eps=eps)
+    plain = functools.partial(geglu_ffn_plain, eps=eps, hidden=hidden)
     if not use_kernel(impl, x):
         return plain(*args)
-    fwd = functools.partial(geglu_ffn_kernel, eps=eps)
+    fwd = functools.partial(geglu_ffn_kernel, eps=eps, hidden=hidden)
     if wants_grad(*args):
         return Recompute.apply(fwd, plain, *args)
     return fwd(*args)

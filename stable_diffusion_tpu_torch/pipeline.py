@@ -15,6 +15,12 @@ conditioning, a (B, D) one a single token, in place of the ids and the
 text tower) and ``deepcache_interval`` (DeepCache: the full UNet
 every k-th step, its shallow stage around the held deep feature between);
 ``inpaint`` and ``generate_in_one_step`` take none, as in JAX.
+``generate`` and ``inpaint`` take JAX's progress mode
+(``progress_callback(done, total)`` at 0 and after each ``progress_every``
+steps): the loop runs in segments, and with DeepCache each segment starts
+again from a full step, as JAX's segments do; every draw still comes from
+the one generator in one order, so without DeepCache a segmented call
+gives the one call's image, DDPM included (JAX draws a key a segment).
 The port cannot replay ``jax.random``: every draw (encode noise, starting or
 q-sample noise, inpaint's mask noise, the per-step noises) can be passed in
 (the tests pass the noise JAX drew); the rest are drawn in that order from
@@ -26,9 +32,18 @@ The pipeline never moves work to the CPU: it runs on ``device``, and with
 ``impl="cuda"`` it refuses a device that is not CUDA.  Images and masks are
 numpy arrays (or PIL images); PIL is imported only where a resize or a PIL
 object needs it.  ``generate``, ``generate_in_one_step`` and ``inpaint``
-take token ids: :meth:`StableDiffusion.tokenize` makes them with the
-pipeline's tokenizer (``tokenizer.py``, or any object with
-``transformers``' ``batch_encode_plus``).  :meth:`StableDiffusion.from_pretrained`
+take token ids as their first arguments, or ``prompt=`` / ``uncond_prompt=``
+strings (a list: one a lane), which :meth:`StableDiffusion.tokenize` turns
+into ids with the pipeline's tokenizer (``tokenizer.py``, or any object
+with ``transformers``' ``batch_encode_plus``), by JAX's rules.
+
+:meth:`StableDiffusion.shard` puts the pipeline on a ("data", "model")
+mesh (parallel/mesh.py): the UNet's and text tower's transformer linears
+split over "model", the VAE replicated; a request's lanes split over
+"data", each CFG pair on one rank.  Every rank draws the whole batch's
+noise from the seeded generator and keeps its lanes, so a sharded request
+gives the unsharded request's image, and the images are gathered to every
+rank.  :meth:`StableDiffusion.from_pretrained`
 loads a diffusers directory or a single LDM file
 (``utils/model_converter.py``); the CLI is ``inference_torch.py`` at the
 repository's root.
@@ -54,6 +69,7 @@ import torch.nn.functional as F
 from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
+from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 from stable_diffusion_tpu_torch.schedulers import schedule as S
 
 MAX_TEXT_LEN = 77
@@ -150,20 +166,54 @@ def _sampler_step(table, lat, t, pt, eps, noise, sampler: str, prediction_type: 
 class _Draws:
     """The noise of one call: each draw is the array or tensor passed in
     (checked for its shape) or the next draw of one seeded generator on the
-    device."""
+    device.  On a data-parallel rank (``lanes`` of a batch of ``batch``)
+    each draw is the whole batch's, and the rank keeps its lanes of it."""
 
-    def __init__(self, device, dtype, seed: int):
+    def __init__(self, device, dtype, seed: int, lanes: Optional[slice] = None,
+                 batch: Optional[int] = None):
         self.device, self.dtype = device, dtype
         self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.lanes, self.batch = lanes, batch
 
-    def __call__(self, name: str, given, shape) -> torch.Tensor:
+    def full(self, shape) -> tuple:
+        """A lane-batched shape of this rank (its lanes first) as the whole batch's."""
+        return tuple(shape) if self.lanes is None else (self.batch, *shape[1:])
+
+    def __call__(self, name: str, given, shape, lane_dim: Optional[int] = 0) -> torch.Tensor:
+        """``shape`` is the whole batch's; ``lane_dim`` the dim of its lanes
+        (None: not a lane-batched draw)."""
         if given is None:
-            return torch.randn(shape, generator=self.gen, device=self.device).to(self.dtype)
-        t = (given.to(device=self.device, dtype=self.dtype) if isinstance(given, torch.Tensor)
-             else torch.tensor(np.asarray(given), device=self.device, dtype=self.dtype))
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} {tuple(t.shape)}, expected {tuple(shape)}")
-        return t
+            t = torch.randn(shape, generator=self.gen, device=self.device).to(self.dtype)
+        else:
+            t = (given.to(device=self.device, dtype=self.dtype) if isinstance(given, torch.Tensor)
+                 else torch.tensor(np.asarray(given), device=self.device, dtype=self.dtype))
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name} {tuple(t.shape)}, expected {tuple(shape)}")
+        if self.lanes is None or lane_dim is None:
+            return t
+        return t[(slice(None),) * lane_dim + (self.lanes,)]
+
+
+def _prompts(prompt, uncond_prompt, batch_size: Optional[int]):
+    """JAX ``generate``'s prompt rules: a string is repeated over the batch
+    (``batch_size``, 1 when None); a list is one prompt a lane and sets the
+    batch (a ``batch_size`` other than 1 or its length raises); an
+    ``uncond_prompt`` list must have one entry a lane."""
+    n = 1 if batch_size is None else int(batch_size)
+    if isinstance(prompt, str):
+        prompts = [prompt] * n
+    else:
+        prompts = list(prompt)
+        if n not in (1, len(prompts)):
+            raise ValueError(f"batch_size={n} conflicts with a {len(prompts)}-prompt list; omit "
+                             "batch_size or match it")
+        n = len(prompts)
+    if isinstance(uncond_prompt, str):
+        return prompts, [uncond_prompt] * n
+    uncond = list(uncond_prompt)
+    if len(uncond) != n:
+        raise ValueError(f"uncond_prompt list has {len(uncond)} entries for batch_size={n}")
+    return prompts, uncond
 
 
 @dataclasses.dataclass
@@ -177,6 +227,7 @@ class StableDiffusion:
     impl: str = "auto"
     scheduler_config: Optional[dict] = None
     tokenizer: Any = None
+    mesh: Any = None  # parallel.mesh.Mesh after shard()
 
     @classmethod
     def build(cls, unet_config: UNetConfig, text_config: CLIPTextConfig,
@@ -250,6 +301,16 @@ class StableDiffusion:
         pipe.tokenizer = tokenizer
         return pipe
 
+    def shard(self, mesh) -> "StableDiffusion":
+        """Put the pipeline on ``mesh`` (``parallel.mesh.make_mesh``; JAX
+        ``shard``): the UNet's and text tower's transformer linears keep
+        this rank's slices over "model" (``shard_module_``), the VAE stays
+        replicated, and requests then split their lanes over "data"."""
+        for m in (self.unet, self.text_encoder):
+            pmesh.shard_module_(m, mesh)
+        self.mesh = mesh
+        return self
+
     def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
         """(B, 77) int64 token ids of ``prompts``: padded to 77 with the
         tokenizer's pad token and truncated, as JAX's ``tokenize`` asks its
@@ -286,11 +347,36 @@ class StableDiffusion:
             raise ValueError(f"impl='cuda' needs the models on a CUDA device, they are on {dev}")
         return dev
 
+    @torch.no_grad()
+    def encode_text(self, input_ids) -> torch.Tensor:
+        """(B, 77) token ids -> the text tower's (B, 77, D) context on the
+        pipeline's device (JAX ``encode_text``)."""
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
+        return self.text_encoder(ids, impl=self.impl)
+
     def _context(self, first_ids, second_ids=None) -> torch.Tensor:
         """The text tower on [first; second] token ids (second None: first alone)."""
-        ids = [torch.as_tensor(np.asarray(i), dtype=torch.long, device=self.device)
-               for i in (first_ids, second_ids) if i is not None]
-        return self.text_encoder(torch.cat(ids, dim=0), impl=self.impl)
+        ids = [np.asarray(i) for i in (first_ids, second_ids) if i is not None]
+        return self.encode_text(np.concatenate(ids, axis=0))
+
+    def _ids(self, cond_ids, uncond_ids, prompt, uncond_prompt, batch_size, do_cfg: bool, what: str):
+        """(cond, uncond or None) token ids: those given, else the prompts'
+        by :func:`_prompts`; the unconditional ids of ``uncond_prompt`` where
+        CFG needs them and none are given."""
+        if cond_ids is None:
+            if prompt is None:
+                raise ValueError(f"{what} needs a prompt, cond_ids or a context")
+            prompts, uncond = _prompts(prompt, uncond_prompt, batch_size)
+            cond_ids = self.tokenize(prompts)
+        else:
+            cond_ids = np.asarray(cond_ids)
+            if batch_size is not None and int(batch_size) != cond_ids.shape[0]:
+                raise ValueError(f"batch_size={batch_size} conflicts with {cond_ids.shape[0]} "
+                                 "rows of cond_ids")
+            _, uncond = _prompts([""] * cond_ids.shape[0], uncond_prompt, None)
+        if do_cfg and uncond_ids is None:
+            uncond_ids = self.tokenize(uncond)
+        return cond_ids, None if uncond_ids is None else np.asarray(uncond_ids)
 
     def _timesteps(self, sched, inference_steps: int, sampler: str, strength: Optional[float]):
         """(ts, prev_ts): the sampler's sequence, strength-truncated when given."""
@@ -304,28 +390,38 @@ class StableDiffusion:
     def _denoise(self, latents, context, ts, prev_ts, table, *, cfg_scale: float, do_cfg: bool,
                  order: str, sampler: str, prediction_type: str, eta: float, draws: _Draws,
                  step_noise=None, blend: Optional[Callable] = None,
-                 deepcache_interval: int = 1) -> torch.Tensor:
+                 deepcache_interval: int = 1, progress_callback: Optional[Callable] = None,
+                 progress_every: int = 5) -> torch.Tensor:
         """The denoise loop: CFG UNet step, ``blend(latents, t, eps)`` (inpaint),
         then the sampler's step; DDPM takes a fresh noise every step, DDIM
         one only when eta > 0.  With ``deepcache_interval`` k > 1 (JAX
         ``_denoise_scan``): the full UNet at steps i % k == 0, which also
         gives the deep feature to hold, and the cached pass on the held
-        feature between them; the held feature starts as zeros."""
+        feature between them; the held feature starts as zeros.  With a
+        ``progress_callback`` (JAX's progress mode) the steps run in
+        segments of ``progress_every``, the callback called with (0, n) and
+        then (steps done, n) after each; i counts from 0 again in each
+        segment, so DeepCache restarts there."""
         needs_noise = sampler == "ddpm" or eta > 0
         if step_noise is not None and needs_noise:
-            want = (len(ts), *latents.shape)
-            step_noise = draws("step_noise", step_noise, want)
+            want = (len(ts), *draws.full(latents.shape))
+            step_noise = draws("step_noise", step_noise, want, lane_dim=1)
+        n = len(ts)
+        seg = max(1, int(progress_every)) if progress_callback is not None else max(n, 1)
+        if progress_callback is not None:
+            progress_callback(0, n)
         k = int(deepcache_interval)
         if k > 1:
             b, h, w = latents.shape[0] * (2 if do_cfg else 1), *latents.shape[1:3]
             deep = torch.zeros((b, h, w, self.unet.cfg.block_out_channels[1]),
                                dtype=latents.dtype, device=latents.device)
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            j = i % seg  # the step's index in its segment
             model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
             t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
             if k <= 1:
                 pred = self.unet(model_in, t_in, context, impl=self.impl)
-            elif i % k == 0:
+            elif j % k == 0:
                 pred, deep = self.unet.forward_split(model_in, t_in, context, impl=self.impl)
             else:
                 pred = self.unet.forward_cached(model_in, t_in, context, deep, impl=self.impl)
@@ -335,33 +431,43 @@ class StableDiffusion:
             noise = None
             if needs_noise:
                 noise = (step_noise[i] if step_noise is not None
-                         else draws("step noise", None, latents.shape))
+                         else draws("step noise", None, draws.full(latents.shape)))
             latents = _sampler_step(table, latents, t, pt, eps, noise, sampler, prediction_type,
                                     eta)
+            if progress_callback is not None and (j == seg - 1 or i == n - 1):
+                progress_callback(i + 1, n)
         return latents
 
     @torch.no_grad()
-    def generate(self, cond_ids=None, uncond_ids=None, *, input_image=None, input_latents=None,
+    def generate(self, cond_ids=None, uncond_ids=None, *, prompt=None, uncond_prompt="",
+                 batch_size: Optional[int] = None, input_image=None, input_latents=None,
                  img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
                  cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
                  sampler: str = "ddim", use_cosine_schedule: bool = False, eta: float = 0.0,
                  seed: int = 0, deepcache_interval: int = 1, context=None, initial_latents=None,
                  encode_noise=None, latent_noise=None, step_noise=None,
+                 progress_callback: Optional[Callable] = None, progress_every: int = 5,
                  return_latents: bool = False, output_dtype: str = "float32") -> np.ndarray:
         """txt2img, or img2img with ``input_image`` (an (H, W, 3) array or PIL
         image, preprocessed to ``img_size`` and encoded) or ``input_latents``
         (the unscaled latent of one image, or of each lane).
 
-        cond_ids / uncond_ids: (B, 77) token ids (uncond needed with CFG).
-        ``context`` replaces both the ids and the text tower (class2img: a
-        ``ClassEncoder`` embedding): (B', D) is taken as one token, (B', S,
-        D) as it is; with CFG it holds the [uncond; cond] halves, B' = 2B.
+        cond_ids / uncond_ids: (B, 77) token ids; or ``prompt`` /
+        ``uncond_prompt`` (JAX's rules: a string repeated over
+        ``batch_size`` lanes, default 1; a list one a lane, setting the
+        batch; ``uncond_prompt`` "" by default), tokenized by the pipeline's
+        tokenizer, as are the unconditional ids CFG needs when none are
+        given.  ``context`` replaces both the ids and the text tower
+        (class2img: a ``ClassEncoder`` embedding): (B', D) is taken as one
+        token, (B', S, D) as it is; with CFG it holds the [uncond; cond]
+        halves, B' = 2B.
         sampler: "ddim" (eta as given) or "ddpm"; ``use_cosine_schedule``
         picks the cosine tables.  img2img runs the last ``int(steps *
         strength)`` steps from the latent q-sampled at the first of them.
         ``deepcache_interval`` k > 1 runs the full UNet every k-th step and
         the DeepCache pass (the shallow stage around the held deep feature)
-        between; k <= 1 is the exact loop.
+        between; k <= 1 is the exact loop.  ``progress_callback(done,
+        total)``: JAX's progress mode (see :meth:`_denoise`).
         Injected draws: ``initial_latents`` (txt2img start), ``encode_noise``
         (1, H/8, W/8, 4), ``latent_noise`` (B, H/8, W/8, 4; img2img's
         q-sample), ``step_noise`` (steps run, B, H/8, W/8, 4); the others
@@ -369,9 +475,10 @@ class StableDiffusion:
         Returns the latents (B, H/8, W/8, 4) f32 with ``return_latents``, else
         (B, H, W, 3) images: float32 in [0, 1], or uint8 when
         ``output_dtype="uint8"`` (which raises FloatingPointError rather
-        than cast a non-finite value).
+        than cast a non-finite value).  Under a mesh each rank computes its
+        lanes and returns the whole batch.
         """
-        dev, dtype, impl = self._device(), self.dtype, self.impl
+        dev, dtype, impl, mesh = self._device(), self.dtype, self.impl, self.mesh
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
         if context is not None:
@@ -382,13 +489,18 @@ class StableDiffusion:
                 raise ValueError(f"with CFG the context holds [uncond; cond], got "
                                  f"{context.shape[0]} rows")
             b = context.shape[0] // (2 if do_cfg else 1)
+            if mesh is not None:
+                context = torch.cat([pmesh.data_sharding(h, mesh)
+                                     for h in context.chunk(2 if do_cfg else 1)])
         else:
-            if cond_ids is None:
-                raise ValueError("generate needs cond_ids or a context")
-            if do_cfg and uncond_ids is None:
-                raise ValueError("classifier-free guidance needs uncond_ids")
+            cond_ids, uncond_ids = self._ids(cond_ids, uncond_ids, prompt, uncond_prompt,
+                                             batch_size, do_cfg, "generate")
+            b = cond_ids.shape[0]
+            if mesh is not None:
+                cond_ids, uncond_ids = (None if i is None else pmesh.data_sharding(i, mesh)
+                                        for i in (cond_ids, uncond_ids))
             context = self._context(uncond_ids, cond_ids) if do_cfg else self._context(cond_ids)
-            b = int(np.asarray(cond_ids).shape[0])
+        lanes = None if mesh is None else mesh.lanes(b)
         h, w = img_size
         lat_shape = (b, h // 8, w // 8, 4)
         is_img2img = input_image is not None or input_latents is not None
@@ -396,15 +508,18 @@ class StableDiffusion:
         ts, prev_ts = self._timesteps(sched, inference_steps, sampler,
                                       strength if is_img2img else None)
         table = torch.as_tensor(sched.alphas_hat, device=dev)
-        draws = _Draws(dev, dtype, seed)
+        draws = _Draws(dev, dtype, seed, lanes, b)
         if is_img2img:
             if input_latents is None:
                 img = torch.as_tensor(preprocess_image(input_image, img_size), device=dev,
                                       dtype=dtype)
                 lat0 = self.vae.encode(img, noise=draws("encode_noise", encode_noise,
-                                                        (1, *lat_shape[1:])), impl=impl)[0]
+                                                        (1, *lat_shape[1:]), lane_dim=None),
+                                       impl=impl)[0]
             else:
                 lat0 = torch.tensor(np.asarray(input_latents), device=dev, dtype=dtype)
+                if mesh is not None and lat0.shape[0] == b:
+                    lat0 = pmesh.data_sharding(lat0, mesh)
             noise = draws("latent_noise", latent_noise, lat_shape)
             latents = S.forward_process(table, lat0, int(ts[0]), noise)
         else:
@@ -413,27 +528,38 @@ class StableDiffusion:
         latents = self._denoise(latents, context, ts, prev_ts, table, cfg_scale=cfg_scale,
                                 do_cfg=do_cfg, order="uncond_first", sampler=sampler,
                                 prediction_type=sched.prediction_type, eta=eta, draws=draws,
-                                step_noise=step_noise, deepcache_interval=deepcache_interval)
+                                step_noise=step_noise, deepcache_interval=deepcache_interval,
+                                progress_callback=progress_callback, progress_every=progress_every)
         if return_latents:
-            return latents.float().cpu().numpy()
-        return _finish(self.vae.decode(latents, impl=impl), output_dtype, "generate")
+            return self._gather(latents).float().cpu().numpy()
+        return _finish(self._gather(self.vae.decode(latents, impl=impl)), output_dtype, "generate")
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's lanes of ``t``, on every rank (``t`` unsharded)."""
+        return t if self.mesh is None else pmesh.replicate(t, self.mesh)
 
     @torch.no_grad()
-    def generate_in_one_step(self, cond_ids, *, img_size: Tuple[int, int] = (512, 512),
+    def generate_in_one_step(self, cond_ids=None, *, prompt=None,
+                             img_size: Tuple[int, int] = (512, 512),
                              batch_size: Optional[int] = None, initial_latents=None, seed: int = 0,
                              output_dtype: str = "float32") -> np.ndarray:
         """SwiftBrush one-step txt2img: one UNet pass at t = 999 on the
         starting latents z, x0 = (z - sigma_T eps) / alpha_T with alpha_T^2
         = 0.0047, then the decode; no guidance.
 
-        cond_ids: (R, 77) token ids.  ``batch_size`` None gives one lane a
+        cond_ids: (R, 77) token ids, or ``prompt`` (a string: one row; a
+        list: a row each), tokenized.  ``batch_size`` None gives one lane a
         row; a larger batch cycles the rows (row i % R on lane i); a batch
         smaller than R raises ``ValueError``.  ``initial_latents`` (B, H/8,
         W/8, 4) or drawn from ``torch.Generator().manual_seed(seed)`` on the
         device.  Images as :meth:`generate` returns them."""
-        dev, dtype, impl = self._device(), self.dtype, self.impl
+        dev, dtype, impl, mesh = self._device(), self.dtype, self.impl, self.mesh
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
+        if cond_ids is None:
+            if prompt is None:
+                raise ValueError("generate_in_one_step needs a prompt or cond_ids")
+            cond_ids = self.tokenize([prompt] if isinstance(prompt, str) else list(prompt))
         rows = int(np.asarray(cond_ids).shape[0])
         b = rows if batch_size is None else int(batch_size)
         if b < rows:
@@ -442,39 +568,49 @@ class StableDiffusion:
         context = self._context(cond_ids)
         if b != rows:  # ceil-tile then slice: lane i takes row i % rows
             context = context.repeat(-(-b // rows), 1, 1)[:b]
+        lanes = None if mesh is None else mesh.lanes(b)
+        if mesh is not None:
+            context = pmesh.data_sharding(context, mesh)
         h, w = img_size
-        latents = _Draws(dev, dtype, seed)("initial_latents", initial_latents,
-                                           (b, h // 8, w // 8, 4))
+        latents = _Draws(dev, dtype, seed, lanes, b)("initial_latents", initial_latents,
+                                                     (b, h // 8, w // 8, 4))
         alpha_t, sigma_t = (torch.tensor(v, dtype=torch.float32).sqrt().to(device=dev, dtype=dtype)
                             for v in (ONE_STEP_ALPHA2, 1.0 - ONE_STEP_ALPHA2))
         t = torch.full((1,), ONE_STEP_T, dtype=torch.long, device=dev)
         eps = self.unet(latents, t, context, impl=impl)
         x0 = (latents - sigma_t * eps) / alpha_t
-        return _finish(self.vae.decode(x0, impl=impl), output_dtype, "generate_in_one_step")
+        return _finish(self._gather(self.vae.decode(x0, impl=impl)), output_dtype,
+                       "generate_in_one_step")
 
     @torch.no_grad()
-    def inpaint(self, cond_ids, uncond_ids, input_image, mask, *,
-                img_size: Tuple[int, int] = (512, 512), do_cfg: bool = True,
-                cfg_scale: float = 7.5, strength: float = 0.8, inference_steps: int = 50,
-                sampler: str = "ddpm", use_cosine_schedule: bool = False, seed: int = 0,
-                encode_noise=None, latent_noise=None, mask_noise=None, step_noise=None,
+    def inpaint(self, cond_ids=None, uncond_ids=None, input_image=None, mask=None, *, prompt=None,
+                uncond_prompt: str = "", img_size: Tuple[int, int] = (512, 512),
+                do_cfg: bool = True, cfg_scale: float = 7.5, strength: float = 0.8,
+                inference_steps: int = 50, sampler: str = "ddpm",
+                use_cosine_schedule: bool = False, seed: int = 0, encode_noise=None,
+                latent_noise=None, mask_noise=None, step_noise=None,
+                progress_callback: Optional[Callable] = None, progress_every: int = 5,
                 return_latents: bool = False) -> np.ndarray:
         """Mask-blended inpainting of one image: (H, W, 3) uint8.
 
-        cond_ids / uncond_ids: (1, 77) token ids; ``mask`` (H, W), nonzero
+        cond_ids / uncond_ids: (1, 77) token ids, or ``prompt`` /
+        ``uncond_prompt`` strings, tokenized; ``mask`` (H, W), nonzero
         where the image is regenerated (see :func:`preprocess_mask`).  The
         image is encoded with ``encode_noise`` and q-sampled at the first
         strength-truncated step with ``latent_noise``; the masked region
         starts from ``mask_noise``; the sampler runs at eta 0 (DDPM draws
         ``step_noise``).  Each of the four draws is (1, H/8, W/8, 4) (the
         step noise one such a step run) or drawn, in that order, from the
-        seeded generator.  The image is the decode scaled to [0, 255],
-        clamped and truncated to uint8, as JAX's; ``return_latents`` gives
-        the final latents instead.
+        seeded generator.  ``progress_callback``: as :meth:`generate`'s.
+        The image is the decode scaled to [0, 255], clamped and truncated
+        to uint8, as JAX's; ``return_latents`` gives the final latents
+        instead.  Under a mesh the one lane runs on every data rank.
         """
         dev, dtype, impl = self._device(), self.dtype, self.impl
-        if do_cfg and uncond_ids is None:
-            raise ValueError("classifier-free guidance needs uncond_ids")
+        if input_image is None or mask is None:
+            raise ValueError("inpaint needs input_image and mask")
+        cond_ids, uncond_ids = self._ids(cond_ids, uncond_ids, prompt, uncond_prompt, None, do_cfg,
+                                         "inpaint")
         context = self._context(cond_ids, uncond_ids) if do_cfg else self._context(cond_ids)
         h, w = img_size
         lat_shape = (1, h // 8, w // 8, 4)
@@ -496,7 +632,8 @@ class StableDiffusion:
         latents = self._denoise(latents, context, ts, prev_ts, table, cfg_scale=cfg_scale,
                                 do_cfg=do_cfg, order="cond_first", sampler=sampler,
                                 prediction_type=sched.prediction_type, eta=0.0, draws=draws,
-                                step_noise=step_noise, blend=blend)
+                                step_noise=step_noise, blend=blend,
+                                progress_callback=progress_callback, progress_every=progress_every)
         if return_latents:
             return latents.float().cpu().numpy()
         imgs = self.vae.decode(latents, impl=impl).float()

@@ -459,6 +459,36 @@ def test_k4_every_variant(gen, shape):
         _check(ffn.geglu_ffn_kernel(*args, _plan=plan), ref)
 
 
+def _k4_args(gen, m, c, hidden):
+    return [_rn(gen, m, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+            _rn(gen, 2 * hidden, c, scale=c ** -0.5), _rn(gen, 2 * hidden, scale=0.1),
+            _rn(gen, c, hidden, scale=hidden ** -0.5), _rn(gen, c, scale=0.1), _rn(gen, m, c)]
+
+
+@pytest.mark.parametrize("c,m", [(320, 8192), (640, 2048), (1280, 512), (1280, 128)])
+@pytest.mark.parametrize("mult", [1, 2, 4])
+def test_k4_hidden_width(gen, c, m, mult):
+    """K4 at hidden C, 2C (a rank's shard of a "model" axis of 2) and 4C,
+    at SD1.5's serve widths and rows (UNet batch 2 on 64^2 latents), the
+    split-K shapes (M = 512, 128 at C = 1280) included; the launch is keyed
+    (m, c, hidden) off 4C."""
+    hidden = mult * c
+    args = _k4_args(gen, m, c, hidden)
+    ffn.K4.record()
+    got = ffn.geglu_ffn(*args, hidden=hidden, impl="cuda")
+    shapes = ffn.K4.stop_recording()
+    assert list(shapes) == [(m, c) if mult == 4 else (m, c, hidden)]
+    _check(got, ffn.geglu_ffn_plain(*(t.float() for t in args), hidden=hidden))
+
+
+def test_k4_refuses_a_hidden_width_off_64(gen):
+    args = _k4_args(gen, 64, 320, 96)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ffn.geglu_ffn(*args, hidden=96, impl="cuda")
+    with pytest.raises(ValueError, match="K4: parameter"):
+        ffn.geglu_ffn(*args, hidden=128, impl="cuda")  # W1 of another width
+
+
 def test_kernels_raise_on_shapes_they_do_not_take(gen):
     x = _rn(gen, 1, 4, 4, 20)  # Cin % 8 != 0
     with pytest.raises(ValueError, match="K2"):

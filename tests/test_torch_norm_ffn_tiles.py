@@ -22,8 +22,9 @@ gate rows of the same hidden units) split as the plan says,
 the GeGLU taken on each 64 accumulator columns as 32 values beside their 32
 gates; G2 over 64-row x ``bn2`` tiles with its K steps split over
 ``ksplit2`` blocks whose partials are added in split order, then b2 and the
-residual.  In f32 it must equal ``geglu_ffn_plain`` within 1e-5 relative;
-with the gates loaded first it must not.  These are test helpers, not
+residual.  In f32 it must equal ``geglu_ffn_plain`` within 1e-5 relative,
+at the whole model's hidden width 4C and at a tensor-parallel shard's
+(4C / tp: C and 2C); with the gates loaded first it must not.  These are test helpers, not
 used on the main path.
 """
 
@@ -252,16 +253,19 @@ def test_port_imports_neither_triton_nor_jax():
     modules (fid.py, models/inception.py) included; neither do the port's
     CLIs (inference_torch.py, train_lora_dreambooth_torch.py,
     evaluation_torch.py) and the
-    checkpoints chip_smoke.py writes (tests/torch_checkpoints.py).  None of
-    them imports ``transformers``, ``safetensors`` or ``regex``: the port
-    carries its own reader and tokenizer."""
+    checkpoints chip_smoke.py writes (tests/torch_checkpoints.py), the
+    demo (demo/app_torch.py) and the sharded-serving test's worker
+    (tests/torch_parallel_worker.py).  None of them imports
+    ``transformers``, ``safetensors`` or ``regex``: the port carries its own
+    reader and tokenizer."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     banned = ("triton", "jax", "jaxlib", "stable_diffusion_tpu", "transformers", "safetensors",
               "regex")
     extra = [root.parent / "inference_torch.py", root.parent / "train_lora_dreambooth_torch.py",
-             root.parent / "evaluation_torch.py", root.parent / "tests" / "torch_checkpoints.py"]
+             root.parent / "evaluation_torch.py", root.parent / "tests" / "torch_checkpoints.py",
+             root.parent / "demo" / "app_torch.py", root.parent / "tests" / "torch_parallel_worker.py"]
     modules = list(root.rglob("*.py"))
-    assert {root / "fid.py", root / "models" / "inception.py"} <= set(modules)
+    assert {root / "fid.py", root / "models" / "inception.py", root / "parallel" / "mesh.py"} <= set(modules)
     for path in [*modules, *extra]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -292,7 +296,8 @@ def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
     """PIL is imported inside a function of the port only (the card's
     machine may lack it; images at ``img_size`` need none), never at a
     module's import; chip_smoke.py imports neither JAX nor the JAX package,
-    nor PIL at import."""
+    nor PIL at import; demo/app_torch.py imports neither gradio nor PIL at
+    import."""
     root = pathlib.Path(gn.__file__).resolve().parents[1]
     smoke = root.parent / "chip_smoke.py"
     for path in [*root.rglob("*.py"), smoke, root.parent / "inference_torch.py",
@@ -303,6 +308,10 @@ def test_pil_only_where_a_resize_asks_and_chip_smoke_imports_no_jax():
     for node in ast.walk(ast.parse(smoke.read_text())):
         for name in _imported(node):
             assert name.split(".")[0] not in ("jax", "jaxlib", "stable_diffusion_tpu"), name
+    demo = root.parent / "demo" / "app_torch.py"
+    for node in _outside_functions(ast.parse(demo.read_text())):
+        for name in _imported(node):
+            assert name.split(".")[0] not in ("gradio", "PIL", "torch"), name
 
 
 def test_every_c_entry_binds_its_parameter_count():
@@ -371,16 +380,39 @@ def test_ffn_plan_rejects_what_the_kernel_does_not_take():
     for c in (24, 2560):
         with pytest.raises(ValueError, match="K4"):
             ffn.ffn_plan(64, c, SMS)
+    for hidden in (32, 96, 640 + 16):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            ffn.ffn_plan(64, 320, SMS, hidden=hidden)
 
 
-def g1_w1_rows(c, gates_first=False):
-    """The W1 row G1's loads take for each of its 8C slab rows (csrc/ffn.cu
-    load_slab): slab row r of tile t is hidden unit u = 64 t + 32 (r >> 6)
-    + (r & 31), its value row for r & 32 == 0, else its gate row 4C + u."""
-    r = torch.arange(8 * c)
+# The sharded serve path's K4 shapes: SD1.5's UNet at batch 2 (CFG) on 64^2
+# latents, each rank of a "model" axis of 2 holding 4C / 2 hidden units.
+SHARD_SHAPES = [(m, c, 2 * c) for m, c in _ffn_shapes(2, 64)]
+
+
+@pytest.mark.parametrize("m,c,hidden", SHARD_SHAPES)
+def test_ffn_plan_at_the_shard_shapes(m, c, hidden):
+    """At 4C / 2: G1's N tiles are H / 64, G2's K steps H / 64, split K
+    only where G2's tiles fill at most half the SMs, at least four K steps a
+    split."""
+    plan = ffn.ffn_plan(m, c, SMS, hidden=hidden)
+    whole = ffn.ffn_plan(m, c, SMS)
+    assert plan.g1 == whole.g1 and plan.g2 == whole.g2 and plan.smem1 == whole.smem1
+    assert 1 <= plan.nsplit1 <= hidden // 64
+    n2, m2, ks = plan.grid2(m, c)
+    assert (ks > 1) == (2 * m2 * n2 <= SMS) and (ks == 1 or ks * 4 <= hidden // 64)
+
+
+def g1_w1_rows(c, gates_first=False, hidden=None):
+    """The W1 row G1's loads take for each of its 2H slab rows (csrc/ffn.cu
+    load_slab; H = 4C unless given): slab row r of tile t is hidden unit u =
+    64 t + 32 (r >> 6) + (r & 31), its value row for r & 32 == 0, else its
+    gate row H + u."""
+    hid = 4 * c if hidden is None else hidden
+    r = torch.arange(2 * hid)
     t, r = r // 128, r % 128
     u = 64 * t + 32 * (r >> 6) + (r & 31)
-    return torch.where(((r & 32) != 0) != gates_first, 4 * c + u, u)
+    return torch.where(((r & 32) != 0) != gates_first, hid + u, u)
 
 
 def _ln(x, lw, lb, eps):
@@ -389,18 +421,18 @@ def _ln(x, lw, lb, eps):
     return (x - mean) * torch.rsqrt(var + eps) * lw + lb
 
 
-def emulate_ffn(x, lw, lb, w1, b1, w2, b2, res, plan, eps=1e-5, gates_first=False):
+def emulate_ffn(x, lw, lb, w1, b1, w2, b2, res, plan, eps=1e-5, gates_first=False, hidden=None):
     # G1: each block tile is 128 W1 rows in load order; at bm1 = 128 both
     # warpgroups take all of them (64 rows each), at 64 each takes 64 of them:
     # either way each 64 columns are one (32 values, 32 gates) pair.
     """K4's two GEMMs in f32 with the plan's tiles: the output (M, C)."""
     m, c = x.shape
-    hid = 4 * c
+    hid = 4 * c if hidden is None else hidden
     kc = ffn.FFN_KC
     cp = -(-c // kc) * kc
-    w1pad = F.pad(w1[g1_w1_rows(c, gates_first)], (0, cp - c))
+    w1pad = F.pad(w1[g1_w1_rows(c, gates_first, hid)], (0, cp - c))
     h = torch.zeros((m, hid))
-    ntiles = c // 16
+    ntiles = hid // 64
     mb, ns = plan.grid1(m)
     for bi in range(mb):
         r0 = bi * plan.bm1
@@ -434,13 +466,14 @@ def emulate_ffn(x, lw, lb, w1, b1, w2, b2, res, plan, eps=1e-5, gates_first=Fals
     return out
 
 
-def _ffn_inputs(m, c, seed=0):
+def _ffn_inputs(m, c, seed=0, hidden=None):
     rng = np.random.default_rng(seed)
+    hid = 4 * c if hidden is None else hidden
 
     def rn(*shape, scale=1.0):
         return torch.tensor(rng.standard_normal(shape, dtype=np.float32) * scale)
-    return (rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(8 * c, c, scale=c ** -0.5),
-            rn(8 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1), rn(m, c))
+    return (rn(m, c), 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * hid, c, scale=c ** -0.5),
+            rn(2 * hid, scale=0.1), rn(c, hid, scale=hid ** -0.5), rn(c, scale=0.1), rn(m, c))
 
 
 def _rel(got, want):
@@ -461,6 +494,30 @@ def test_emulated_ffn_matches_plain(m, c, sms, g2):
     got = emulate_ffn(*args, plan)
     want = ffn.geglu_ffn_plain(*args)
     assert _rel(got, want) <= REL, (plan, _rel(got, want))
+
+
+@pytest.mark.parametrize("m,c,hidden,sms", [
+    (130, 64, 64, SMS),        # hidden C: one G1 tile, one K step a split at most
+    (200, 96, 192, SMS),       # hidden 2C, bn2 64 with columns past C, split K
+    (70, 320, 640, 8),         # a shard of SD1.5's first stage, split G1 N tiles
+    (300, 160, 320, 4),        # hidden 2C on a small card
+])
+def test_emulated_ffn_at_a_hidden_width(m, c, hidden, sms):
+    """K4 on a tensor-parallel shard: W1 (2H, C) as the rank's value rows
+    then its gate rows, W2 (C, H), H = C or 2C."""
+    args = _ffn_inputs(m, c, seed=m + hidden, hidden=hidden)
+    plan = ffn.ffn_plan(m, c, sms, hidden=hidden)
+    got = emulate_ffn(*args, plan, hidden=hidden)
+    want = ffn.geglu_ffn_plain(*args, hidden=hidden)
+    assert _rel(got, want) <= REL, (plan, _rel(got, want))
+
+
+def test_plain_ffn_checks_the_hidden_width():
+    args = _ffn_inputs(8, 64, hidden=128)
+    with pytest.raises(ValueError, match="hidden 256"):
+        ffn.geglu_ffn_plain(*args)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ffn.geglu_ffn_kernel(*args, hidden=96)
 
 
 def test_emulated_ffn_split_k_and_n_splits_occur():
