@@ -1,6 +1,6 @@
 """Drive the PyTorch port (stable_diffusion_tpu_torch) once on an NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the fifteen phases below
+    python3 chip_smoke.py                  # the sixteen phases below
     python3 chip_smoke.py --img2img        # phases 1-2 and 9 (no contract line)
     python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
     python3 chip_smoke.py --deepcache      # phases 1-2 and 11 (no contract line)
@@ -8,6 +8,7 @@
     python3 chip_smoke.py --evaluation     # phases 1-2 and 13 (no contract line)
     python3 chip_smoke.py --demo           # phases 1-2 and 14 (no contract line)
     python3 chip_smoke.py --sharded        # phases 1-2 and 15 (no contract line)
+    python3 chip_smoke.py --sharded-train  # phases 1-2 and 16 (no contract line)
     python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
@@ -38,7 +39,7 @@
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
-Fifteen phases, one line each (plus detail lines); any failure exits non-zero
+Sixteen phases, one line each (plus detail lines); any failure exits non-zero
 and the final line is printed only when every phase passed:
 
   1. device   -- needs torch.cuda; prints nvidia-smi's name and power limit,
@@ -217,9 +218,30 @@ and the final line is printed only when every phase passed:
                  K3 (4 of 8 heads) and K4 (hidden 640 / 1280 / 2560) get on a
                  shard, each checked and timed there; seconds a request a
                  mesh.  Writes under build/shard, removed at the end.
+ 16. sharded-train -- the LoRA train step across a mesh (the collectives in
+                 the autograd graph, make_train_step(mesh=...)): two ranks
+                 (this script with --train-rank) share the card over gloo,
+                 first as a (1, 2) mesh, then as a (2, 1) mesh, then one
+                 rank runs a 1x1 mesh over NCCL; each runs phase 7's step
+                 (full SD1.5 UNet in bf16, b4 cached 64^2 latents, rank 128
+                 on q/k/v/out_proj, EMA, accumulation 2) for
+                 SHARD_TRAIN_CALLS micro-steps from one LoRA tree and
+                 batch set after rank 0's unsharded run of the same: the
+                 first micro-step's LoRA gradients within TRAIN_GRAD_REL_L2
+                 and the tree after two updates by phase 12's rule, the
+                 ranks' equal, the 1x1 mesh the unsharded run bit for bit;
+                 every micro-step timed with its sums (count, MiB, seconds),
+                 peak memory a rank; K1-K6 at a tp = 2 rank's shapes (K5/K6
+                 on 4 of 8 heads, K4 at hidden 4C / 2), each checked and
+                 timed there; then train_lora_dreambooth_torch.main for one
+                 update on phase 12's data under one rank and under two at
+                 --mesh_model_axis 2 (--train-cli-rank, the launcher's
+                 variables set): the checkpoints compared, only rank 0
+                 writing.  Writes under build/shard_train and build/cli,
+                 removed at the end.
 
 Imports nothing of JAX.  Writes nothing outside ``build/`` (kernel builds,
-and phases 10-15's checkpoints, data and logs, removed when each ends).
+and phases 10-16's checkpoints, data and logs, removed when each ends).
 """
 
 from __future__ import annotations
@@ -380,6 +402,27 @@ SWITCHED_KERNELS = ("K10", "K11", "K12")
 W8A8_KERNELS = ("K7", "K8", "K9")
 W8A8_PATH_KERNELS = ("K1", "K2", "K3", *W8A8_KERNELS)  # K4 is not on the W8A8 path
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+
+
+def set_exp_rate():
+    """EXP_RATE from the card's SM count and maximum SM clock: (SMs, MHz)."""
+    global EXP_RATE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_mhz()
+    EXP_RATE = EX2_PER_CLOCK_PER_SM * sms * clock * 1e6
+    return sms, clock
+
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter by name, and K3's by body (``K3:ring``, ...)."""
+    from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear, winograd
+
+    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
+                "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
+                "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
+                "K12": winograd.K12}
+    counters.update({f"K3:{body}": c for body, c in flash_attention.K3_BY_BODY.items()})
+    return counters
 
 
 def say(msg: str) -> None:
@@ -2293,22 +2336,30 @@ def trainer_run(argv, counters, label: str, card: str, record: bool = False):
     return state, steps, launches, shapes, secs, peak
 
 
-def compare_end_states(a, b, losses_a, losses_b, lr: float) -> bool:
-    """The cached and uncached runs' LoRA trees and EMAs (see TRAINER_GROSS_SHARE)."""
-    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
-
-    total = gross = 0
+def gross_apart(got, want, lr: float):
+    """(elements more than lr / 2 apart, elements, max |d|) of two leaf lists."""
+    gross = total = 0
     worst = 0.0
-    trees = [{"lora": t["lora"], "ema": t["ema"]} for t in (a, b)]
-    for x, y in zip(*map(tree_leaves, trees)):
+    for x, y in zip(got, want, strict=True):
         d = (x.float() - y.float()).abs()
         total += d.numel()
         gross += int((d > 0.5 * lr).sum())
         worst = max(worst, d.max().item())
+    return gross, total, worst
+
+
+def compare_end_states(a, b, losses_a, losses_b, lr: float,
+                       label: str = "trainer cached vs uncached") -> bool:
+    """Two runs' LoRA trees and EMAs (see TRAINER_GROSS_SHARE): the cached
+    and uncached runs, or (phase 16) two ranks' run and one rank's."""
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+
+    trees = [{"lora": t["lora"], "ema": t["ema"]} for t in (a, b)]
+    gross, total, worst = gross_apart(*map(tree_leaves, trees), lr)
     rel0 = abs(losses_a[0] - losses_b[0]) / max(abs(losses_b[0]), 1e-30)
     ok = (a["step"] == b["step"] and rel0 <= TRAINER_LOSS_REL
           and gross <= TRAINER_GROSS_SHARE * total)
-    say(f"  trainer cached vs uncached: steps {a['step']} / {b['step']}; first loss {losses_a[0]:.5f} "
+    say(f"  {label}: steps {a['step']} / {b['step']}; first loss {losses_a[0]:.5f} "
         f"vs {losses_b[0]:.5f} (rel {rel0:.2e}, tol {TRAINER_LOSS_REL}); {gross} of {total} LoRA + "
         f"EMA elements differ by more than lr/2 ({gross / total:.2e}, tol {TRAINER_GROSS_SHARE}); "
         f"max |d| {worst:.3e} {'ok' if ok else 'BAD'}")
@@ -2967,7 +3018,8 @@ def _free_port() -> int:
 
 
 class _CollectiveTimer:
-    """While entered, times each ``Mesh.all_reduce`` that crosses ranks (the
+    """While entered, times each sum that crosses ranks (``Mesh._sum``, which
+    ``Mesh.all_reduce``, the autograd pair and ``Mesh.sum_flat`` call; the
     card synchronised on entry and exit, so the rank's own queued work is
     not counted) and, inside it, the ``dist.all_reduce`` call alone; the
     rest is the host copies and the f32 casts of a gloo mesh.  ``read``
@@ -2980,7 +3032,7 @@ class _CollectiveTimer:
         import torch.distributed as dist
 
         mesh_cls, sums = self.pmesh.Mesh, self.sums
-        inner_mesh, inner_dist = mesh_cls.all_reduce, dist.all_reduce
+        inner_mesh, inner_dist = mesh_cls._sum, dist.all_reduce
 
         def wire(t, *a, **k):
             t0 = time.perf_counter()
@@ -2989,9 +3041,7 @@ class _CollectiveTimer:
             sums["mib"] += t.numel() * t.element_size() / 2 ** 20
             return r
 
-        def all_reduce(mesh, t, axis=self.pmesh.MODEL_AXIS):
-            if mesh.size(axis) == 1:
-                return inner_mesh(mesh, t, axis)
+        def summed(mesh, t, axis):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = inner_mesh(mesh, t, axis)
@@ -3001,13 +3051,13 @@ class _CollectiveTimer:
             return r
 
         self._undo = (inner_mesh, inner_dist)
-        mesh_cls.all_reduce, dist.all_reduce = all_reduce, wire
+        mesh_cls._sum, dist.all_reduce = summed, wire
         return self
 
     def __exit__(self, *exc):
         import torch.distributed as dist
 
-        self.pmesh.Mesh.all_reduce, dist.all_reduce = self._undo
+        self.pmesh.Mesh._sum, dist.all_reduce = self._undo
 
     def read(self):
         out = dict(self.sums)
@@ -3023,15 +3073,10 @@ def shard_rank_main(argv) -> int:
     under SHARD_DIR."""
     import torch.distributed as dist
 
-    from stable_diffusion_tpu_torch.ops import conv, ffn, flash_attention, groupnorm, linear, winograd
     from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 
     rank, world, port, data, model = map(int, argv[:5])
-    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
-                "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
-                "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
-                "K12": winograd.K12}
-    counters.update({f"K3:{b}": c for b, c in flash_attention.K3_BY_BODY.items()})
+    counters = kernel_counters()
     device = pmesh.init_distributed(rank, world, f"tcp://localhost:{port}", device="cuda")
     tag = f"{data}x{model}"
     try:
@@ -3075,19 +3120,20 @@ def shard_rank_main(argv) -> int:
     return 0
 
 
-def _run_world(world: int, data: int, model: int, label: str) -> bool:
-    """Start ``world`` ranks of ``shard_rank_main`` and wait for them (every
-    one stopped on a timeout); their output's tail goes to the log."""
+def _run_world(world: int, role: str, args, label: str, timeout: float = SHARD_TIMEOUT):
+    """Start ``world`` ranks of this script (``role`` RANK WORLD PORT
+    ``args``) and wait for them (every one stopped on a timeout): (ok, each
+    rank's output); a failed rank's tail goes to the log."""
     env = dict(os.environ)
     if os.path.isdir("/sys/class/net/lo"):  # the collectives' bootstrap stays on loopback
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         env.setdefault("NCCL_SOCKET_IFNAME", "lo")
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
-                               str(world), str(port), str(data), str(model)], env=env,
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), role, str(r), str(world),
+                               str(port), *map(str, args)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    ok, deadline = True, time.monotonic() + SHARD_TIMEOUT
+    ok, logs, deadline = True, [], time.monotonic() + timeout
     try:
         for r, p in enumerate(procs):
             try:
@@ -3095,16 +3141,17 @@ def _run_world(world: int, data: int, model: int, label: str) -> bool:
             except subprocess.TimeoutExpired:
                 p.kill()
                 log, _ = p.communicate()
-                log += f"\n(killed after {SHARD_TIMEOUT} s)"
+                log += f"\n(killed after {timeout} s)"
+            logs.append(log)
             if p.returncode != 0:
                 ok = False
-                say(f"  shard {label} rank {r}: exit {p.returncode}\n" + log[-3000:])
+                say(f"  {label} rank {r}: exit {p.returncode}\n" + log[-3000:])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return ok
+    return ok, logs
 
 
 def phase_sharded(counters, card: str):
@@ -3119,7 +3166,8 @@ def phase_sharded(counters, card: str):
     os.makedirs(SHARD_DIR)
     torch.cuda.empty_cache()
     try:
-        ok = _run_world(2, 1, 2, "tp=2 gloo") and _run_world(1, 1, 1, "1x1 nccl")
+        ok = (_run_world(2, "--shard-rank", (1, 2), "shard tp=2 gloo")[0]
+              and _run_world(1, "--shard-rank", (1, 1), "shard 1x1 nccl")[0])
         if not ok:
             return False, {}
         res = {}
@@ -3174,6 +3222,366 @@ def sharded_line(sh) -> str:
             + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
                         f"{v['ms']:.2f} ms, plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.2f}"
                         for k, v in sh["summary"].items()) + " per sharded pass")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: sharded training (the collectives in the autograd graph,
+# training.make_train_step(mesh=...), the trainer CLI's --mesh_model_axis)
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN_DIR = os.path.join(REPO, "build", "shard_train")
+SHARD_TRAIN_SEED = 60     # the UNet's weights: init_random_ from this seed on every rank
+SHARD_TRAIN_CALLS = 4     # micro-steps a mesh: two updates at accumulation 2
+SHARD_TRAIN_MESHES = "1x2,2x1"
+SHARD_TRAIN_TIMEOUT = 600  # seconds a world may take
+# The trainer CLI under two ranks at --mesh_model_axis 2 and on one: phase
+# 12's cached run, cut to one update (two micro-steps).
+SHARD_TRAIN_CLI_ARGS = [*TRAINER_ARGS, "--max_train_steps", "1"]
+# Bounds, sharded against rank 0's unsharded bf16 step on the same batches:
+# one micro-step's LoRA gradients within TRAIN_GRAD_REL_L2 (relative L2
+# over the tree; the row-parallel partials, or the batch halves, summed in
+# f32 on the host, then rounded to bf16, where the unsharded step rounds
+# one product); the LoRA trees after two updates, and the CLI's checkpoint
+# against the one-rank run's, by phase 12's rule (compare_end_states: an
+# Adam element whose gradient lies within that rounding of 0 may move the
+# other way); the two ranks of a mesh equal bit for bit; the 1x1 mesh the
+# unsharded step bit for bit (its sums are of one rank: the same launches).
+
+
+def shard_train_inputs(unet):
+    """The LoRA tree (rank 128, alpha 128 on TRAIN_TARGETS, drawn on the
+    whole UNet; B != 0, as check_train_grads's, so that A and alpha get
+    gradients) and SHARD_TRAIN_CALLS b4 batches (phase 7's: cached 64^2
+    latent moments and text embeddings, fresh t and noise each), from one
+    seed: the same on every rank."""
+    from stable_diffusion_tpu_torch import training as T
+    from stable_diffusion_tpu_torch.models import lora as L
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lora = {"unet": L.init_lora(gen, unet, rank=128, alpha=128.0, targets=TRAIN_TARGETS)}
+    for e in lora["unet"].values():
+        e["lora_B"] = torch.randn(e["lora_B"].shape, generator=gen, device="cuda") * 1e-4
+    b = TRAIN_BATCH
+    fixed = {"latent_mean": torch.randn((b, 64, 64, 4), generator=gen, device="cuda").bfloat16(),
+             "latent_std": F.softplus(torch.randn((b, 64, 64, 4), generator=gen,
+                                                  device="cuda")).bfloat16(),
+             "text_emb": torch.randn((b, 77, 768), generator=gen, device="cuda").bfloat16()}
+    batches = []
+    for _ in range(SHARD_TRAIN_CALLS):
+        t, noise, vnoise = T.sample_noise_for_latents(gen, (b, 64, 64, 4), dtype=torch.bfloat16)
+        batches.append({**fixed, "t": t, "noise": noise, "vae_noise": vnoise})
+    return lora, batches
+
+
+def shard_train_run(unet, mesh, lora, batches, counters, timer, path: str):
+    """SHARD_TRAIN_CALLS calls of phase 7's train step (accumulation 2, EMA)
+    on ``unet`` (sharded on ``mesh``, or whole with None), every launch
+    counted from 0 and the first call's shapes recorded, each call timed with
+    its sums; the first call's gradients (the accumulator after it) and the
+    last LoRA tree saved to ``path``.  -> (figures, shapes)."""
+    import torch.distributed as dist
+
+    from stable_diffusion_tpu_torch import training as T
+    from stable_diffusion_tpu_torch.models import ema
+    from stable_diffusion_tpu_torch.schedulers import schedule as S
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = T.TrainConfig(rank=128, alpha=128.0, use_ema=True, grad_accum_steps=2,
+                        lora_targets=TRAIN_TARGETS)
+    lora = tree_map(torch.clone, lora)
+    state = {"lora": lora, "opt_state": T.make_optimizer(cfg).init(lora),
+             "ema": ema.ema_init(lora), "step": 0}
+    step = T.make_train_step({"unet": unet}, schedule=S.make_schedule(), train_cfg=cfg,
+                             impl="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+        c.record()
+    secs, comm, losses = [], [], []
+    for i, batch in enumerate(batches):
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer:
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        comm.append(timer.read())
+        if i == 0:
+            shapes = {k: c.stop_recording() for k, c in counters.items()}
+            grads = [t.float().cpu() for t in tree_leaves(state["opt_state"]["acc"])]
+    torch.save({"grads": grads, "lora": [t.cpu() for t in tree_leaves(state["lora"])]}, path)
+    return dict(secs=secs, comm=comm, losses=losses, lr=cfg.learning_rate,
+                launches={k: c.launches for k, c in counters.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30), shapes
+
+
+def shard_train_rank_main(argv) -> int:
+    """One rank of phase 16 (``--train-rank RANK WORLD PORT MESHES CHECK``):
+    the seeded SD1.5 UNet in bf16 on the card and shard_train_inputs; rank
+    0's unsharded run first, then for each mesh of MESHES ("1x2,2x1") a
+    fresh UNet sharded on it and shard_train_run; with CHECK ("check"),
+    rank 0 then checks and times every kernel at the first mesh's shapes
+    while the other ranks wait.  Writes under SHARD_TRAIN_DIR."""
+    import torch.distributed as dist
+
+    from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
+    from stable_diffusion_tpu_torch.parallel import mesh as pmesh
+    from stable_diffusion_tpu_torch.utils import weights as W
+    from stable_diffusion_tpu_torch.utils.tree import tree_leaves
+
+    rank, world, port = map(int, argv[:3])
+    tag, check = argv[3], argv[4] == "check"
+    counters = kernel_counters()
+    pmesh.init_distributed(rank, world, f"tcp://localhost:{port}", device="cuda")
+    try:
+        unet = W.build(UNet, UNetConfig.sd15(), device="cuda", dtype=torch.bfloat16)
+        W.init_random_(unet, SHARD_TRAIN_SEED)
+        unet.requires_grad_(False)
+        lora, batches = shard_train_inputs(unet)
+        if rank == 0:
+            torch.save([t.cpu() for t in tree_leaves(lora)],
+                       os.path.join(SHARD_TRAIN_DIR, f"init_{tag}.pt"))
+        whole = unet.state_dict()
+        timer = _CollectiveTimer(pmesh)
+        out, first = {"backend": dist.get_backend(), "runs": {}}, None
+        if rank == 0:
+            out["runs"]["unsharded"], _ = shard_train_run(
+                unet, None, lora, batches, counters, timer,
+                os.path.join(SHARD_TRAIN_DIR, f"unsharded_{tag}.pt"))
+        dist.barrier()
+        for m in tag.split(","):
+            data, model = map(int, m.split("x"))
+            mesh = pmesh.make_mesh(data, model)
+            local = W.build(UNet, UNetConfig.sd15(), device="cuda", dtype=torch.bfloat16)
+            local.load_state_dict(whole)
+            local.requires_grad_(False)
+            pmesh.shard_module_(local, mesh)
+            out["runs"][m], shapes = shard_train_run(
+                local, mesh, lora, batches, counters, timer,
+                os.path.join(SHARD_TRAIN_DIR, f"{m}_rank{rank}.pt"))
+            first = first or shapes
+            del local
+            torch.cuda.empty_cache()
+        del unet, whole
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if check and rank == 0:  # the card to itself: the kernels at the first mesh's shapes
+            set_exp_rate()
+            say("  shard_train step shapes: " + ", ".join(
+                f"{k} {len(first[k])} shapes {sum(first[k].values())} calls" for k in TRAIN_KERNELS))
+            ok_k, summary = check_kernels(first, TRAIN_KERNELS, "shard_train")
+            ok_k &= no_general_body(first, "sharded train step")
+            pair = attention_bwd_pair(first, torch.Generator(device="cuda").manual_seed(7))
+            out.update(kernels_ok=ok_k, summary=summary, pair_bound_ms=pair[0],
+                       pair_library_ms=pair[1], k5_heads=sorted({key[2] for key in first["K5"]}),
+                       k4_hidden=sorted({key[2] for key in first["K4"] if len(key) == 3}),
+                       k4_keys=sorted(len(key) for key in first["K4"]))
+        dist.barrier()
+        with open(os.path.join(SHARD_TRAIN_DIR, f"{tag}_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_cli_rank_main(argv) -> int:
+    """One rank of phase 16's trainer run (``--train-cli-rank RANK WORLD PORT
+    ARGV_JSON``): the launcher's variables set as ``python -m
+    torch.distributed.run`` sets them, then ``train_lora_dreambooth_torch.main``
+    with its steps timed and its checkpoint writes counted.  Writes
+    SHARD_TRAIN_DIR/cli_rank{RANK}.json."""
+    rank, world, port = map(int, argv[:3])
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import train_lora_dreambooth_torch as tcli
+    from stable_diffusion_tpu_torch.utils import checkpoint as ckpt
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    saved, save = [], ckpt.save_train_checkpoint
+    ckpt.save_train_checkpoint = lambda path, tree: saved.append(path) or save(path, tree)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_train_steps() as steps:
+        tcli.main(json.loads(argv[3]))
+    torch.cuda.synchronize()
+    with open(os.path.join(SHARD_TRAIN_DIR, f"cli_rank{rank}.json"), "w") as f:
+        json.dump(dict(losses=steps.losses, secs=steps.secs, main_s=time.perf_counter() - t0,
+                       saved=saved, launches={k: c.launches for k, c in counters.items()},
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30), f)
+    return 0
+
+
+def _tree_rel_l2(got, want) -> float:
+    num = sum(float(((g.float() - w.float()) ** 2).sum()) for g, w in zip(got, want, strict=True))
+    return (num / max(sum(float((w.float() ** 2).sum()) for w in want), 1e-30)) ** 0.5
+
+
+def _trees_agree(got, want, init, lr: float, label: str) -> bool:
+    """Two LoRA trees after the same updates (phase 12's rule): at most
+    TRAINER_GROSS_SHARE of the elements apart by more than lr / 2; the
+    relative L2 of the two updates (the trees less ``init``) printed."""
+    gross, total, _ = gross_apart(got, want, lr)
+    upd = _tree_rel_l2([g - i for g, i in zip(got, init)], [w - i for w, i in zip(want, init)])
+    ok = gross <= TRAINER_GROSS_SHARE * total
+    say(f"  {label}: {gross} of {total} LoRA elements apart by more than lr/2 "
+        f"({gross / total:.2e}, tol {TRAINER_GROSS_SHARE}); the updates' rel_l2 {upd:.3e} "
+        f"{'ok' if ok else 'BAD'}")
+    return ok
+
+
+def shard_train_cli(card: str):
+    """train_lora_dreambooth_torch.main for one update on phase 12's data and
+    phase 10's f16 directory: one rank in this process, then two ranks at
+    --mesh_model_axis 2 (a (1, 2) mesh over gloo on the card).  The two-rank
+    checkpoint against the one-rank one (compare_end_states); only rank 0
+    writes it."""
+    import train_lora_dreambooth_torch as tcli
+    from stable_diffusion_tpu_torch.utils.checkpoint import load_train_checkpoint
+
+    write_cli_checkpoints(ldm_and_kohya=False)
+    data = os.path.join(SHARD_TRAIN_DIR, "data")
+    write_dreambooth_data(data)
+
+    def argv(name, *extra):
+        return ["--model_path", os.path.join(CLI_DIR, "sd15"), "--tokenizer_dir",
+                os.path.join(CLI_DIR, "tokenizer"), "--data_dir", data, "--checkpoint_dir",
+                os.path.join(SHARD_TRAIN_DIR, name), "--log_dir",
+                os.path.join(SHARD_TRAIN_DIR, name, "logs"), *SHARD_TRAIN_CLI_ARGS, *extra]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_train_steps() as one_steps:
+        tcli.main(argv("one"))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ok, _ = _run_world(2, "--train-cli-rank", (json.dumps(argv("tp2", "--mesh_model_axis", "2")),),
+                       "trainer tp=2", SHARD_TRAIN_TIMEOUT)
+    if not ok:
+        return False, {}
+    ranks = [json.load(open(os.path.join(SHARD_TRAIN_DIR, f"cli_rank{r}.json"))) for r in range(2)]
+    one = load_train_checkpoint(os.path.join(SHARD_TRAIN_DIR, "one", "epoch-0.ckpt"))["state"]
+    tp2 = load_train_checkpoint(os.path.join(SHARD_TRAIN_DIR, "tp2", "epoch-0.ckpt"))["state"]
+    lr = float(TRAINER_ARGS[TRAINER_ARGS.index("--lr") + 1])
+    ok_e = compare_end_states(tp2, one, ranks[0]["losses"], one_steps.losses, lr,
+                              "trainer two ranks at --mesh_model_axis 2 vs one rank")
+    written = sorted(f for f in os.listdir(os.path.join(SHARD_TRAIN_DIR, "tp2")) if f.endswith(".ckpt"))
+    ok_w = (ranks[0]["saved"] == [os.path.join(SHARD_TRAIN_DIR, "tp2", "epoch-0")]
+            and ranks[1]["saved"] == [] and written == ["epoch-0.ckpt"])
+    launches = ranks[0]["launches"]
+    ok_l = (all(launches[k] > 0 for k in TRAIN_KERNELS) and launches["K3:general"] == 0
+            and all(launches[k] == 0 for k in KERNELS if k not in TRAIN_KERNELS))
+    say(f"  {card}: trainer CLI one update b2+2 512^2: one rank {one_s:.2f} s of main(), s/step "
+        f"{[round(x, 4) for x in one_steps.secs]}; two ranks at --mesh_model_axis 2 "
+        f"{[round(r['main_s'], 2) for r in ranks]} s of main(), s/step "
+        f"{[round(x, 4) for x in ranks[0]['secs']]}, losses {[round(x, 5) for x in ranks[0]['losses']]} "
+        f"vs {[round(x, 5) for x in one_steps.losses]}, peak GiB a rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]}; only rank 0 wrote ({written}): {ok_w}; "
+        f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}} "
+        f"{'ok' if ok_l else 'BAD'}")
+    return ok_e and ok_w and ok_l, dict(one_s=one_s, secs=ranks[0]["secs"],
+                                        main_s=[r["main_s"] for r in ranks],
+                                        one_secs=one_steps.secs)
+
+
+def phase_sharded_train(counters, card: str):
+    """The LoRA train step on meshes (1, 2) and (2, 1) of two ranks sharing
+    the card over gloo, then a 1x1 mesh of one rank over NCCL, each against
+    rank 0's unsharded step; K1-K6 at a tp = 2 rank's shapes; the trainer
+    CLI under two ranks at --mesh_model_axis 2."""
+    import shutil
+
+    shutil.rmtree(SHARD_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(SHARD_TRAIN_DIR)
+    torch.cuda.empty_cache()
+    try:
+        ok_a, logs = _run_world(2, "--train-rank", (SHARD_TRAIN_MESHES, "check"), "train gloo",
+                                SHARD_TRAIN_TIMEOUT)
+        if ok_a:
+            for line in logs[0].splitlines():
+                say(line)
+        ok_b, _ = _run_world(1, "--train-rank", ("1x1", "-"), "train 1x1 nccl", SHARD_TRAIN_TIMEOUT)
+        if not (ok_a and ok_b):
+            return False, {}
+        tags = {SHARD_TRAIN_MESHES: 2, "1x1": 1}
+        res = {tag: [json.load(open(os.path.join(SHARD_TRAIN_DIR, f"{tag}_rank{r}.json")))
+                     for r in range(n)] for tag, n in tags.items()}
+        load = lambda name: torch.load(os.path.join(SHARD_TRAIN_DIR, name))  # noqa: E731
+        base, base1 = load(f"unsharded_{SHARD_TRAIN_MESHES}.pt"), load("unsharded_1x1.pt")
+        init = load(f"init_{SHARD_TRAIN_MESHES}.pt")
+        lr = res[SHARD_TRAIN_MESHES][0]["runs"]["unsharded"]["lr"]
+        ok, rel = True, {}
+        for m in SHARD_TRAIN_MESHES.split(","):
+            ranks = [load(f"{m}_rank{r}.pt") for r in range(2)]
+            rel[m] = _tree_rel_l2(ranks[0]["grads"], base["grads"])
+            equal = all(torch.equal(a, b) for key in ("grads", "lora")
+                        for a, b in zip(ranks[0][key], ranks[1][key]))
+            good = rel[m] <= TRAIN_GRAD_REL_L2 and equal
+            say(f"  shard_train {m}: one micro-step's LoRA gradients rel_l2 to the unsharded "
+                f"{rel[m]:.3e} (tol {TRAIN_GRAD_REL_L2}); the two ranks' gradients and trees equal: "
+                f"{equal} {'ok' if good else 'BAD'}")
+            ok &= good and _trees_agree(ranks[0]["lora"], base["lora"], init, lr,
+                                        f"shard_train {m} LoRA tree after two updates")
+        one = load("1x1_rank0.pt")
+        same = all(torch.equal(a, b) for key in ("grads", "lora") for a, b in zip(one[key], base1[key]))
+        ok &= same and res["1x1"][0]["backend"] == "nccl" and res[SHARD_TRAIN_MESHES][0]["backend"] == "gloo"
+        say(f"  shard_train 1x1 ({res['1x1'][0]['backend']}): the unsharded step's gradients and tree "
+            f"bit for bit: {same}")
+        a0 = res[SHARD_TRAIN_MESHES][0]
+        ok &= bool(a0["kernels_ok"]) and a0["k5_heads"] == [4] and a0["k4_hidden"] == [640, 1280, 2560]
+        runs = {m: [r["runs"][m] for r in res[SHARD_TRAIN_MESHES]] for m in SHARD_TRAIN_MESHES.split(",")}
+        runs["1x1"] = [res["1x1"][0]["runs"]["1x1"]]
+        runs["unsharded"] = [a0["runs"]["unsharded"]]
+        for m, rs in runs.items():
+            for r, run in enumerate(rs):
+                la = run["launches"]
+                good = (all(la[k] > 0 for k in TRAIN_KERNELS) and la["K3:general"] == 0
+                        and all(la[k] == 0 for k in KERNELS if k not in TRAIN_KERNELS)
+                        and all(np.isfinite(run["losses"])))
+                ok &= good
+                for i, (sec, c) in enumerate(zip(run["secs"], run["comm"])):
+                    say(f"  {card}: shard_train {m} rank {r} micro-step {i}: {sec:.3f} s, loss "
+                        f"{run['losses'][i]:.5f}, {c['calls']} sums of {c['mib']:.1f} MiB in all: "
+                        f"{c['all_reduce_s']:.3f} s in the sums ({c['wire_s']:.3f} s in gloo's or "
+                        f"NCCL's call), {sec - c['all_reduce_s']:.3f} s outside")
+                say(f"  shard_train {m} rank {r}: peak {run['peak_gib']:.2f} GiB, launches "
+                    f"{{{', '.join(f'{k}: {v}' for k, v in la.items() if v)}}} {'ok' if good else 'BAD'}")
+        ok_c, cli = shard_train_cli(card)
+    finally:
+        shutil.rmtree(SHARD_TRAIN_DIR, ignore_errors=True)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+    def median_after_first(run):
+        return statistics.median(run["secs"][1:])
+
+    figures = {m: dict(s=median_after_first(rs[0]),
+                       share=sum(c["all_reduce_s"] for c in rs[0]["comm"][1:])
+                       / sum(rs[0]["secs"][1:]),
+                       calls=rs[0]["comm"][1]["calls"], mib=rs[0]["comm"][1]["mib"],
+                       peak=[r["peak_gib"] for r in rs]) for m, rs in runs.items()}
+    return ok and ok_c, dict(summary=a0["summary"], launches=runs["1x2"][0]["launches"],
+                             figures=figures, rel=rel, cli=cli,
+                             pair_bound_ms=a0["pair_bound_ms"], pair_library_ms=a0["pair_library_ms"])
+
+
+def sharded_train_line(st) -> str:
+    f = st["figures"]
+    return (f"SD1.5 LoRA r128 b4 512^2 accumulation 2 on a mesh: s/micro-step (median of calls 2-4) "
+            + ", ".join(f"{m} {v['s']:.3f} ({100 * v['share']:.1f}% in {v['calls']} sums of "
+                        f"{v['mib']:.1f} MiB; peak GiB a rank {[round(x, 2) for x in v['peak']]})"
+                        for m, v in f.items())
+            + "; grads rel_l2 " + ", ".join(f"{m} {v:.3e}" for m, v in st["rel"].items())
+            + f"; trainer CLI two ranks s/step {[round(x, 3) for x in st['cli']['secs']]} vs one "
+              f"{[round(x, 3) for x in st['cli']['one_secs']]}; "
+            + ", ".join(f"{k} {v['shapes']} shapes max_rel={v['max_rel_err']:.2e} kernel "
+                        f"{v['ms']:.2f} ms, plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.2f}"
+                        for k, v in st["summary"].items()) + " per tp=2 rank micro-step")
 
 
 def _kernel_group(name: str) -> str:
@@ -3928,10 +4336,7 @@ def main() -> int:
         return 2
     card = card_line()
     say(card)
-    global EXP_RATE
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = max_sm_clock_mhz()
-    EXP_RATE = EX2_PER_CLOCK_PER_SM * sms * clock * 1e6
+    sms, clock = set_exp_rate()
     say(f"phase 1 device: ok, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}, {sms} SMs, max SM clock {clock:.0f} "
         f"MHz (exponential bound: {EXP_RATE:.3e} a second)")
@@ -3942,11 +4347,7 @@ def main() -> int:
 
     from stable_diffusion_tpu_torch.ops import winograd
 
-    counters = {"K1": groupnorm.K1, "K2": conv.K2, "K3": flash_attention.K3, "K4": ffn.K4,
-                "K5": flash_attention.K5, "K6": flash_attention.K6, "K7": conv.K7,
-                "K8": linear.K8, "K9": ffn.K9, "K10": linear.K10, "K11": linear.K11,
-                "K12": winograd.K12}
-    counters.update({f"K3:{body}": c for body, c in flash_attention.K3_BY_BODY.items()})
+    counters = kernel_counters()
 
     if "--k1-host" in sys.argv[1:] or "--profile-serve" in sys.argv[1:]:
         say(f"  package: {os.path.dirname(os.path.dirname(groupnorm.__file__))}")
@@ -4040,6 +4441,12 @@ def main() -> int:
         ok15, sh = phase_sharded(counters, card)
         say(f"phase 15 sharded: {'ok' if ok15 else 'FAIL'}, " + (sharded_line(sh) if sh else ""))
         return 0 if ok15 else 1
+    if "--sharded-train" in sys.argv[1:]:
+        ok16, st = phase_sharded_train(counters, card)
+        say(f"phase 16 sharded-train: {'ok' if ok16 else 'FAIL'}, "
+            + (sharded_train_line(st) if st else ""))
+        say(card)
+        return 0 if ok16 else 1
 
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
@@ -4172,6 +4579,13 @@ def main() -> int:
     if not ok15:
         return 1
 
+    # 16. sharded training: meshes (1, 2) and (2, 1) over gloo, 1x1 over NCCL, the trainer CLI
+    ok16, st = phase_sharded_train(counters, card)
+    say(f"phase 16 sharded-train: {'ok' if ok16 else 'FAIL'}, "
+        + (sharded_train_line(st) if st else ""))
+    if not ok16:
+        return 1
+
     # ms / plain_ms / bound_ms / library_ms: milliseconds per pass.  K1-K4:
     # serving (text encode + CFG UNet step + VAE decode), launches over phase
     # 5's requests, with their train-step figures under train_* and (K1-K3)
@@ -4197,8 +4611,12 @@ def main() -> int:
     # b1) under eval_vqvae_*, and K8 in the W8A8 text tower (a b1 and a b2
     # forward) under eval_text_w8a8_*; K3's and K4's on a tensor-parallel
     # rank (phase 15: one sharded CFG step's shapes; launches over a tp=2
-    # request of SHARD_STEPS steps) under shard_*, and K1-K4's launches in
-    # the demo's b1 txt2img request (phase 14) under demo_launches.
+    # request of SHARD_STEPS steps) under shard_*, K1-K6's on a tp = 2 rank
+    # in training (phase 16: one sharded b4 micro-step's shapes; launches
+    # over rank 0's SHARD_TRAIN_CALLS micro-steps on the (1, 2) mesh) under
+    # shard_train_* (the pair's under the pair's shard_train_*), and K1-K4's
+    # launches in the demo's b1 txt2img request (phase 14) under
+    # demo_launches.
     passes = {"serve": "serving: text encode + CFG UNet step + VAE decode",
               "train": "one train micro-step (b4)",
               "w8a8": "W8A8 serving (b4): text encode + CFG UNet step (UNet batch 8) + VAE decode",
@@ -4246,8 +4664,10 @@ def main() -> int:
                                ("eval_class2img", ev["class2img"], ev["class2img_launches"]),
                                ("eval_vqvae", ev["vqvae"], ev["vqvae_launches"]),
                                ("eval_text_w8a8", ev["text"], ev["text_launches"]),
-                               ("shard", sh["summary"], sh["launches"])):
-            if k in other and (serving or tag.startswith(("deepcache", "trainer", "eval"))):
+                               ("shard", sh["summary"], sh["launches"]),
+                               ("shard_train", st["summary"], st["launches"])):
+            if k in other and (serving or tag.startswith(("deepcache", "trainer", "eval",
+                                                          "shard_train"))):
                 t = other[k]
                 row.update({f"{tag}_launches": n2[k], f"{tag}_max_abs_err": t["max_abs_err"],
                             f"{tag}_max_rel_err": t["max_rel_err"], f"{tag}_ms": t["ms"],
@@ -4260,10 +4680,15 @@ def main() -> int:
         row["pass"] = row.pop("pass_")
         kernels.append(row)
     # K5 + K6 as the one function they compute, per train micro-step
+    sts = st["summary"]
     pair = dict(kernels=["K5", "K6"], ms=tsum["K5"]["ms"] + tsum["K6"]["ms"],
                 plain_ms=tsum["K5"]["plain_ms"] + tsum["K6"]["plain_ms"],
                 bound_ms=train["pair_bound_ms"], library_ms=train["pair_library_ms"],
-                library_call="F.scaled_dot_product_attention backward (dq, dk, dv)")
+                library_call="F.scaled_dot_product_attention backward (dq, dk, dv)",
+                shard_train_ms=sts["K5"]["ms"] + sts["K6"]["ms"],
+                shard_train_plain_ms=sts["K5"]["plain_ms"] + sts["K6"]["plain_ms"],
+                shard_train_bound_ms=st["pair_bound_ms"],
+                shard_train_library_ms=st["pair_library_ms"])
     say(json.dumps({"kernels": kernels, "pair": pair}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4275,6 +4700,10 @@ def main() -> int:
 if __name__ == "__main__":
     if "--shard-rank" in sys.argv[1:]:  # one rank of phase 15, started by phase_sharded
         sys.exit(shard_rank_main(sys.argv[sys.argv.index("--shard-rank") + 1:]))
+    if "--train-rank" in sys.argv[1:]:  # one rank of phase 16, started by phase_sharded_train
+        sys.exit(shard_train_rank_main(sys.argv[sys.argv.index("--train-rank") + 1:]))
+    if "--train-cli-rank" in sys.argv[1:]:  # one rank of phase 16's trainer run
+        sys.exit(train_cli_rank_main(sys.argv[sys.argv.index("--train-cli-rank") + 1:]))
     try:
         code = main()
     except Exception:  # any phase's failure: report it and exit non-zero

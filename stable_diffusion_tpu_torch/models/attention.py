@@ -18,10 +18,16 @@ E / tp rows of q/k/v (num_heads / tp whole heads) and E / tp columns of
 out_proj.  The fused QKV is split by the local width, the attention (K3 on
 the card) runs on the local heads, and the out projection's partial product
 is summed over "model" before its bias and the residual are added, once.
+In training the mate of that sum (``Mesh.column_input``) sits on ``x`` and
+on the cross-attention context before the projections (the pre-LN
+included), and on the pre-LN's weight and bias, so the gradient of each is
+summed over every rank's heads; the residual is the caller's ``x``, taken
+before it.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -122,6 +128,13 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
     qp = mod.q_proj
     if isinstance(qp, layers.QLinear) and qp.w8a8 and not unfused:
         return _w8a8_attention(mod, x, kv_in, cond, num_heads, causal, impl, ln, residual, ln_eps)
+    mesh = row_parallel(mod.out_proj)
+    if mesh is not None:  # a shard: the mates of the out projection's sum
+        x = mesh.column_input(x)
+        kv_in = x if cond is None else mesh.column_input(kv_in)
+        if ln is not None:
+            ln = SimpleNamespace(weight=mesh.column_input(ln.weight),
+                                 bias=mesh.column_input(ln.bias))
     dense = isinstance(qp, nn.Linear) and not unfused
     # the rank's width and heads: E and num_heads unless q_proj is a shard
     el = qp.weight.shape[0] if isinstance(qp, nn.Linear) else e
@@ -146,8 +159,7 @@ def multihead_attention(mod: MultiheadAttention, x, *, num_heads: int, cond=None
         v = layers.linear(mod.v_proj, kv_in, impl=impl).reshape(b, sk, heads, d)
     out = sdpa(q, k, v, causal=causal, impl=impl).reshape(b, sq, el)
     o = mod.out_proj
-    if (residual is not None and isinstance(o, nn.Linear) and not unfused
-            and row_parallel(o) is None):
+    if residual is not None and isinstance(o, nn.Linear) and not unfused and mesh is None:
         return matmul_residual(out, o.weight, o.bias, residual, impl=impl)
     out = layers.linear(o, out, impl=impl)
     return out if residual is None else out + residual

@@ -33,6 +33,7 @@ from torch import nn
 
 from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.models.attention import MultiheadAttention, multihead_attention
+from stable_diffusion_tpu_torch.parallel.mesh import row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +101,15 @@ def _act(name: str):
 
 def _block(x, ln1, attn, ln2, fc1, fc2, *, act, num_heads: int, eps: float, causal: bool,
            impl: str):
-    """Pre-LN block: LN -> self-attention -> +res; LN -> MLP -> +res."""
+    """Pre-LN block: LN -> self-attention -> +res; LN -> MLP -> +res.  On a
+    tensor-parallel shard ``fc1``'s input carries the mate of ``fc2``'s sum
+    (``Mesh.column_input``; the attention places its own)."""
     h = layers.layer_norm(ln1, x, eps=eps)
     x = multihead_attention(attn, h, num_heads=num_heads, causal=causal, impl=impl) + x
     h = layers.layer_norm(ln2, x, eps=eps)
+    mesh = row_parallel(fc2)
+    if mesh is not None:
+        h = mesh.column_input(h)
     return layers.linear(fc2, act(layers.linear(fc1, h, impl=impl)), impl=impl) + x
 
 

@@ -14,6 +14,12 @@ leaf, as in JAX, where ``jax.value_and_grad`` differentiates the whole tree.
 * The merge is functional: :func:`merge_lora` returns new weight tensors,
   which reach the model through ``torch.func.functional_call``, so the
   gradients flow to A, B and alpha and the base weights stay as they are.
+* On a tensor-parallel shard (parallel/mesh.py) the tree stays whole and
+  the same on every rank, as JAX places it (``P()``), and each sharded
+  target takes its rank's slice of the whole delta by ``local_shard``'s
+  rule.  The gradient of such an entry is then this rank's part only:
+  :func:`sharded_entries` names the entries whose gradients the train step
+  sums over "model" (a replicated target's gradient is already whole).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Dict, List, Mapping, Sequence
 
 import torch
 from torch import nn
+
+from stable_diffusion_tpu_torch.parallel.mesh import MODEL_AXIS, local_shard, param_spec
 
 # Default target suffixes, matching the reference CLIs.
 DEFAULT_UNET_TARGETS = (
@@ -87,15 +95,29 @@ def merge_lora_(model: nn.Module, lora: Mapping[str, Mapping[str, torch.Tensor]]
     return model
 
 
+def sharded_entries(lora: Mapping[str, Mapping[str, torch.Tensor]], mesh) -> List[str]:
+    """The paths of ``lora`` whose target ``mesh`` splits over "model" (none
+    without a mesh or on a model axis of one)."""
+    if mesh is None or mesh.model == 1:
+        return []
+    return [p for p, e in lora.items() if MODEL_AXIS in param_spec(f"{p}.weight", e["lora_A"])]
+
+
 def merge_lora(params: Mapping[str, torch.Tensor], lora: Mapping[str, Mapping[str, torch.Tensor]],
-               *, enabled: bool = True) -> Dict[str, torch.Tensor]:
+               *, enabled: bool = True, mesh=None) -> Dict[str, torch.Tensor]:
     """``params`` (``dict(model.named_parameters())``) with each target's
     ``{path}.weight`` replaced by weight + delta (cast to the weight's
-    dtype); the others are the same tensors.  Pure: nothing is written."""
+    dtype); the others are the same tensors.  Pure: nothing is written.
+    With ``mesh``, ``params`` are a shard's (``shard_module_``) and a
+    sharded target adds its rank's slice of the whole delta."""
     out = dict(params)
     if not enabled:
         return out
+    sharded = set(sharded_entries(lora, mesh))
     for path, entry in lora.items():
-        w = out[f"{path}.weight"]
-        out[f"{path}.weight"] = w + lora_delta(entry).to(w.dtype)
+        key = f"{path}.weight"
+        delta = lora_delta(entry)
+        if path in sharded:
+            delta = local_shard(key, delta, mesh)
+        out[key] = out[key] + delta.to(out[key].dtype)
     return out

@@ -219,12 +219,15 @@ def ffn_apply(ln: nn.LayerNorm, ffn: nn.ModuleDict, x, *, impl: str):
     tensor-parallel shard (parallel/mesh.py: the rank's value and gate
     halves of the projection, the matching columns of ``ffn.1``) runs K4 at
     the rank's hidden width without b2 or the residual, sums over "model",
-    then adds both once."""
+    then adds both once; K4's input and its LayerNorm's weight and bias
+    carry the sum's mate (``Mesh.column_input``), the residual does not."""
     p0, p1 = ffn["0"].proj, ffn["1"]
-    if row_parallel(p1) is not None and not layers.capturing("linear"):
+    mesh = row_parallel(p1)
+    if mesh is not None and not layers.capturing("linear"):
         zero = cached(p1, "_tp_zero_b2", [p1.bias], lambda: torch.zeros_like(p1.bias))
-        y = geglu_ffn(x, ln.weight, ln.bias, p0.weight, p0.bias, p1.weight, zero,
-                      hidden=p1.weight.shape[1], impl=impl)
+        mate = mesh.column_input
+        y = geglu_ffn(mate(x), mate(ln.weight), mate(ln.bias), p0.weight, p0.bias, p1.weight,
+                      zero, hidden=p1.weight.shape[1], impl=impl)
         return reduce_add(p1, y, x)
     if layers.capturing("linear"):
         h = layers.geglu(ffn["0"], layers.layer_norm(ln, x), impl=impl)

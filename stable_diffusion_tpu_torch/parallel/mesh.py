@@ -32,8 +32,20 @@ Collectives follow the cards the ranks hold (:func:`backend_for`, on the
 cards' UUIDs that :func:`init_distributed` exchanges): gloo on the CPU, NCCL
 when no two ranks hold the same card, and gloo where ranks share one (NCCL
 refuses two ranks on one device); a gloo mesh moves a CUDA tensor through
-the host for its collective.  Training across a mesh is not ported yet: a
-collective on a tensor that wants a gradient raises.
+the host for its collective, in f32.
+
+Training (JAX lets GSPMD derive the backward): the collectives sit in the
+autograd graph as Megatron's pair.  :meth:`Mesh.all_reduce` over "model" is
+the row-parallel sum: the sum in the forward, the gradient passed on as it
+is in the backward (everything after the sum is replicated, so every rank
+holds the same gradient of it).  :meth:`Mesh.column_input` is its mate at
+every column-parallel input (``models/attention.py``'s x and cross-attention
+context, ``ffn_apply``'s x, the text tower's ``fc1`` input, and the weight
+and bias of a LayerNorm fused ahead of the projection): the tensor
+itself in the forward, and in the backward the sum over "model" of each
+rank's gradient, which reaches the input through that rank's heads or
+hidden units only.  :meth:`Mesh.sum_flat` sums a list of tensors (a
+gradient tree's leaves) over an axis in one collective.
 """
 
 from __future__ import annotations
@@ -126,20 +138,41 @@ class Mesh:
         """``t`` where this mesh's backend takes it: gloo works on host tensors."""
         return t.cpu() if self.backend != "nccl" and t.is_cuda else t
 
+    def _sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` as a new tensor (``t`` is left as
+        it was); through the host on a gloo mesh, in f32 there."""
+        wire = self._wire(t)
+        wire = (wire.float() if wire is not t else wire.clone()).contiguous()
+        dist.all_reduce(wire, group=self.groups[axis])
+        return wire.to(device=t.device, dtype=t.dtype)
+
     def all_reduce(self, t: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
         """The sum of ``t`` over ``axis`` (``t`` itself on an axis of one).
-        Through the host on a gloo mesh, in f32 there."""
+        Where ``t`` wants a gradient, the row-parallel rule: the gradient
+        passes the sum unchanged."""
         if self.size(axis) == 1:
             return t
         if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError("a collective in the autograd graph: training across a "
-                                      "mesh is not ported yet")
-        wire = self._wire(t)
-        if wire is not t:
-            wire = wire.float()
-        wire = wire.contiguous()
-        dist.all_reduce(wire, group=self.groups[axis])
-        return wire.to(device=t.device, dtype=t.dtype)
+            return _RowSum.apply(t, self, axis)
+        return self._sum(t, axis)
+
+    def column_input(self, t: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+        """The mate of :meth:`all_reduce` at a column-parallel input: ``t``
+        itself, whose gradient is summed over ``axis`` in the backward."""
+        if self.size(axis) == 1 or not (torch.is_grad_enabled() and t.requires_grad):
+            return t
+        return _ColumnInput.apply(t, self, axis)
+
+    def sum_flat(self, tensors, axis: str):
+        """Each of ``tensors`` summed over ``axis``, by one collective on
+        their concatenation in f32 (each back in its own dtype)."""
+        tensors = list(tensors)
+        if self.size(axis) == 1 or not tensors:
+            return tensors
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        flat = self._sum(flat, axis)
+        return [p.view(t.shape).to(t.dtype)
+                for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     def lanes(self, batch: int) -> slice:
         """This rank's lanes of a batch of ``batch``: a contiguous 1 / data of it."""
@@ -156,6 +189,33 @@ class Mesh:
         parts = [torch.empty_like(wire) for _ in range(self.data)]
         dist.all_gather(parts, wire, group=self.groups[DATA_AXIS])
         return torch.cat(parts).to(t.device)
+
+
+class _RowSum(torch.autograd.Function):
+    """The row-parallel sum (:meth:`Mesh.all_reduce` on a tensor that wants
+    a gradient): the sum over the axis forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh._sum(t, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _ColumnInput(torch.autograd.Function):
+    """The mate (:meth:`Mesh.column_input`): the identity forward, the sum
+    over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._sum(grad, ctx.axis), None, None
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:

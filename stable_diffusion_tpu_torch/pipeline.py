@@ -641,6 +641,42 @@ class StableDiffusion:
         out = scale_img(imgs.cpu().numpy(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         return out[0].astype(np.uint8)
 
+    def training_loss(self, unet_params, images, input_ids, t, noise) -> torch.Tensor:
+        """The denoising loss of the UNet on ``unet_params`` (a name -> tensor
+        mapping, e.g. ``dict(pipe.unet.named_parameters())``, reaching the
+        UNet through ``torch.func.functional_call``): the frozen text
+        encode, the frozen VAE encode with zero noise, ``forward_process``
+        at ``t`` with ``noise``, and the MSE of the prediction against the
+        noise or the v-target (JAX ``training_loss``).  ``images`` (B, H, W,
+        3) in [-1, 1], ``input_ids`` (B, 77), ``t`` (B,), ``noise`` (B, H/8,
+        W/8, 4).  After :meth:`shard` the parameters are the rank's shards;
+        on a data axis of more than one, the rank takes its lanes and the
+        loss is its lanes' share summed over "data" (the gradient through
+        it is the rank's share: sum it over "data", as the train step does)."""
+        dev, mesh, impl = self._device(), self.mesh, self.impl
+        sched = self.make_schedule()
+        table = torch.as_tensor(sched.alphas_hat, device=dev)
+        images, noise = (torch.as_tensor(a, device=dev, dtype=self.dtype) for a in (images, noise))
+        ids, t = (torch.as_tensor(a, device=dev, dtype=torch.long) for a in (input_ids, t))
+        b = images.shape[0]
+        if mesh is not None and mesh.data > 1:
+            lanes = mesh.lanes(b)
+            images, ids, t, noise = images[lanes], ids[lanes], t[lanes], noise[lanes]
+        with torch.no_grad():
+            text_emb = self.text_encoder(ids, impl=impl)
+            latents = self.vae.encode(images, noise=torch.zeros_like(noise), impl=impl)[0]
+        x_t = S.forward_process(table, latents, t, noise)
+        pred = torch.func.functional_call(self.unet, dict(unet_params), (x_t, t, text_emb),
+                                          {"impl": impl})
+        if sched.prediction_type == "v_prediction":
+            target = S.v_prediction_targets(table, latents, noise, t)
+        else:
+            target = noise
+        if mesh is None or mesh.data == 1:
+            return torch.mean((pred - target) ** 2)
+        share = ((pred - target) ** 2).sum(dtype=torch.float32) / (b * pred[0].numel())
+        return mesh.all_reduce(share.to(pred.dtype), pmesh.DATA_AXIS)
+
 
 def _finish(decoded: torch.Tensor, output_dtype: str, what: str) -> np.ndarray:
     """A decode in [-1, 1] -> host images in [0, 1] f32, or uint8 rounded

@@ -18,6 +18,17 @@ stable_diffusion_tpu/training.py).
 State: ``{"lora": {"unet"[, "text_encoder"]}, "opt_state", "ema", "step"}``
 with ``step`` a Python int.  ``base`` is ``{"unet": UNet, "text_encoder":
 CLIPTextModel[, "vae": VAE]}`` (the VAE for batches of images).
+
+Across a ("data", "model") mesh (parallel/mesh.py; JAX shards the batch
+over "data" and lets GSPMD derive the gradient sums): ``base`` holds the
+rank's shards (``shard_module_``), the state is whole and the same on every
+rank, and every rank is given the whole batch and keeps its lanes.  A
+rank's loss is its lanes' share of the global loss (the squared-error sums
+of its instance and prior lanes, each over the global half's element
+count), so the loss and the gradients summed over "data" are JAX's; the
+gradients of the LoRA entries on sharded targets are first summed over
+"model" (each rank's slice of the delta gave its part).  The optimizer,
+the clipping and the EMA then see the same sums on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 from stable_diffusion_tpu_torch import optim
 from stable_diffusion_tpu_torch.models import ema as ema_m
 from stable_diffusion_tpu_torch.models import lora as lora_m
+from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 from stable_diffusion_tpu_torch.schedulers import schedule as S
 from stable_diffusion_tpu_torch.utils.tree import (global_norm, tree_leaves, tree_map,
                                                    tree_unflatten)
@@ -90,13 +102,19 @@ def _frozen(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: TrainConfig,
-                    prediction_type: str = "epsilon", impl: str = "auto") -> torch.Tensor:
+                    prediction_type: str = "epsilon", impl: str = "auto",
+                    mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
     """batch: "t" (2B,), "noise" (2B,h,w,4), "vae_noise", and "latent_mean"/
     "latent_std" (2B,h,w,4) or "images" (2B,8h,8w,3) in [-1, 1];
-    "text_emb" (2B,77,d) or "input_ids" (2B,77)."""
+    "text_emb" (2B,77,d) or "input_ids" (2B,77).  On a ``mesh`` whose data
+    axis is split: the rank's lanes of the batch and its share of the loss."""
     unet, text_encoder = base["unet"], base.get("text_encoder")
+    split = mesh is not None and mesh.data > 1
+    if split:
+        lanes = mesh.lanes(len(batch["t"]))
+        batch = {k: v[lanes] for k, v in batch.items()}
     if "text_encoder" in lora:
-        params = lora_m.merge_lora(_frozen(text_encoder), lora["text_encoder"])
+        params = lora_m.merge_lora(_frozen(text_encoder), lora["text_encoder"], mesh=mesh)
         text_emb = torch.func.functional_call(text_encoder, params, (batch["input_ids"],),
                                               {"impl": impl})
     elif "text_emb" in batch:
@@ -112,7 +130,7 @@ def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: T
             latents = base["vae"].encode(batch["images"], noise=batch["vae_noise"], impl=impl)[0]
 
     x_t = S.forward_process(alphas_hat, latents, batch["t"], batch["noise"])
-    params = lora_m.merge_lora(_frozen(unet), lora["unet"])
+    params = lora_m.merge_lora(_frozen(unet), lora["unet"], mesh=mesh)
     pred = torch.func.functional_call(
         unet, params, (x_t, batch["t"], text_emb),
         {"impl": impl, "gradient_checkpointing": train_cfg.gradient_checkpointing})
@@ -120,6 +138,8 @@ def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: T
         target = S.v_prediction_targets(alphas_hat, latents, batch["noise"], batch["t"])
     else:
         target = batch["noise"]
+    if split:
+        return _lane_share(pred, target, lanes, mesh.data, train_cfg.prior_loss_weight)
     pred_inst, pred_prior = pred.chunk(2, dim=0)
     tgt_inst, tgt_prior = target.chunk(2, dim=0)
     loss_inst = torch.mean((pred_inst - tgt_inst) ** 2)
@@ -127,20 +147,49 @@ def dreambooth_loss(lora, base, batch, *, alphas_hat: torch.Tensor, train_cfg: T
     return loss_inst + train_cfg.prior_loss_weight * loss_prior
 
 
-def loss_and_grad(lora, base, batch, **kw):
-    """(loss, gradient tree of the LoRA tree), like ``jax.value_and_grad``.
+def _lane_share(pred, target, lanes: slice, data: int, prior_loss_weight: float):
+    """This rank's share of MSE(instance) + w MSE(prior) over the global
+    batch: each local lane's squared-error sum (f32) over the element count
+    of its global half, w on the prior half's lanes."""
+    n = pred.shape[0]
+    half = n * data // 2
+    index = torch.arange(lanes.start, lanes.start + n, device=pred.device)
+    weight = torch.where(index < half, 1.0, prior_loss_weight) / (half * pred[0].numel())
+    sums = ((pred - target) ** 2).flatten(1).sum(1, dtype=torch.float32)
+    return (sums * weight).sum().to(pred.dtype)
+
+
+def sum_over_mesh(loss, grads, mesh: Optional[pmesh.Mesh]):
+    """(loss, grads) of a rank made the whole batch's on every rank: the
+    gradients of the LoRA entries on sharded targets summed over "model",
+    then the loss and every gradient summed over "data"."""
+    if mesh is None:
+        return loss, grads
+    keys = [(part, path, k) for part in sorted(grads)
+            for path in lora_m.sharded_entries(grads[part], mesh) for k in sorted(grads[part][path])]
+    summed = mesh.sum_flat([grads[part][path][k] for part, path, k in keys], pmesh.MODEL_AXIS)
+    for (part, path, k), g in zip(keys, summed):
+        grads[part][path][k] = g
+    flat = mesh.sum_flat([loss, *tree_leaves(grads)], pmesh.DATA_AXIS)
+    return flat[0], tree_unflatten(grads, flat[1:])
+
+
+def loss_and_grad(lora, base, batch, *, mesh: Optional[pmesh.Mesh] = None, **kw):
+    """(loss, gradient tree of the LoRA tree), like ``jax.value_and_grad``;
+    on a ``mesh``, the whole batch's on every rank (:func:`sum_over_mesh`).
 
     Every LoRA leaf reaches the loss, so a leaf the graph does not reach
     (a detached weight, a kernel output with no ``grad_fn``) raises here."""
     params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
-    loss = dreambooth_loss(params, base, batch, **kw)
+    loss = dreambooth_loss(params, base, batch, mesh=mesh, **kw)
     grads = torch.autograd.grad(loss, tree_leaves(params))
-    return loss.detach(), tree_unflatten(params, grads)
+    return sum_over_mesh(loss.detach(), tree_unflatten(params, grads), mesh)
 
 
 def make_train_step(base, *, schedule: S.DiffusionSchedule, train_cfg: TrainConfig,
-                    impl: str = "auto"):
-    """(state, batch) -> (state, {"loss", "grad_norm"})."""
+                    impl: str = "auto", mesh: Optional[pmesh.Mesh] = None):
+    """(state, batch) -> (state, {"loss", "grad_norm"}).  With ``mesh``,
+    ``base`` is sharded on it and every rank is given the whole batch."""
     tx = make_optimizer(train_cfg)
     device = next(base["unet"].parameters()).device
     table = torch.as_tensor(schedule.alphas_hat, device=device)
@@ -148,7 +197,7 @@ def make_train_step(base, *, schedule: S.DiffusionSchedule, train_cfg: TrainConf
     def step_fn(state, batch):
         loss, grads = loss_and_grad(state["lora"], base, batch, alphas_hat=table,
                                     train_cfg=train_cfg, prediction_type=schedule.prediction_type,
-                                    impl=impl)
+                                    impl=impl, mesh=mesh)
         updates, opt_state = tx.update(grads, state["opt_state"], state["lora"])
         lora = optim.apply_updates(state["lora"], updates)
         step = state["step"] + 1
@@ -164,15 +213,16 @@ def make_train_step(base, *, schedule: S.DiffusionSchedule, train_cfg: TrainConf
 
 
 def make_eval_step(base, *, schedule: S.DiffusionSchedule, train_cfg: TrainConfig,
-                   impl: str = "auto"):
-    """(state, batch) -> the test loss, no update."""
+                   impl: str = "auto", mesh: Optional[pmesh.Mesh] = None):
+    """(state, batch) -> the test loss, no update (on a ``mesh``, summed over "data")."""
     device = next(base["unet"].parameters()).device
     table = torch.as_tensor(schedule.alphas_hat, device=device)
 
     @torch.no_grad()
     def eval_fn(state, batch):
-        return dreambooth_loss(state["lora"], base, batch, alphas_hat=table, train_cfg=train_cfg,
-                               prediction_type=schedule.prediction_type, impl=impl)
+        loss = dreambooth_loss(state["lora"], base, batch, alphas_hat=table, train_cfg=train_cfg,
+                               prediction_type=schedule.prediction_type, impl=impl, mesh=mesh)
+        return loss if mesh is None else mesh.all_reduce(loss, pmesh.DATA_AXIS)
 
     return eval_fn
 

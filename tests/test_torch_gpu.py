@@ -520,6 +520,19 @@ def test_k5_k6_attention_bwd(gen, shape, plan):
     """K5 then K6 at the train step's shapes and ragged ones, with the
     planner's body and tiles (plan None), and every compiled variant at a
     ragged length (300) through ``_plan``."""
+    _k5_k6_case(gen, shape, plan)
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 4, 40), (4, 1024, 4, 80), (4, 256, 4, 160),
+                                   (4, 64, 4, 160)])
+def test_k5_k6_on_a_tensor_parallel_ranks_heads(gen, shape):
+    """The self-attention backward of a tp = 2 rank in the SD1.5 train step
+    at UNet batch 4: 4 of 8 heads, q, k, v split from the rank's fused
+    projection (the ring body at d = 40 and 80, the general at 160)."""
+    _k5_k6_case(gen, shape, None)
+
+
+def _k5_k6_case(gen, shape, plan):
     b, s, h, d = shape
     qkv = _rn(gen, b, s, 3 * h * d)  # strided q, k, v: the split of a fused projection
     q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))

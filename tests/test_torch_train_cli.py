@@ -10,9 +10,24 @@ train step itself is held against JAX's in tests/test_torch_training.py;
 here the CLI is held against itself: cached and uncached encoders on one
 seed give the same end state, a resume continues the saved state, and
 ``inference_torch.py --lora_ckpt`` on a checkpoint equals a manual merge.
+
+Across ranks: gloo worlds of two (tests/torch_train_cli_worker.py, the
+launcher's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set here) run
+``main`` at ``--mesh_model_axis 2`` (a (1, 2) mesh) and at 1 (JAX's data
+axis gcd(4, 2) = 2: a (2, 1) mesh) on the same directory and seed, at 128^2
+(16^2 latents: at 32^2 the UNet's deepest stage is 1x1, its GroupNorms
+normalise two values, and the order of a sum alone moves gradients by 2%;
+tests/test_torch_training.py's finding); each end checkpoint lies within
+1e-4 of a one-rank run's at 128^2 (the LoRA tree by the rule of
+tests/test_torch_parallel_training.py, Adam's sign flips near a zero
+gradient), the two ranks' states are equal, and only rank 0 saves
+checkpoints and opens a writer.  A world the mesh would leave ranks of is
+refused before anything loads.
 """
 
 import os
+import socket
+import subprocess
 import sys
 import types
 
@@ -228,3 +243,85 @@ def test_flags_and_defaults_are_train_lora_dreambooth_py_s():
     want = opts(theirs)
     want["device"] = (("--device",), "cuda", None)  # honoured here; JAX picks its backend
     assert opts(ours) == want
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_train_cli_worker.py")
+MESH_SIZE = ["--img_size", "128"]
+MESH_RUNS = {"tp2": ["--mesh_model_axis", "2", *MESH_SIZE],
+             "dp2": ["--mesh_model_axis", "1", *MESH_SIZE]}
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(dirs):
+    """{run: [each rank's {"state", "saved", "writers"}]}: a world of two for
+    each of MESH_RUNS, started together."""
+    procs = {}
+    for run, extra in MESH_RUNS.items():
+        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+        procs[run] = [subprocess.Popen(
+            [sys.executable, WORKER, str(dirs / f"{run}_rank{r}.pt"), *_argv(dirs, run, *extra)],
+            env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+    try:
+        for ranks in procs.values():
+            for p in ranks:
+                out, _ = p.communicate(timeout=600)
+                assert p.returncode == 0, out[-4000:]
+    finally:
+        for p in (p for ranks in procs.values() for p in ranks):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {run: [torch.load(dirs / f"{run}_rank{r}.pt", weights_only=False) for r in range(2)]
+            for run in MESH_RUNS}
+
+
+@pytest.fixture(scope="module")
+def one_rank_run(dirs):
+    """The one-rank run the mesh runs are held to (128^2)."""
+    return cli.main(_argv(dirs, "one_rank", *MESH_SIZE))
+
+
+@pytest.mark.parametrize("run", sorted(MESH_RUNS))
+def test_mesh_runs_end_at_the_one_rank_run(dirs, mesh_runs, one_rank_run, run):
+    from test_torch_parallel_training import _tree_close
+
+    ranks = mesh_runs[run]
+    assert ranks[0]["saved"] == [str(dirs / run / f"epoch-{e}") for e in range(2)]
+    assert ranks[1]["saved"] == [] and ranks[1]["writers"] == []
+    assert ranks[0]["writers"] == [str(dirs / run / "logs")]
+    assert sorted(os.listdir(dirs / run)) == ["epoch-0.ckpt", "epoch-1.ckpt"]
+    for a, b in zip(_leaves(ranks[0]["state"]), _leaves(ranks[1]["state"])):
+        assert torch.equal(a, b)
+    end = ckpt.load_train_checkpoint(str(dirs / run / "epoch-1.ckpt"))["state"]
+    one = ckpt.load_train_checkpoint(str(dirs / "one_rank" / "epoch-1.ckpt"))["state"]
+    assert end["step"] == one["step"] == ranks[0]["state"]["step"] == 2 * UPDATES
+    for name in ("lora", "ema"):
+        _tree_close(tree_leaves(end[name]), tree_leaves(one[name]), 1e-4, f"{run} {name}")
+        for a, b in zip(tree_leaves(end[name]), tree_leaves(ranks[0]["state"][name])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("world, flags", [
+    ("3", ["--mesh_model_axis", "2"]),                     # the axis does not divide the world
+    ("3", ["--mesh_model_axis", "1", "--batch_size", "1"]),  # data gcd(2, 3) = 1: 2 ranks idle
+    ("8", ["--mesh_model_axis", "2", "--batch_size", "1"]),  # data gcd(2, 4) = 2: 4 ranks idle
+])
+def test_a_world_the_mesh_leaves_ranks_of_is_refused(tmp_path, monkeypatch, world, flags):
+    """JAX leaves the devices outside gcd(2 * batch_size, world / model) x
+    model idle; the port refuses such a world before anything loads (and
+    before any process group is joined)."""
+    monkeypatch.setenv("WORLD_SIZE", world)
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="mesh_model_axis"):
+        cli.main(["--model_path", str(tmp_path / "absent"), "--device", "cpu", *flags])
+    args = cli.build_parser().parse_args(["--mesh_model_axis", "2", "--batch_size", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert cli.mesh_shape(args) == (4, 2, 2)

@@ -28,10 +28,26 @@ training behaviour, on the port's train step.
 ``--device cpu`` runs the plain versions in f32.  ``cuda`` without a card
 raises.  ``--model_path`` is a diffusers directory or a single LDM file
 (``--sd_version`` picks its configs); a ``.ckpt`` is unpickled, which runs
-code from the file: use trusted files only.  ``--mesh_model_axis`` other
-than 1 raises (one card, no tensor parallelism); ``--use_flash_attn`` and
+code from the file: use trusted files only.  ``--use_flash_attn`` and
 ``--use_lora`` are accepted for parity (the kernels and the LoRA always run);
 ``--profile_dir`` writes a ``torch.profiler`` trace of the training loop.
+
+Across ranks (JAX runs every device in one process; here one process a
+rank, started by PyTorch's launcher, which sets RANK, WORLD_SIZE,
+MASTER_ADDR and MASTER_PORT)::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        train_lora_dreambooth_torch.py --mesh_model_axis 2 ...
+
+The ranks form a ("data", "model") mesh (parallel/mesh.py): "model" is
+``--mesh_model_axis`` (tensor parallelism: the UNet's and text tower's
+transformer linears split), "data" is JAX's gcd(2 * batch_size, world /
+model) (the batch's lanes split).  A world the mesh does not fill (JAX
+leaves those devices idle) is refused before anything loads.  Every rank
+loads the whole batch and draws the whole batch's noise from the one
+generator, the LoRA tree and the optimizer state stay whole and the same
+on every rank, and only rank 0 writes checkpoints, logs and progress
+lines.  Without the launcher's variables the run is a world of one.
 """
 
 import argparse
@@ -71,7 +87,8 @@ def build_parser():
     p.add_argument("--num_class_prior_images", default=None, type=int)
     p.add_argument("--sd_version", default="1.5", type=str)
     p.add_argument("--mesh_model_axis", default=1, type=int,
-                   help="Tensor-parallel width; only 1 (one card) is supported")
+                   help="Tensor-parallel width (the mesh's 'model' axis) over the ranks that "
+                        "python -m torch.distributed.run starts")
     p.add_argument("--log_dir", default="runs", type=str, help="TensorBoard log dir")
     p.add_argument("--lr_scheduler", default="constant",
                    choices=["constant", "constant_with_warmup", "cosine"],
@@ -87,15 +104,46 @@ def build_parser():
     return p
 
 
+def mesh_shape(args):
+    """(world, data, model): the launcher's WORLD_SIZE (1 without it),
+    ``--mesh_model_axis`` and JAX's data axis gcd(2 * batch_size, world /
+    model).  A world the axis does not divide, or one the mesh leaves ranks
+    of, is refused."""
+    world, model = int(os.environ.get("WORLD_SIZE", "1")), args.mesh_model_axis
+    if model < 1 or world % model:
+        raise ValueError(f"--mesh_model_axis {model} does not divide a world of {world} rank(s): "
+                         "start them with python -m torch.distributed.run --nproc_per_node N")
+    data = math.gcd(2 * args.batch_size, world // model)
+    if data * model != world:
+        raise ValueError(f"--mesh_model_axis {model} with --batch_size {args.batch_size} makes a "
+                         f"({data}, {model}) mesh, which leaves {world - data * model} of {world} "
+                         f"ranks idle: start {data * model}")
+    return world, data, model
+
+
+def join_mesh(args):
+    """This rank's ``parallel.mesh.Mesh`` under the launcher's variables
+    (its process group joined by ``env://`` unless one is already up), or
+    None in a world of one without them."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    import torch.distributed as dist
+
+    from stable_diffusion_tpu_torch.parallel import mesh as pmesh
+
+    world, data, model = mesh_shape(args)
+    if not dist.is_initialized():
+        pmesh.init_distributed(int(os.environ["RANK"]), world, "env://", device=args.device)
+    return pmesh.make_mesh(data, model)
+
+
 def check_device(args):
-    """(device, dtype, impl) of ``--device``, refused before anything loads:
-    a missing card is not replaced by the CPU, and the port runs on one
-    card."""
+    """(device, dtype, impl) of ``--device``, refused before anything loads
+    (with a world the mesh cannot hold): a missing card is not replaced by
+    the CPU."""
     import torch
 
-    if args.mesh_model_axis != 1:
-        raise ValueError(f"--mesh_model_axis {args.mesh_model_axis}: the port trains on one card "
-                         "(no tensor parallelism); use 1")
+    mesh_shape(args)
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -138,12 +186,15 @@ class _Lazy:
         return self._get(i)
 
 
-def train(args, base, tokenizer):
+def train(args, base, tokenizer, mesh=None):
     """The training loop on ``base`` ({"unet", "text_encoder", "vae"}, frozen,
-    on ``--device``); returns the final train state.  The schedule is
+    on ``--device``; sharded here on ``mesh``, after the LoRA tree is drawn
+    from the whole models); returns the final train state.  The schedule is
     SD1.5's (epsilon), whatever the model's scheduler config, as the JAX
     trainer's is."""
     import torch
+
+    from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 
     from inference_torch import profile
     from stable_diffusion_tpu_torch import training as T
@@ -152,11 +203,15 @@ def train(args, base, tokenizer):
     from stable_diffusion_tpu_torch.utils import datasets
 
     device, dtype, impl = check_device(args)
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        writer = SummaryWriter(args.log_dir)
-    except ImportError:  # tensorboard is optional
-        writer = None
+    lead = mesh is None or torch.distributed.get_rank() == 0  # writes and prints
+    say = print if lead else (lambda *a, **k: None)
+    writer = None
+    if lead:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(args.log_dir)
+        except ImportError:  # tensorboard is optional
+            pass
 
     train_cfg = T.TrainConfig(
         learning_rate=args.lr, rank=128, alpha=128.0,
@@ -173,9 +228,12 @@ def train(args, base, tokenizer):
         restored = ckpt.load_train_checkpoint(args.pretrained_path, device=device)
         state, start_epoch = restored["state"], int(restored["epoch"]) + 1
 
+    if mesh is not None:
+        for m in (base["unet"], base["text_encoder"]):
+            pmesh.shard_module_(m, mesh)
     schedule = S.make_schedule()
-    step_fn = T.make_train_step(base, schedule=schedule, train_cfg=train_cfg, impl=impl)
-    eval_fn = T.make_eval_step(base, schedule=schedule, train_cfg=train_cfg, impl=impl)
+    step_fn = T.make_train_step(base, schedule=schedule, train_cfg=train_cfg, impl=impl, mesh=mesh)
+    eval_fn = T.make_eval_step(base, schedule=schedule, train_cfg=train_cfg, impl=impl, mesh=mesh)
     train_dl, test_dl = datasets.create_dataloaders(
         tokenizer, instance_data_dir=os.path.join(args.data_dir, "instance_data"),
         class_data_dir=os.path.join(args.data_dir, "class_prior_data"), train_test_split=1.0,
@@ -205,8 +263,8 @@ def train(args, base, tokenizer):
         emb_pair = None
         if not train_cfg.train_text_encoder:
             emb_pair = T.precompute_text_embedding(base["text_encoder"], ids_pair, impl=impl)
-        print(f"cached frozen encoders: {ds.num_instance}+{ds.num_class} images "
-              f"({time.time() - t_pre:.1f}s)", flush=True)
+        say(f"cached frozen encoders: {ds.num_instance}+{ds.num_class} images "
+            f"({time.time() - t_pre:.1f}s)", flush=True)
 
         def train_batches(dl):
             for idx in dl.iter_indices():
@@ -245,14 +303,16 @@ def train(args, base, tokenizer):
             mean_loss = float(np.mean(losses)) if losses else float("nan")
             test_losses = [float(eval_fn(state, b)) for b in train_batches(test_dl)]
             test_loss = float(np.mean(test_losses)) if test_losses else float("nan")
-            print(f"epoch {epoch}: loss={mean_loss:.4f} test_loss={test_loss:.4f} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            say(f"epoch {epoch}: loss={mean_loss:.4f} test_loss={test_loss:.4f} "
+                f"({time.time() - t0:.1f}s)", flush=True)
             if writer:
                 writer.add_scalars("Loss", {"train": mean_loss, "test": test_loss}, epoch)
-            os.makedirs(args.checkpoint_dir, exist_ok=True)
-            path = ckpt.save_train_checkpoint(os.path.join(args.checkpoint_dir, f"epoch-{epoch}"),
-                                              {"epoch": epoch, "state": state})
-            print(f"saved checkpoint: {path}", flush=True)
+            if lead:
+                os.makedirs(args.checkpoint_dir, exist_ok=True)
+                path = ckpt.save_train_checkpoint(
+                    os.path.join(args.checkpoint_dir, f"epoch-{epoch}"),
+                    {"epoch": epoch, "state": state})
+                say(f"saved checkpoint: {path}", flush=True)
             if micro_steps // accum >= args.max_train_steps:
                 break
     if writer:
@@ -261,9 +321,24 @@ def train(args, base, tokenizer):
 
 
 def main(argv=None):
+    """Parse ``argv``, refuse what cannot run, join the mesh when launched
+    across ranks, load and train; the final train state.  A process group
+    this call joined is left before it returns."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
-    base, tokenizer = load_base(args)
-    return train(args, base, tokenizer)
+    check_device(args)
+    joined = not dist.is_initialized()
+    mesh = join_mesh(args)
+    try:
+        base, tokenizer = load_base(args)
+        state = train(args, base, tokenizer, mesh)
+        if mesh is not None:
+            dist.barrier()  # rank 0's checkpoint is written before any rank returns
+        return state
+    finally:
+        if mesh is not None and joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
