@@ -9,7 +9,6 @@
     python3 chip_smoke.py --demo           # phases 1-2 and 14 (no contract line)
     python3 chip_smoke.py --sharded        # phases 1-2 and 15 (no contract line)
     python3 chip_smoke.py --sharded-train  # phases 1-2 and 16 (no contract line)
-    python3 chip_smoke.py --profile-train  # phases 1-2, then a profiled train step
     python3 chip_smoke.py --only-sd21      # phases 1-2 and 8 (no contract line)
     python3 chip_smoke.py --k2-device      # phases 1-2, then K2's host and device
                                            # time at the serving pass's shapes
@@ -32,10 +31,8 @@
                                            # switched SD2.1 shapes, beside F.linear
     python3 chip_smoke.py --k1-host [--root DIR]
                                            # phase 1, then K1 by kind at the serving
-                                           # pass's shapes: device ms and host us a call
-    python3 chip_smoke.py --profile-serve [--root DIR]
-                                           # phase 1, then one SD1.5 request under
-                                           # torch.profiler: device busy, idle share
+                                           # pass's shapes: device ms and host us a call;
+                                           # K2's host us a call, spans off and on
     (--root DIR imports stable_diffusion_tpu_torch from another checkout, e.g.
     the parent commit's, so two versions are measured by one script.)
 
@@ -3584,89 +3581,12 @@ def sharded_train_line(st) -> str:
                         for k, v in st["summary"].items()) + " per tp=2 rank micro-step")
 
 
-def _kernel_group(name: str) -> str:
-    if name in ("partial_stats", "finalize", "apply"):  # an older checkout's Triton K1 (--root)
-        return "K1"
-    for pat, k in (("gn_stats", "K1"), ("gn_apply", "K1"), ("bwd_dq_kernel", "K5"),
-                   ("bwd_dkv_kernel", "K6"), ("conv3x3", "K2"), ("attention_kernel", "K3"),
-                   ("ffn_", "K4")):
-        if pat in name:
-            return k
-    return "library and elementwise"
-
-
-def _report_profile(prof, secs, runs: int, label: str, unit: str):
-    """Device busy a ``unit`` (the sum of CUDA kernel times over ``runs``
-    profiled runs), the idle share against the unprofiled median ``secs``,
-    and the time of each kernel group and of the 15 costliest kernels."""
-    wall = statistics.median(secs)
-    rows = [(e.key, e.self_device_time_total / 1e3 / runs, e.count / runs)
-            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows)
-    say(f"profile {label}: unprofiled s/{unit} median {wall:.4f} ({[round(s, 4) for s in secs]}); "
-        f"device busy {busy:.2f} ms/{unit}; idle share {1 - busy / 1e3 / wall:.3f}")
-    by_group = {}
-    for key, ms, n in rows:
-        g = by_group.setdefault(_kernel_group(key), [0.0, 0.0])
-        g[0] += ms
-        g[1] += n
-    for name, (ms, n) in sorted(by_group.items()):
-        say(f"  {name}: {ms:.2f} ms/{unit} ({100 * ms / max(busy, 1e-9):.1f}% of busy), "
-            f"{n:.0f} launches")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:15]:
-        say(f"  {ms:8.2f} ms/{unit} {n:6.0f} calls  {key[:110]}")
-
-
-def profile_train_step(unet):
-    """One-off torch.profiler trace of two steady train steps: device busy
-    per step (sum of CUDA kernel times) and the kernels that take it."""
-    cfg, step_fn, state, batch = train_setup(unet)
-    for _ in range(3):
-        state, m = step_fn(state, batch())
-    torch.cuda.synchronize()
-    secs = []
-    for _ in range(5):
-        bt = batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, bt)
-        m["loss"].item()
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
-            state, m = step_fn(state, batch())
-        torch.cuda.synchronize()
-    _report_profile(prof, secs, 2, "train step", "step")
-
-
-def profile_serve(pipe):
-    """One SD1.5 512^2 b1 DDIM-50 CFG-7.5 request under torch.profiler,
-    after three unprofiled ones (the first a warm-up): device busy a
-    request, the idle share, and the kernels that take the time."""
-    secs = []
-    cond, uncond = request_ids(0)
-    for r in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
-                      inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
-        if r:
-            secs.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        pipe.generate(cond, uncond, img_size=(512, 512), cfg_scale=7.5,
-                      inference_steps=SERVE_STEPS, seed=1000, output_dtype="uint8")
-        torch.cuda.synchronize()
-    _report_profile(prof, secs, 1, "serve request (SD1.5 512^2 b1 DDIM-50 CFG)", "request")
-
-
 def k1_host(pipe, counters):
     """K1 by kind at the serving pass's shapes, through the raw kernel
     wrappers of whichever package was imported (``--root``): device ms a
     pass (CUDA events, as phase 3) and host us a call at each kind's
-    smallest shape (1000 calls, no synchronize), beside the library call."""
+    smallest shape (1000 calls, no synchronize), beside the library call;
+    then :func:`k2_host`."""
     from stable_diffusion_tpu_torch.ops import groupnorm
 
     shapes = record_main_path_shapes(pipe, {"K1": counters["K1"]})["K1"]
@@ -3704,6 +3624,46 @@ def k1_host(pipe, counters):
         f"{kind} {t['calls']} calls {t['ms']:.3f} ms (library {t['library_ms']:.3f}), host "
         f"{t['host_us']:.2f} us a call at {t['host_shape']}" for kind, t in tot.items())
         + f"; total {sum(t['ms'] for t in tot.values()):.3f} ms")
+    k2_host()
+
+
+def k2_host(key=(1, 8, 8, 64, 64, False)):
+    """K2's raw wrapper at a shape whose device time (a few us) lies far
+    below its host time, so the host is what is timed (the serving pass's
+    smallest shape, 2 x 8^2 x 1280, keeps the device busier than the host):
+    host us a call (median of 5 rounds of :func:`host_us`) with the
+    package's spans off and, where it has them, recorded (no profiler
+    running); and, where it has spans, the host us of an unrecorded span
+    alone (a million empty ``with K2.span()`` blocks), the price every
+    launch pays when off."""
+    from stable_diffusion_tpu_torch.ops import conv
+    from stable_diffusion_tpu_torch.utils import device
+
+    b, h, w, cin, cout, prologue = key
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5).bfloat16()
+    ss = torch.randn((b, 2, cin), generator=gen, device="cuda") if prologue else None
+
+    def raw():
+        return conv.conv3x3_kernel(x, wt, None, ss)
+
+    def median_us():
+        return statistics.median(host_us(raw) for _ in range(5))
+
+    line = f"k2 host us a call at {key}, {os.path.dirname(conv.__file__)}: spans off {median_us():.3f}"
+    spans = getattr(device, "SPANS", None)
+    if spans is not None:
+        spans.record()
+        line += f", spans recorded {median_us():.3f}"
+        spans.stop_recording()
+        n = 1_000_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with conv.K2.span():
+                pass
+        line += f"; an unrecorded span alone {(time.perf_counter() - t0) / n * 1e6:.4f}"
+    say(line)
 
 
 def graph_ms(fn, reps: int = 10) -> float:
@@ -4349,14 +4309,10 @@ def main() -> int:
 
     counters = kernel_counters()
 
-    if "--k1-host" in sys.argv[1:] or "--profile-serve" in sys.argv[1:]:
+    if "--k1-host" in sys.argv[1:]:
         say(f"  package: {os.path.dirname(os.path.dirname(groupnorm.__file__))}")
         _cuda.library()
-        pipe = build_pipeline(torch.bfloat16, "cuda")
-        if "--k1-host" in sys.argv[1:]:
-            k1_host(pipe, counters)
-        else:
-            profile_serve(pipe)
+        k1_host(build_pipeline(torch.bfloat16, "cuda"), counters)
         return 0
 
     # 2. build
@@ -4451,10 +4407,6 @@ def main() -> int:
     pipe = build_pipeline(torch.bfloat16, "cuda")
     if "--k2-device" in sys.argv[1:]:
         k2_device(pipe, counters)
-        return 0
-    if "--profile-train" in sys.argv[1:]:
-        del pipe.vae, pipe.text_encoder
-        profile_train_step(pipe.unet)
         return 0
 
     # 3. kernels vs plain at the main path's shapes

@@ -167,19 +167,25 @@ def inference(args, model, input_image=None, *, save: bool = True):
 @contextlib.contextmanager
 def profile(directory: str, device_type: str):
     """A ``torch.profiler`` trace of the block written to ``directory``
-    (``trace.json``, Chrome format), the card's activity included on CUDA;
-    nothing when ``directory`` is empty."""
+    (``trace.json``, Chrome format), the card's activity included on CUDA
+    and the port's ``sd.*`` spans recorded (``utils/device.span``); nothing
+    when ``directory`` is empty."""
     if not directory:
         yield
         return
     import torch
+    from stable_diffusion_tpu_torch.utils.device import SPANS
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device_type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
+    SPANS.record()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        SPANS.stop_recording()
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from stable_diffusion_tpu_torch.parallel.mesh import MODEL_AXIS, local_shard, param_spec
+from stable_diffusion_tpu_torch.utils.device import span
 
 # Default target suffixes, matching the reference CLIs.
 DEFAULT_UNET_TARGETS = (
@@ -113,11 +114,12 @@ def merge_lora(params: Mapping[str, torch.Tensor], lora: Mapping[str, Mapping[st
     out = dict(params)
     if not enabled:
         return out
-    sharded = set(sharded_entries(lora, mesh))
-    for path, entry in lora.items():
-        key = f"{path}.weight"
-        delta = lora_delta(entry)
-        if path in sharded:
-            delta = local_shard(key, delta, mesh)
-        out[key] = out[key] + delta.to(out[key].dtype)
+    with span("lora_merge"):
+        sharded = set(sharded_entries(lora, mesh))
+        for path, entry in lora.items():
+            key = f"{path}.weight"
+            delta = lora_delta(entry)
+            if path in sharded:
+                delta = local_shard(key, delta, mesh)
+            out[key] = out[key] + delta.to(out[key].dtype)
     return out

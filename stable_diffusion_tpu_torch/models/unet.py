@@ -56,7 +56,7 @@ from stable_diffusion_tpu_torch.ops.ffn import geglu_ffn, geglu_ffn_w8a8
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 from stable_diffusion_tpu_torch.ops.linear import gn_matmul, matmul_residual
 from stable_diffusion_tpu_torch.parallel.mesh import reduce_add, row_parallel
-from stable_diffusion_tpu_torch.utils.device import cached
+from stable_diffusion_tpu_torch.utils.device import cached, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,25 +388,32 @@ class UNet(nn.Module):
                             impl=impl)
         return layers.conv2d(out["2"], h)
 
-    def forward_split(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
-                      impl: str = "auto", gradient_checkpointing: bool = False):
-        """The full pass -> (epsilon prediction, the deep feature to hold)."""
+    def _full(self, x, timestep, cond, *, impl: str, gradient_checkpointing: bool):
         kw = dict(impl=impl, gradient_checkpointing=gradient_checkpointing)
         t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
         skips, down0 = self.shallow_encoder(x, t_embed, cond, **kw)
         deep_h = self.deep(down0, t_embed, cond, **kw)
         return self.shallow_decoder(deep_h, skips, t_embed, cond, **kw), deep_h
 
+    def forward_split(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
+                      impl: str = "auto", gradient_checkpointing: bool = False):
+        """The full pass -> (epsilon prediction, the deep feature to hold)."""
+        with span("unet"):
+            return self._full(x, timestep, cond, impl=impl,
+                              gradient_checkpointing=gradient_checkpointing)
+
     def forward_cached(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor,
                        deep_h: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """A cached step: the shallow stage recomputed around ``deep_h``."""
-        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
-        skips, _ = self.shallow_encoder(x, t_embed, cond, impl=impl)
-        return self.shallow_decoder(deep_h, skips, t_embed, cond, impl=impl)
+        with span("unet"):
+            t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
+            skips, _ = self.shallow_encoder(x, t_embed, cond, impl=impl)
+            return self.shallow_decoder(deep_h, skips, t_embed, cond, impl=impl)
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
                 impl: str = "auto", gradient_checkpointing: bool = False) -> torch.Tensor:
         """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
         cond: (B, 77, cross_dim).  Returns the epsilon prediction."""
-        return self.forward_split(x, timestep, cond, impl=impl,
-                                  gradient_checkpointing=gradient_checkpointing)[0]
+        with span("unet"):
+            return self._full(x, timestep, cond, impl=impl,
+                              gradient_checkpointing=gradient_checkpointing)[0]

@@ -28,6 +28,7 @@ from stable_diffusion_tpu_torch.models import layers
 from stable_diffusion_tpu_torch.ops.attention import sdpa
 from stable_diffusion_tpu_torch.ops.conv import conv3x3, gn_silu_conv3x3
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
+from stable_diffusion_tpu_torch.utils.device import span
 
 SD_LATENT_SCALE = 0.18215
 
@@ -233,8 +234,9 @@ class VAEDecoder(nn.Module):
 
     def decode(self, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """Latent -> image in [-1, 1]; divides by the 0.18215 latent scale."""
-        z = layers.conv2d(self.post_quant_conv, z / SD_LATENT_SCALE)
-        return self.decoder_apply(z, impl=impl)
+        with span("vae_decode"):
+            z = layers.conv2d(self.post_quant_conv, z / SD_LATENT_SCALE)
+            return self.decoder_apply(z, impl=impl)
 
 
 class VAE(VAEDecoder):

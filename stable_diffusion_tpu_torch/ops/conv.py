@@ -55,8 +55,8 @@ from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, cached, requ
                                                      require_inference, require_no_grad, use_kernel,
                                                      wants_grad)
 
-K2 = LaunchCounter()
-K7 = LaunchCounter()
+K2 = LaunchCounter("K2")
+K7 = LaunchCounter("K7")
 
 
 # ---------------------------------------------------------------------------
@@ -206,37 +206,41 @@ def conv3x3_kernel(x, weight, bias=None, scale_shift=None, *, transposed: bool =
     scale_shift (B, 2, Cin) f32 applies GroupNorm+SiLU to x first.  With
     ``transposed`` the conv runs with :func:`flip_io` (weight): the input
     gradient of ``weight``'s conv, for x of Cout channels."""
-    require_no_grad("K2", x, weight, bias, scale_shift)
-    require(x.is_cuda, f"K2 needs a CUDA tensor, got {x.device}")
-    require(x.dtype == torch.bfloat16, f"K2 takes bf16, got {x.dtype}")
-    require(x.dim() == 4 and x.is_contiguous(), "K2 needs a contiguous NHWC tensor")
-    b, h, w, cin = x.shape
-    cout = weight.shape[1] if transposed else weight.shape[0]
-    want = (cin, cout, 3, 3) if transposed else (cout, cin, 3, 3)
-    require(tuple(weight.shape) == want, f"K2: weight {tuple(weight.shape)} for Cin={cin}")
-    require(weight.dtype == torch.bfloat16, f"K2: weight dtype {weight.dtype}")
-    require(cin % 8 == 0 and cout % 8 == 0, f"K2 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
-    wk = k2_taps(weight, transposed=transposed)
-    if bias is not None:
-        require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
-                "K2: bias must be contiguous bf16 (Cout,)")
-    if scale_shift is not None:
-        require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
-                and scale_shift.is_contiguous(), "K2: scale_shift must be contiguous f32 (B, 2, Cin)")
-    require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0, "K2 needs 16-byte aligned tensors")
-    lib = _cuda.library()
-    plan = conv3x3_plan(b, h, w, cin, cout, _cuda.sm_count(x.device.index or 0))
-    ws = (torch.empty((plan.ksplit, b * h * w, cout), device=x.device, dtype=torch.float32)
-          if plan.ksplit > 1 else None)
-    y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    code = lib.sdtk_conv3x3(
-        x.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, h, w, cin, cout, plan.th, plan.tw, plan.bm,
-        plan.bn, plan.stages, plan.ksplit, _cuda.stream_handle(x))
-    _cuda.check(code, "K2 conv3x3")
-    K2.launched((b, h, w, cin, cout, scale_shift is not None))
-    return y
+    with K2.span():
+        require_no_grad("K2", x, weight, bias, scale_shift)
+        require(x.is_cuda, f"K2 needs a CUDA tensor, got {x.device}")
+        require(x.dtype == torch.bfloat16, f"K2 takes bf16, got {x.dtype}")
+        require(x.dim() == 4 and x.is_contiguous(), "K2 needs a contiguous NHWC tensor")
+        b, h, w, cin = x.shape
+        cout = weight.shape[1] if transposed else weight.shape[0]
+        want = (cin, cout, 3, 3) if transposed else (cout, cin, 3, 3)
+        require(tuple(weight.shape) == want, f"K2: weight {tuple(weight.shape)} for Cin={cin}")
+        require(weight.dtype == torch.bfloat16, f"K2: weight dtype {weight.dtype}")
+        require(cin % 8 == 0 and cout % 8 == 0,
+                f"K2 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
+        wk = k2_taps(weight, transposed=transposed)
+        if bias is not None:
+            require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
+                    "K2: bias must be contiguous bf16 (Cout,)")
+        if scale_shift is not None:
+            require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
+                    and scale_shift.is_contiguous(),
+                    "K2: scale_shift must be contiguous f32 (B, 2, Cin)")
+        require(x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0,
+                "K2 needs 16-byte aligned tensors")
+        lib = _cuda.library()
+        plan = conv3x3_plan(b, h, w, cin, cout, _cuda.sm_count(x.device.index or 0))
+        ws = (torch.empty((plan.ksplit, b * h * w, cout), device=x.device, dtype=torch.float32)
+              if plan.ksplit > 1 else None)
+        y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+        code = lib.sdtk_conv3x3(
+            x.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h, w, cin, cout, plan.th, plan.tw, plan.bm,
+            plan.bn, plan.stages, plan.ksplit, _cuda.stream_handle(x))
+        _cuda.check(code, "K2 conv3x3")
+        K2.launched((b, h, w, cin, cout, scale_shift is not None))
+        return y
 
 
 def conv3x3_occupancy() -> dict:
@@ -398,39 +402,40 @@ def conv3x3_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, scale_shift=None
     applies GroupNorm+SiLU to x first.  For measuring: ``_plan`` runs
     another plan; ``_parts`` 1 launches the codes alone, 2 the GEMM alone
     (on whatever codes the scratch holds)."""
-    require_no_grad("K7", x, bias, scale_shift)
-    cout = weight_q.shape[0]
-    wk = taps_q(weight_q) if weight_q.dim() == 4 else weight_q
-    if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
-            and weight_q.dtype == torch.int8 and weight_q.shape[1:] == (x.shape[3], 3, 3)
-            and x.shape[3] % 32 == 0 and cout % 8 == 0
-            and s_x.shape == (1,) and out_scale.shape == (cout,)
-            and s_x.dtype == out_scale.dtype == torch.float32
-            and s_x.is_contiguous() and out_scale.is_contiguous()
-            and (bias is None or (bias.shape == (cout,) and bias.dtype == torch.bfloat16
-                                  and bias.is_contiguous()))
-            and (scale_shift is None or (scale_shift.shape == (x.shape[0], 2, x.shape[3])
-                                         and scale_shift.dtype == torch.float32
-                                         and scale_shift.is_contiguous()))
-            and x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0):
-        _k7_refuse(x, weight_q, s_x, out_scale, bias, scale_shift)
-    b, h, w, cin = x.shape
-    plan = _plan or conv3x3_q_plan(b, h, w, cin, cout, _cuda.sm_count(x.get_device()))
-    ws = tickets = None
-    if plan.ksplit > 1:
-        tiles, cols, _ = plan.grid(b, h, w, cout)
-        ws = _q_workspace(x, b * h * w * cout + tiles * cols)
-        tickets = ws + 4 * b * h * w * cout
-    xq = _q_scratch(x, x.numel())
-    y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_conv3x3_q, x.data_ptr(), xq, wk.data_ptr(), s_x.data_ptr(),
-        out_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), ws, tickets,
-        b, h, w, cin, cout, plan.th, plan.tw, plan.bm, plan.bn, plan.stages, plan.ksplit, _parts,
-        _cuda.stream_handle(x)), "K7 conv3x3_q")
-    K7.launched((b, h, w, cin, cout, scale_shift is not None))
-    return y
+    with K7.span():
+        require_no_grad("K7", x, bias, scale_shift)
+        cout = weight_q.shape[0]
+        wk = taps_q(weight_q) if weight_q.dim() == 4 else weight_q
+        if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
+                and weight_q.dtype == torch.int8 and weight_q.shape[1:] == (x.shape[3], 3, 3)
+                and x.shape[3] % 32 == 0 and cout % 8 == 0
+                and s_x.shape == (1,) and out_scale.shape == (cout,)
+                and s_x.dtype == out_scale.dtype == torch.float32
+                and s_x.is_contiguous() and out_scale.is_contiguous()
+                and (bias is None or (bias.shape == (cout,) and bias.dtype == torch.bfloat16
+                                      and bias.is_contiguous()))
+                and (scale_shift is None or (scale_shift.shape == (x.shape[0], 2, x.shape[3])
+                                             and scale_shift.dtype == torch.float32
+                                             and scale_shift.is_contiguous()))
+                and x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0):
+            _k7_refuse(x, weight_q, s_x, out_scale, bias, scale_shift)
+        b, h, w, cin = x.shape
+        plan = _plan or conv3x3_q_plan(b, h, w, cin, cout, _cuda.sm_count(x.get_device()))
+        ws = tickets = None
+        if plan.ksplit > 1:
+            tiles, cols, _ = plan.grid(b, h, w, cout)
+            ws = _q_workspace(x, b * h * w * cout + tiles * cols)
+            tickets = ws + 4 * b * h * w * cout
+        xq = _q_scratch(x, x.numel())
+        y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_conv3x3_q, x.data_ptr(), xq, wk.data_ptr(), s_x.data_ptr(),
+            out_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), ws, tickets,
+            b, h, w, cin, cout, plan.th, plan.tw, plan.bm, plan.bn, plan.stages, plan.ksplit, _parts,
+            _cuda.stream_handle(x)), "K7 conv3x3_q")
+        K7.launched((b, h, w, cin, cout, scale_shift is not None))
+        return y
 
 
 def conv3x3_q_occupancy() -> dict:

@@ -49,8 +49,8 @@ from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32
                                                      require_inference, require_no_grad, use_kernel,
                                                      wants_grad)
 
-K4 = LaunchCounter()
-K9 = LaunchCounter()
+K4 = LaunchCounter("K4")
+K9 = LaunchCounter("K9")
 
 
 def geglu_ffn_plain(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, eps: float = 1e-5,
@@ -218,22 +218,23 @@ def geglu_ffn_kernel(x, ln_weight, ln_bias, w1, b1, w2, b2, residual=None, *, ep
     split-K partials live in a per-device scratch.  For measuring: ``_plan``
     runs another plan; ``_parts`` 1 launches G1 alone, 2 G2 alone (on
     whatever h the scratch holds, so its output means nothing)."""
-    require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
-    hidden = 4 * x.shape[-1] if hidden is None else hidden
-    m, c = _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, hidden)
-    plan = _plan or ffn_plan(m, c, _cuda.sm_count(x.get_device()), hidden=hidden)
-    h_bytes = -(-m * hidden * 2 // 256) * 256
-    h = _scratch(x, h_bytes + (plan.ksplit2 * m * c * 4 if plan.ksplit2 > 1 else 0))
-    out = torch.empty_like(x)
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_ffn, x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if residual is None else residual.data_ptr(), h,
-        h + h_bytes if plan.ksplit2 > 1 else None, out.data_ptr(), m, c, hidden, *plan.g1,
-        plan.nsplit1, *plan.g2, plan.ksplit2, _parts, _cuda.f32_bits(eps),
-        _cuda.stream_handle(x)), "K4 ffn")
-    K4.launched((m, c) if hidden == 4 * c else (m, c, hidden))
-    return out
+    with K4.span():
+        require_no_grad("K4", x, ln_weight, ln_bias, w1, b1, w2, b2, residual)
+        hidden = 4 * x.shape[-1] if hidden is None else hidden
+        m, c = _check(x, ln_weight, ln_bias, w1, b1, w2, b2, residual, hidden)
+        plan = _plan or ffn_plan(m, c, _cuda.sm_count(x.get_device()), hidden=hidden)
+        h_bytes = -(-m * hidden * 2 // 256) * 256
+        h = _scratch(x, h_bytes + (plan.ksplit2 * m * c * 4 if plan.ksplit2 > 1 else 0))
+        out = torch.empty_like(x)
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_ffn, x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if residual is None else residual.data_ptr(), h,
+            h + h_bytes if plan.ksplit2 > 1 else None, out.data_ptr(), m, c, hidden, *plan.g1,
+            plan.nsplit1, *plan.g2, plan.ksplit2, _parts, _cuda.f32_bits(eps),
+            _cuda.stream_handle(x)), "K4 ffn")
+        K4.launched((m, c) if hidden == 4 * c else (m, c, hidden))
+        return out
 
 
 def ffn_occupancy(c: int = 320) -> dict:
@@ -431,41 +432,42 @@ def geglu_ffn_w8a8_kernel(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q,
     residual bf16.  For measuring: ``_plan`` runs another plan; ``_parts``
     (1 the quantize, 2 G1, 4 G2, summed) launches a subset, on whatever the
     scratch holds."""
-    require_no_grad("K9", x, ln_weight, ln_bias, b1, b2, residual)
-    c = x.shape[-1]
-    hidden = w2_q.shape[-1]
-    f32 = (s1, out_scale1, s2, out_scale2)
-    bf = [t for t in (x, b1, b2, ln_weight, ln_bias, residual) if t is not None]
-    if not (x.is_cuda and c % 32 == 0 and c <= FFN_Q_MAX_C and hidden % 64 == 0
-            and w1_q.shape == (2 * hidden, c) and w2_q.shape == (c, hidden)
-            and w1_q.dtype == w2_q.dtype == torch.int8
-            and w1_q.is_contiguous() and w2_q.is_contiguous()
-            and s1.shape == s2.shape == (1,) and out_scale1.shape == (2 * hidden,)
-            and out_scale2.shape == (c,)
-            and all(t.dtype == torch.float32 and t.is_contiguous() for t in f32)
-            and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
-            and b1.shape == (2 * hidden,) and b2.shape == (c,)
-            and (ln_weight is None) == (ln_bias is None)
-            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (c,))
-            and (residual is None or residual.shape == x.shape)
-            and x.data_ptr() % 16 == 0 and w1_q.data_ptr() % 16 == 0
-            and w2_q.data_ptr() % 16 == 0):
-        _k9_refuse(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
-                   residual)
-    m = x.numel() // c
-    plan = _plan or ffn_q_plan(m, c, hidden, _cuda.sm_count(x.get_device()))
-    off = _h_offset(m, c)
-    xq = _q_scratch(x, off + m * hidden)
-    out = torch.empty_like(x)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_ffn_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), w1_q.data_ptr(),
-        s1.data_ptr(), out_scale1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
-        out_scale2.data_ptr(), b2.data_ptr(), ptr(residual), out.data_ptr(), xq, xq + off,
-        m, c, hidden, *plan.g1, plan.nsplit1, *plan.g2, _parts, _cuda.f32_bits(eps),
-        _cuda.stream_handle(x)), "K9 ffn_q")
-    K9.launched((m, c, hidden, ln_weight is not None, residual is not None))
-    return out
+    with K9.span():
+        require_no_grad("K9", x, ln_weight, ln_bias, b1, b2, residual)
+        c = x.shape[-1]
+        hidden = w2_q.shape[-1]
+        f32 = (s1, out_scale1, s2, out_scale2)
+        bf = [t for t in (x, b1, b2, ln_weight, ln_bias, residual) if t is not None]
+        if not (x.is_cuda and c % 32 == 0 and c <= FFN_Q_MAX_C and hidden % 64 == 0
+                and w1_q.shape == (2 * hidden, c) and w2_q.shape == (c, hidden)
+                and w1_q.dtype == w2_q.dtype == torch.int8
+                and w1_q.is_contiguous() and w2_q.is_contiguous()
+                and s1.shape == s2.shape == (1,) and out_scale1.shape == (2 * hidden,)
+                and out_scale2.shape == (c,)
+                and all(t.dtype == torch.float32 and t.is_contiguous() for t in f32)
+                and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
+                and b1.shape == (2 * hidden,) and b2.shape == (c,)
+                and (ln_weight is None) == (ln_bias is None)
+                and (ln_weight is None or ln_weight.shape == ln_bias.shape == (c,))
+                and (residual is None or residual.shape == x.shape)
+                and x.data_ptr() % 16 == 0 and w1_q.data_ptr() % 16 == 0
+                and w2_q.data_ptr() % 16 == 0):
+            _k9_refuse(x, ln_weight, ln_bias, w1_q, s1, out_scale1, b1, w2_q, s2, out_scale2, b2,
+                       residual)
+        m = x.numel() // c
+        plan = _plan or ffn_q_plan(m, c, hidden, _cuda.sm_count(x.get_device()))
+        off = _h_offset(m, c)
+        xq = _q_scratch(x, off + m * hidden)
+        out = torch.empty_like(x)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_ffn_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), w1_q.data_ptr(),
+            s1.data_ptr(), out_scale1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
+            out_scale2.data_ptr(), b2.data_ptr(), ptr(residual), out.data_ptr(), xq, xq + off,
+            m, c, hidden, *plan.g1, plan.nsplit1, *plan.g2, _parts, _cuda.f32_bits(eps),
+            _cuda.stream_handle(x)), "K9 ffn_q")
+        K9.launched((m, c, hidden, ln_weight is not None, residual is not None))
+        return out
 
 
 def ffn_q_occupancy(c: int = 320) -> dict:

@@ -48,16 +48,16 @@ from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
                                                      require_no_grad, use_kernel, wants_grad)
 
-K3 = LaunchCounter()
-K5 = LaunchCounter()
-K6 = LaunchCounter()
+K3 = LaunchCounter("K3")
+K5 = LaunchCounter("K5")
+K6 = LaunchCounter("K6")
 
 BWD_MAX_D = 160  # widest head dim K5/K6 take (the SD1.5 UNet's deepest stages)
 
 # K3's bodies (csrc/attention.cu), as sdtk_attention numbers them, and the
 # launches of each (K3 counts them all).
 K3_BODIES = {"general": 0, "ring": 1, "cross": 2, "wide": 3}
-K3_BY_BODY = {body: LaunchCounter() for body in K3_BODIES}
+K3_BY_BODY = {body: LaunchCounter(f"K3:{body}") for body in K3_BODIES}
 K3_BKV = 64          # keys a tile: the general, ring and wide bodies
 K3_RING_STAGES = 3   # K/V tiles in the ring body's ring
 # The compiled ring variants (SDTK_ATTN_RING_VARIANTS): (padded head dim, query rows a block).
@@ -383,39 +383,40 @@ def attention_kernel(q, k, v, *, scale: Optional[float] = None, kv_len: Optional
     replaces :func:`attention_plan`'s choice (for measuring one body beside
     another; not a switch of the model's path).  Its checks build no
     message when they pass: every K3 call pays them on the host."""
-    require_no_grad("K3", q, k, v)
-    if not q.is_cuda:
-        raise ValueError(f"K3 needs a CUDA tensor, got {q.device}")
-    require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "K3 takes (B, S, H, D) tensors")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if k.shape != (b, sk, h, d) or v.shape != k.shape:
-        raise ValueError(f"K3: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    require(q.dtype == k.dtype == v.dtype == torch.bfloat16, "K3 takes bf16 q, k, v")
-    if d % 8 or d > 512:
-        raise ValueError(f"K3 takes head dims that are multiples of 8 up to 512, got {d}")
-    require(_strides_ok(q, d) and _strides_ok(k, d) and _strides_ok(v, d),
-            "K3 needs packed (H, D) axes, strides that are multiples of 8 and 16-byte alignment")
-    kv_len = sk if kv_len is None else int(kv_len)
-    if not 0 < kv_len <= sk:
-        raise ValueError(f"K3: kv_len={kv_len} for Sk={sk}")
-    scale = d ** -0.5 if scale is None else float(scale)
-    plan = _plan or attention_plan(b, sq, sk, h, d, _cuda.sm_count(q.device.index or 0), kv_len)
-    o = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
-    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
-    n_ws = plan.workspace(b, sq, h, d)
-    ws = torch.empty(n_ws, device=q.device, dtype=torch.float32) if n_ws else None
-    code = _cuda.library().sdtk_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        b, h, sq, sk, d, kv_len, scale, K3_BODIES[plan.body], plan.bq, plan.nk, plan.tiles,
-        plan.splits, None if ws is None else ws.data_ptr(), _cuda.stream_handle(q))
-    if code:
-        _cuda.check(code, f"K3 attention ({plan.body} body)")
-    K3.launched((b, sq, sk, h, d))
-    K3_BY_BODY[plan.body].launched((b, sq, sk, h, d))
-    return (o, lse) if return_lse else o
+    with K3.span():
+        require_no_grad("K3", q, k, v)
+        if not q.is_cuda:
+            raise ValueError(f"K3 needs a CUDA tensor, got {q.device}")
+        require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "K3 takes (B, S, H, D) tensors")
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        if k.shape != (b, sk, h, d) or v.shape != k.shape:
+            raise ValueError(f"K3: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+        require(q.dtype == k.dtype == v.dtype == torch.bfloat16, "K3 takes bf16 q, k, v")
+        if d % 8 or d > 512:
+            raise ValueError(f"K3 takes head dims that are multiples of 8 up to 512, got {d}")
+        require(_strides_ok(q, d) and _strides_ok(k, d) and _strides_ok(v, d),
+                "K3 needs packed (H, D) axes, strides that are multiples of 8 and 16-byte alignment")
+        kv_len = sk if kv_len is None else int(kv_len)
+        if not 0 < kv_len <= sk:
+            raise ValueError(f"K3: kv_len={kv_len} for Sk={sk}")
+        scale = d ** -0.5 if scale is None else float(scale)
+        plan = _plan or attention_plan(b, sq, sk, h, d, _cuda.sm_count(q.device.index or 0), kv_len)
+        o = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
+        lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
+        n_ws = plan.workspace(b, sq, h, d)
+        ws = torch.empty(n_ws, device=q.device, dtype=torch.float32) if n_ws else None
+        code = _cuda.library().sdtk_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            b, h, sq, sk, d, kv_len, scale, K3_BODIES[plan.body], plan.bq, plan.nk, plan.tiles,
+            plan.splits, None if ws is None else ws.data_ptr(), _cuda.stream_handle(q))
+        if code:
+            _cuda.check(code, f"K3 attention ({plan.body} body)")
+        K3.launched((b, sq, sk, h, d))
+        K3_BY_BODY[plan.body].launched((b, sq, sk, h, d))
+        return (o, lse) if return_lse else o
 
 
 def _bwd_checks(name, q, k, v, lse, *rest):
@@ -446,45 +447,47 @@ def attention_bwd_dq_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = Non
     """Launch K5: dq (B, S, H, D) bf16 and delta (B, H, S) f32.  ``_plan``
     replaces :func:`attention_bwd_plan`'s choice (for measuring one body
     beside another; not a switch of the model's path)."""
-    require_no_grad("K5", q, k, v, o, do)
-    do = _packed(do)
-    b, s, h, d = _bwd_checks("K5", q, k, v, lse, o, do)
-    scale = d ** -0.5 if scale is None else float(scale)
-    plan = _bwd_plan(q, b, s, h, d, _plan)
-    delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    dq = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
-    code = _cuda.library().sdtk_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-        b, h, s, d, scale, BWD_BODIES[plan.body], plan.q_rows, plan.k_tile,
-        _cuda.stream_handle(q))
-    _cuda.check(code, "K5 attention backward (dq)")
-    K5.launched((b, s, h, d))
-    return dq, delta
+    with K5.span():
+        require_no_grad("K5", q, k, v, o, do)
+        do = _packed(do)
+        b, s, h, d = _bwd_checks("K5", q, k, v, lse, o, do)
+        scale = d ** -0.5 if scale is None else float(scale)
+        plan = _bwd_plan(q, b, s, h, d, _plan)
+        delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+        dq = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
+        code = _cuda.library().sdtk_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+            b, h, s, d, scale, BWD_BODIES[plan.body], plan.q_rows, plan.k_tile,
+            _cuda.stream_handle(q))
+        _cuda.check(code, "K5 attention backward (dq)")
+        K5.launched((b, s, h, d))
+        return dq, delta
 
 
 def attention_bwd_dkv_kernel(q, k, v, lse, delta, do, *, scale: Optional[float] = None,
                              _plan: Optional[AttentionBwdPlan] = None):
     """Launch K6: dk, dv (B, S, H, D) bf16 from K5's delta.  ``_plan`` as
     in :func:`attention_bwd_dq_kernel`."""
-    require_no_grad("K6", q, k, v, do)
-    do = _packed(do)
-    b, s, h, d = _bwd_checks("K6", q, k, v, lse, do)
-    require(delta.shape == lse.shape and delta.dtype == torch.float32 and delta.is_contiguous(),
-            "K6: delta must be contiguous f32 (B, H, S)")
-    scale = d ** -0.5 if scale is None else float(scale)
-    plan = _bwd_plan(q, b, s, h, d, _plan)
-    dk = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
-    dv = torch.empty_like(dk)
-    code = _cuda.library().sdtk_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), do.stride(0), do.stride(1), b, h, s, d, scale,
-        BWD_BODIES[plan.body], plan.k_rows, plan.q_tile, _cuda.stream_handle(q))
-    _cuda.check(code, "K6 attention backward (dk, dv)")
-    K6.launched((b, s, h, d))
-    return dk, dv
+    with K6.span():
+        require_no_grad("K6", q, k, v, do)
+        do = _packed(do)
+        b, s, h, d = _bwd_checks("K6", q, k, v, lse, do)
+        require(delta.shape == lse.shape and delta.dtype == torch.float32 and delta.is_contiguous(),
+                "K6: delta must be contiguous f32 (B, H, S)")
+        scale = d ** -0.5 if scale is None else float(scale)
+        plan = _bwd_plan(q, b, s, h, d, _plan)
+        dk = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
+        dv = torch.empty_like(dk)
+        code = _cuda.library().sdtk_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), do.stride(0), do.stride(1), b, h, s, d, scale,
+            BWD_BODIES[plan.body], plan.k_rows, plan.q_tile, _cuda.stream_handle(q))
+        _cuda.check(code, "K6 attention backward (dk, dv)")
+        K6.launched((b, s, h, d))
+        return dk, dv
 
 
 def attention_bwd_kernel(q, k, v, o, lse, do, *, scale: Optional[float] = None,

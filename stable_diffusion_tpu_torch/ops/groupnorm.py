@@ -31,7 +31,7 @@ from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
                                                      require_no_grad, use_kernel, wants_grad)
 
-K1 = LaunchCounter()
+K1 = LaunchCounter("K1")
 
 GN_THREADS = 256    # most threads of a statistics block
 GN_RMAX = 8         # most rows a thread holds in registers
@@ -225,24 +225,26 @@ def _stats(x, weight, bias, ss_ptr, b, hw, c, num_groups, eps) -> GnPlan:
 
 
 def _scale_shift(x, weight, bias, num_groups, eps):
-    b, hw, c = _check(x, weight, bias, num_groups)
-    ss = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
-    _stats(x, weight, bias, ss.data_ptr(), b, hw, c, num_groups, eps)
-    K1.launched(("stats", b, hw, c, x.dtype, eps))
-    return ss
+    with K1.span():
+        b, hw, c = _check(x, weight, bias, num_groups)
+        ss = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+        _stats(x, weight, bias, ss.data_ptr(), b, hw, c, num_groups, eps)
+        K1.launched(("stats", b, hw, c, x.dtype, eps))
+        return ss
 
 
 def _norm(x, weight, bias, num_groups, eps, silu):
-    b, hw, c = _check(x, weight, bias, num_groups)
-    ss = _workspace(x, 0, 0, b * 2 * c)[2]  # the scale/shift between the two launches
-    plan = _stats(x, weight, bias, ss, b, hw, c, num_groups, eps)
-    y = torch.empty_like(x)
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_gn_apply, x.data_ptr(), ss, y.data_ptr(),
-        x.dtype == torch.float32, b, hw, c, plan.vec, silu, _cuda.stream_handle(x)),
-        "K1 normalize")
-    K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
-    return y
+    with K1.span():
+        b, hw, c = _check(x, weight, bias, num_groups)
+        ss = _workspace(x, 0, 0, b * 2 * c)[2]  # the scale/shift between the two launches
+        plan = _stats(x, weight, bias, ss, b, hw, c, num_groups, eps)
+        y = torch.empty_like(x)
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_gn_apply, x.data_ptr(), ss, y.data_ptr(),
+            x.dtype == torch.float32, b, hw, c, plan.vec, silu, _cuda.stream_handle(x)),
+            "K1 normalize")
+        K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
+        return y
 
 
 def gn_scale_shift_kernel(x, weight, bias, *, num_groups: int = 32,

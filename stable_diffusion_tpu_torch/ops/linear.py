@@ -73,9 +73,9 @@ from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32
                                                      require_inference, require_no_grad, use_kernel,
                                                      wants_grad)
 
-K8 = LaunchCounter()
-K10 = LaunchCounter()
-K11 = LaunchCounter()
+K8 = LaunchCounter("K8")
+K10 = LaunchCounter("K10")
+K11 = LaunchCounter("K11")
 SMEM_BLOCK = 232448        # shared bytes a block may use on an H100
 SMEM_SM = 233472           # an SM's shared memory (228 KB)
 
@@ -298,40 +298,41 @@ def linear_kernel(x, weight, bias=None, residual=None, ln_weight=None, ln_bias=N
     LN affine (K,) bf16; scale_shift (B, 2, K) f32 from K1, x then NHWC
     (B, H, W, K) or (B, S, K), the GroupNorm normalize applied to x first.
     ``_plan`` runs another plan (for measuring)."""
-    k = x.shape[-1]
-    m = x.numel() // k
-    n = weight.shape[0]
-    bf = [t for t in (x, weight, bias, residual, ln_weight, ln_bias) if t is not None]
-    rows = m // x.shape[0] if scale_shift is not None else 1
-    if not (x.is_cuda and k % 8 == 0 and n % 8 == 0 and weight.shape == (n, k)
-            and not wants_grad(scale_shift, *bf)
-            and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
-                    for t in bf)
-            and (bias is None or bias.shape == (n,))
-            and (residual is None or residual.shape == (*x.shape[:-1], n))
-            and (ln_weight is None) == (ln_bias is None)
-            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))
-            and (scale_shift is None or (ln_weight is None
-                                         and scale_shift.shape == (x.shape[0], 2, k)
-                                         and scale_shift.dtype == torch.float32
-                                         and scale_shift.is_contiguous()
-                                         and scale_shift.data_ptr() % 16 == 0))):
-        _k10_refuse(x, weight, bias, residual, ln_weight, ln_bias, scale_shift)
-    prologue = "gn" if scale_shift is not None else "none" if ln_weight is None else "ln"
-    plan = _plan or linear_plan(m, k, n, prologue, _cuda.sm_count(x.get_device()))
-    ws = _lin_workspace(x, plan.ksplit * m * n) if plan.ksplit > 1 else None
-    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_linear, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), ptr(scale_shift),
-        weight.data_ptr(), ptr(bias), ptr(residual), out.data_ptr(), ws, rows, m, n, k,
-        *plan.variant, plan.nsplit, plan.ksplit, _cuda.f32_bits(eps), _cuda.stream_handle(x)),
-        "K10/K11 linear")
-    if scale_shift is None:
-        K10.launched((m, k, n, ln_weight is not None, residual is not None))
-    else:
-        K11.launched((x.shape[0], rows, k, n))
-    return out
+    with (K10 if scale_shift is None else K11).span():
+        k = x.shape[-1]
+        m = x.numel() // k
+        n = weight.shape[0]
+        bf = [t for t in (x, weight, bias, residual, ln_weight, ln_bias) if t is not None]
+        rows = m // x.shape[0] if scale_shift is not None else 1
+        if not (x.is_cuda and k % 8 == 0 and n % 8 == 0 and weight.shape == (n, k)
+                and not wants_grad(scale_shift, *bf)
+                and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                        for t in bf)
+                and (bias is None or bias.shape == (n,))
+                and (residual is None or residual.shape == (*x.shape[:-1], n))
+                and (ln_weight is None) == (ln_bias is None)
+                and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))
+                and (scale_shift is None or (ln_weight is None
+                                             and scale_shift.shape == (x.shape[0], 2, k)
+                                             and scale_shift.dtype == torch.float32
+                                             and scale_shift.is_contiguous()
+                                             and scale_shift.data_ptr() % 16 == 0))):
+            _k10_refuse(x, weight, bias, residual, ln_weight, ln_bias, scale_shift)
+        prologue = "gn" if scale_shift is not None else "none" if ln_weight is None else "ln"
+        plan = _plan or linear_plan(m, k, n, prologue, _cuda.sm_count(x.get_device()))
+        ws = _lin_workspace(x, plan.ksplit * m * n) if plan.ksplit > 1 else None
+        out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_linear, x.data_ptr(), ptr(ln_weight), ptr(ln_bias), ptr(scale_shift),
+            weight.data_ptr(), ptr(bias), ptr(residual), out.data_ptr(), ws, rows, m, n, k,
+            *plan.variant, plan.nsplit, plan.ksplit, _cuda.f32_bits(eps), _cuda.stream_handle(x)),
+            "K10/K11 linear")
+        if scale_shift is None:
+            K10.launched((m, k, n, ln_weight is not None, residual is not None))
+        else:
+            K11.launched((x.shape[0], rows, k, n))
+        return out
 
 
 def linear_occupancy(k: int = 1280) -> dict:
@@ -593,39 +594,40 @@ def matmul_w8a8_kernel(x, weight_q, s_x, out_scale, bias=None, residual=None,
     s_x (1,) and out_scale = s_x * weight_scale (N,) f32 (``folded_scales``);
     bias (N,), residual (..., N) and the LN affine (K,) bf16.  ``_plan``
     runs another plan (for measuring)."""
-    require_no_grad("K8", x, bias, residual, ln_weight, ln_bias)
-    k = x.shape[-1]
-    m = x.numel() // k
-    n = weight_q.shape[0]
-    bf = [t for t in (x, bias, residual, ln_weight, ln_bias) if t is not None]
-    if not (x.is_cuda and k % 32 == 0 and n % 8 == 0 and weight_q.shape == (n, k)
-            and weight_q.dtype == torch.int8 and weight_q.is_contiguous()
-            and s_x.shape == (1,) and out_scale.shape == (n,)
-            and s_x.dtype == out_scale.dtype == torch.float32
-            and s_x.is_contiguous() and out_scale.is_contiguous()
-            and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
-            and all(t.data_ptr() % 16 == 0 for t in (x, weight_q, ln_weight, ln_bias) if t is not None)
-            and (bias is None or bias.shape == (n,))
-            and (residual is None or residual.shape == (*x.shape[:-1], n))
-            and (ln_weight is None) == (ln_bias is None)
-            and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))):
-        _k8_refuse(x, weight_q, s_x, out_scale, bias, residual, ln_weight, ln_bias)
-    plan = _plan or linear_q_plan(m, k, n, _cuda.sm_count(x.get_device()))
-    ws = tickets = None
-    if plan.ksplit > 1:
-        rb, nt = -(-m // plan.bm), -(-n // plan.bn)
-        ws = _lq_workspace(x, m * n + rb * nt)
-        tickets = ws + 4 * m * n
-    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_linear_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias),
-        weight_q.data_ptr(), s_x.data_ptr(), out_scale.data_ptr(), ptr(bias), ptr(residual),
-        out.data_ptr(), ws, tickets, _lq_rows(x, m * k), m, n, k, *plan.variant, plan.nsplit,
-        plan.ksplit,
-        _cuda.f32_bits(eps), _cuda.stream_handle(x)), "K8 linear_q")
-    K8.launched((m, k, n, ln_weight is not None, residual is not None))
-    return out
+    with K8.span():
+        require_no_grad("K8", x, bias, residual, ln_weight, ln_bias)
+        k = x.shape[-1]
+        m = x.numel() // k
+        n = weight_q.shape[0]
+        bf = [t for t in (x, bias, residual, ln_weight, ln_bias) if t is not None]
+        if not (x.is_cuda and k % 32 == 0 and n % 8 == 0 and weight_q.shape == (n, k)
+                and weight_q.dtype == torch.int8 and weight_q.is_contiguous()
+                and s_x.shape == (1,) and out_scale.shape == (n,)
+                and s_x.dtype == out_scale.dtype == torch.float32
+                and s_x.is_contiguous() and out_scale.is_contiguous()
+                and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in bf)
+                and all(t.data_ptr() % 16 == 0 for t in (x, weight_q, ln_weight, ln_bias) if t is not None)
+                and (bias is None or bias.shape == (n,))
+                and (residual is None or residual.shape == (*x.shape[:-1], n))
+                and (ln_weight is None) == (ln_bias is None)
+                and (ln_weight is None or ln_weight.shape == ln_bias.shape == (k,))):
+            _k8_refuse(x, weight_q, s_x, out_scale, bias, residual, ln_weight, ln_bias)
+        plan = _plan or linear_q_plan(m, k, n, _cuda.sm_count(x.get_device()))
+        ws = tickets = None
+        if plan.ksplit > 1:
+            rb, nt = -(-m // plan.bm), -(-n // plan.bn)
+            ws = _lq_workspace(x, m * n + rb * nt)
+            tickets = ws + 4 * m * n
+        out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_linear_q, x.data_ptr(), ptr(ln_weight), ptr(ln_bias),
+            weight_q.data_ptr(), s_x.data_ptr(), out_scale.data_ptr(), ptr(bias), ptr(residual),
+            out.data_ptr(), ws, tickets, _lq_rows(x, m * k), m, n, k, *plan.variant, plan.nsplit,
+            plan.ksplit,
+            _cuda.f32_bits(eps), _cuda.stream_handle(x)), "K8 linear_q")
+        K8.launched((m, k, n, ln_weight is not None, residual is not None))
+        return out
 
 
 def linear_q_occupancy(k: int = 1280) -> dict:

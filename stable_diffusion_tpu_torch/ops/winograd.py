@@ -47,7 +47,7 @@ from stable_diffusion_tpu_torch.ops.groupnorm import gn_silu_prologue
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, cached, require,
                                                      require_no_grad)
 
-K12 = LaunchCounter()
+K12 = LaunchCounter("K12")
 
 # B^T (4x4), G (4x3), A^T (2x4): the F(2, 3) Winograd matrices (JAX's _BT, _G, _AT)
 _BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
@@ -177,31 +177,34 @@ def conv3x3_winograd_kernel(x, weight, bias=None, scale_shift=None, *, _plan: Wi
     OIHW (Cout,Cin,3,3) bf16; bias (Cout,) bf16; scale_shift (B, 2, Cin)
     f32 applies GroupNorm+SiLU to x first.  ``_plan`` runs another plan
     (for measuring)."""
-    require_no_grad("K12", x, weight, bias, scale_shift)
-    require(x.is_cuda, f"K12 needs a CUDA tensor, got {x.device}")
-    require(x.dtype == torch.bfloat16, f"K12 takes bf16, got {x.dtype}")
-    require(x.dim() == 4 and x.is_contiguous(), "K12 needs a contiguous NHWC tensor")
-    b, h, w, cin = x.shape
-    cout = weight.shape[0]
-    require(h % 2 == 0 and w % 2 == 0, f"K12 takes even H and W, got {h}x{w}")
-    require(tuple(weight.shape) == (cout, cin, 3, 3) and weight.dtype == torch.bfloat16,
-            f"K12: weight {tuple(weight.shape)} {weight.dtype} for Cin={cin}")
-    require(cin % 8 == 0 and cout % 8 == 0,
-            f"K12 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
-    if bias is not None:
-        require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
-                "K12: bias must be contiguous bf16 (Cout,)")
-    if scale_shift is not None:
-        require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
-                and scale_shift.is_contiguous(), "K12: scale_shift must be contiguous f32 (B, 2, Cin)")
-    u = u_tiles(weight)
-    require(x.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0, "K12 needs 16-byte aligned tensors")
-    plan = _plan or winograd_plan(b, h, w, cin, cout)
-    y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    _cuda.check(_cuda.call_packed(
-        _cuda.library().sdtk_winograd, x.data_ptr(), u.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-        *plan.region, _cuda.stream_handle(x)), "K12 winograd")
-    K12.launched((b, h, w, cin, cout, scale_shift is not None))
-    return y
+    with K12.span():
+        require_no_grad("K12", x, weight, bias, scale_shift)
+        require(x.is_cuda, f"K12 needs a CUDA tensor, got {x.device}")
+        require(x.dtype == torch.bfloat16, f"K12 takes bf16, got {x.dtype}")
+        require(x.dim() == 4 and x.is_contiguous(), "K12 needs a contiguous NHWC tensor")
+        b, h, w, cin = x.shape
+        cout = weight.shape[0]
+        require(h % 2 == 0 and w % 2 == 0, f"K12 takes even H and W, got {h}x{w}")
+        require(tuple(weight.shape) == (cout, cin, 3, 3) and weight.dtype == torch.bfloat16,
+                f"K12: weight {tuple(weight.shape)} {weight.dtype} for Cin={cin}")
+        require(cin % 8 == 0 and cout % 8 == 0,
+                f"K12 takes Cin % 8 == 0 and Cout % 8 == 0, got {cin}->{cout}")
+        if bias is not None:
+            require(bias.shape == (cout,) and bias.dtype == torch.bfloat16 and bias.is_contiguous(),
+                    "K12: bias must be contiguous bf16 (Cout,)")
+        if scale_shift is not None:
+            require(scale_shift.shape == (b, 2, cin) and scale_shift.dtype == torch.float32
+                    and scale_shift.is_contiguous(),
+                    "K12: scale_shift must be contiguous f32 (B, 2, Cin)")
+        u = u_tiles(weight)
+        require(x.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0,
+                "K12 needs 16-byte aligned tensors")
+        plan = _plan or winograd_plan(b, h, w, cin, cout)
+        y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_winograd, x.data_ptr(), u.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if scale_shift is None else scale_shift.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
+            *plan.region, _cuda.stream_handle(x)), "K12 winograd")
+        K12.launched((b, h, w, cin, cout, scale_shift is not None))
+        return y

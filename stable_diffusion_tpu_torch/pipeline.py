@@ -71,6 +71,7 @@ from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
 from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 from stable_diffusion_tpu_torch.schedulers import schedule as S
+from stable_diffusion_tpu_torch.utils.device import span
 
 MAX_TEXT_LEN = 77
 # SwiftBrush's one step: t = 999 with alpha_T^2 = 0.0047 (JAX _one_step_jit)
@@ -351,8 +352,9 @@ class StableDiffusion:
     def encode_text(self, input_ids) -> torch.Tensor:
         """(B, 77) token ids -> the text tower's (B, 77, D) context on the
         pipeline's device (JAX ``encode_text``)."""
-        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
-        return self.text_encoder(ids, impl=self.impl)
+        with span("text"):
+            ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
+            return self.text_encoder(ids, impl=self.impl)
 
     def _context(self, first_ids, second_ids=None) -> torch.Tensor:
         """The text tower on [first; second] token ids (second None: first alone)."""
@@ -417,23 +419,25 @@ class StableDiffusion:
                                dtype=latents.dtype, device=latents.device)
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
             j = i % seg  # the step's index in its segment
-            model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
-            t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
-            if k <= 1:
-                pred = self.unet(model_in, t_in, context, impl=self.impl)
-            elif j % k == 0:
-                pred, deep = self.unet.forward_split(model_in, t_in, context, impl=self.impl)
-            else:
-                pred = self.unet.forward_cached(model_in, t_in, context, deep, impl=self.impl)
-            eps = cfg_combine(pred, cfg_scale, order) if do_cfg else pred
-            if blend is not None:
-                latents = blend(latents, t, eps)
-            noise = None
-            if needs_noise:
-                noise = (step_noise[i] if step_noise is not None
-                         else draws("step noise", None, draws.full(latents.shape)))
-            latents = _sampler_step(table, latents, t, pt, eps, noise, sampler, prediction_type,
-                                    eta)
+            with span("denoise_step"):
+                model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
+                t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
+                if k <= 1:
+                    pred = self.unet(model_in, t_in, context, impl=self.impl)
+                elif j % k == 0:
+                    pred, deep = self.unet.forward_split(model_in, t_in, context, impl=self.impl)
+                else:
+                    pred = self.unet.forward_cached(model_in, t_in, context, deep, impl=self.impl)
+                with span("sampler"):
+                    eps = cfg_combine(pred, cfg_scale, order) if do_cfg else pred
+                    if blend is not None:
+                        latents = blend(latents, t, eps)
+                    noise = None
+                    if needs_noise:
+                        noise = (step_noise[i] if step_noise is not None
+                                 else draws("step noise", None, draws.full(latents.shape)))
+                    latents = _sampler_step(table, latents, t, pt, eps, noise, sampler,
+                                            prediction_type, eta)
             if progress_callback is not None and (j == seg - 1 or i == n - 1):
                 progress_callback(i + 1, n)
         return latents
@@ -577,8 +581,10 @@ class StableDiffusion:
         alpha_t, sigma_t = (torch.tensor(v, dtype=torch.float32).sqrt().to(device=dev, dtype=dtype)
                             for v in (ONE_STEP_ALPHA2, 1.0 - ONE_STEP_ALPHA2))
         t = torch.full((1,), ONE_STEP_T, dtype=torch.long, device=dev)
-        eps = self.unet(latents, t, context, impl=impl)
-        x0 = (latents - sigma_t * eps) / alpha_t
+        with span("denoise_step"):
+            eps = self.unet(latents, t, context, impl=impl)
+            with span("sampler"):
+                x0 = (latents - sigma_t * eps) / alpha_t
         return _finish(self._gather(self.vae.decode(x0, impl=impl)), output_dtype,
                        "generate_in_one_step")
 
@@ -637,8 +643,9 @@ class StableDiffusion:
         if return_latents:
             return latents.float().cpu().numpy()
         imgs = self.vae.decode(latents, impl=impl).float()
-        _refuse_non_finite(imgs, "inpaint")
-        out = scale_img(imgs.cpu().numpy(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
+        with span("to_host"):
+            _refuse_non_finite(imgs, "inpaint")
+            out = scale_img(imgs.cpu().numpy(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         return out[0].astype(np.uint8)
 
     def training_loss(self, unet_params, images, input_ids, t, noise) -> torch.Tensor:
@@ -681,11 +688,12 @@ class StableDiffusion:
 def _finish(decoded: torch.Tensor, output_dtype: str, what: str) -> np.ndarray:
     """A decode in [-1, 1] -> host images in [0, 1] f32, or uint8 rounded
     (refusing a non-finite value rather than casting it)."""
-    imgs = (decoded.float() + 1.0) / 2.0
-    if output_dtype == "uint8":
-        _refuse_non_finite(imgs, what)
-        imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return imgs.cpu().numpy()
+    with span("to_host"):
+        imgs = (decoded.float() + 1.0) / 2.0
+        if output_dtype == "uint8":
+            _refuse_non_finite(imgs, what)
+            imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return imgs.cpu().numpy()
 
 
 def _refuse_non_finite(imgs: torch.Tensor, what: str) -> None:

@@ -44,6 +44,7 @@ from stable_diffusion_tpu_torch.models import ema as ema_m
 from stable_diffusion_tpu_torch.models import lora as lora_m
 from stable_diffusion_tpu_torch.parallel import mesh as pmesh
 from stable_diffusion_tpu_torch.schedulers import schedule as S
+from stable_diffusion_tpu_torch.utils.device import span
 from stable_diffusion_tpu_torch.utils.tree import (global_norm, tree_leaves, tree_map,
                                                    tree_unflatten)
 
@@ -182,7 +183,8 @@ def loss_and_grad(lora, base, batch, *, mesh: Optional[pmesh.Mesh] = None, **kw)
     (a detached weight, a kernel output with no ``grad_fn``) raises here."""
     params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
     loss = dreambooth_loss(params, base, batch, mesh=mesh, **kw)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
+    with span("backward"):
+        grads = torch.autograd.grad(loss, tree_leaves(params))
     return sum_over_mesh(loss.detach(), tree_unflatten(params, grads), mesh)
 
 
@@ -195,19 +197,22 @@ def make_train_step(base, *, schedule: S.DiffusionSchedule, train_cfg: TrainConf
     table = torch.as_tensor(schedule.alphas_hat, device=device)
 
     def step_fn(state, batch):
-        loss, grads = loss_and_grad(state["lora"], base, batch, alphas_hat=table,
-                                    train_cfg=train_cfg, prediction_type=schedule.prediction_type,
-                                    impl=impl, mesh=mesh)
-        updates, opt_state = tx.update(grads, state["opt_state"], state["lora"])
-        lora = optim.apply_updates(state["lora"], updates)
-        step = state["step"] + 1
-        if train_cfg.use_ema:
-            ema = ema_m.ema_update(state["ema"], lora, step, beta=train_cfg.ema_beta,
-                                   start_ema=train_cfg.ema_start)
-        else:
-            ema = lora
-        new_state = {"lora": lora, "opt_state": opt_state, "ema": ema, "step": step}
-        return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
+        with span("train_step"):
+            loss, grads = loss_and_grad(state["lora"], base, batch, alphas_hat=table,
+                                        train_cfg=train_cfg,
+                                        prediction_type=schedule.prediction_type, impl=impl,
+                                        mesh=mesh)
+            step = state["step"] + 1
+            with span("optimizer"):
+                updates, opt_state = tx.update(grads, state["opt_state"], state["lora"])
+                lora = optim.apply_updates(state["lora"], updates)
+                if train_cfg.use_ema:
+                    ema = ema_m.ema_update(state["ema"], lora, step, beta=train_cfg.ema_beta,
+                                           start_ema=train_cfg.ema_start)
+                else:
+                    ema = lora
+            new_state = {"lora": lora, "opt_state": opt_state, "ema": ema, "step": step}
+            return new_state, {"loss": loss, "grad_norm": global_norm(grads)}
 
     return step_fn
 

@@ -1,9 +1,11 @@
-"""The ``impl`` switch, the launch counters every kernel wrapper keeps, and
-the cache of the tensors it derives from its weights."""
+"""The ``impl`` switch, the launch counters every kernel wrapper keeps, the
+spans that name the port's work on the profiler's clock, and the cache of
+the tensors a wrapper derives from its weights."""
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import weakref
 from typing import Callable, Sequence
 
@@ -67,18 +69,66 @@ def require_inference(what: str, *tensors) -> None:
             "silently wrong; train in bf16 and quantize afterwards (utils/quantize_model)")
 
 
+class SpanRecorder:
+    """The switch of the port's spans, with :class:`LaunchCounter`'s
+    contract: :meth:`record` turns them on, :meth:`stop_recording` turns
+    them off and returns each span's calls in between (a Counter by name,
+    without the ``sd.`` prefix).  Off unless something records them."""
+
+    def __init__(self):
+        self.calls = None
+
+    def record(self) -> None:
+        """Turn spans on (their counts cleared)."""
+        self.calls = collections.Counter()
+
+    def stop_recording(self) -> collections.Counter:
+        calls, self.calls = self.calls, None
+        return calls
+
+
+SPANS = SpanRecorder()
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range ``sd.<name>`` around the
+    block while :data:`SPANS` records, counted there; else one shared null
+    context, so an unrecorded span costs an attribute test.
+
+    The spans: ``denoise_step`` (one step of the denoise loop, or the one
+    UNet pass and x0 of the one-step model), ``unet`` (a UNet pass),
+    ``sampler`` (CFG combine, inpaint blend, step noise, the sampler's
+    step), ``text`` (the text tower), ``vae_decode``, ``to_host`` (the
+    images' finite check, rounding and copy to the host), ``train_step``
+    (one micro-step), ``lora_merge``, ``backward``, ``optimizer`` (the
+    update, its application and the EMA) and ``K1``..``K12`` (a
+    hand-written kernel's wrapper, from its checks to the launch's return).
+    Spans opened by autograd's backward run on its engine's thread."""
+    calls = SPANS.calls
+    if calls is None:
+        return _OFF
+    calls[name] += 1
+    return torch.profiler.record_function("sd." + name)
+
+
 class LaunchCounter:
     """A kernel's launch count.
 
     ``launches`` is a plain integer that the kernel's wrapper raises by one
     each time it launches the kernel, and nowhere else.  While ``shapes`` is
     a Counter (see :meth:`record`), each launch also counts its shape key, so
-    a run can list the shapes it gave the kernel.
+    a run can list the shapes it gave the kernel.  :meth:`span` is the
+    wrapper's span, named as the counter.
     """
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.launches = 0
         self.shapes = None
+
+    def span(self):
+        return span(self.name)
 
     def launched(self, key) -> None:
         self.launches += 1

@@ -197,6 +197,40 @@ def test_k2_transposed(gen, shape):
     _check(got, conv.conv3x3_plain(g.float(), conv.flip_io(wt).float()))
 
 
+def test_k2_launch_inside_its_span(gen, tmp_path):
+    """With the spans recorded, the runtime call that launches K2's kernel
+    lies inside the ``sd.K2`` range on the profiler's clock (the Chrome
+    trace's correlation ids tie the kernel to its launch)."""
+    import json
+
+    from stable_diffusion_tpu_torch.utils.device import SPANS
+
+    x = _rn(gen, 2, 16, 16, 64)
+    wt = _rn(gen, 64, 64, 3, 3, scale=(9 * 64) ** -0.5)
+    conv.conv3x3_kernel(x, wt)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    SPANS.record()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            conv.conv3x3_kernel(x, wt)
+            torch.cuda.synchronize()
+    finally:
+        calls = SPANS.stop_recording()
+    assert calls == {"K2": 1}
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e["name"] == "sd.K2" and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "conv3x3" in e["name"]]
+    assert len(spans) == 1 and len(kernels) == 1, (spans, kernels)
+    launch = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and (e.get("args") or {}).get("correlation") == kernels[0]["args"]["correlation"]]
+    assert len(launch) == 1, launch
+    lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    assert lo <= launch[0]["ts"] <= hi, (lo, launch[0]["ts"], hi)
+
+
 def test_k2_occupancy(gen):
     """Every compiled K2 variant: no spills, two blocks an SM."""
     for variant, occ in conv.conv3x3_occupancy().items():

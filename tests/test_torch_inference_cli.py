@@ -6,6 +6,7 @@ lanes as inference.py does; the merged weights equal the JAX package's
 ``merge_lora`` of its own kohya loader; the flags are inference.py's; and
 the card's refusals come before any load."""
 
+import json
 import os
 
 import numpy as np
@@ -25,6 +26,7 @@ from stable_diffusion_tpu.utils.torch_interop import flatten_tree
 from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.utils import safetensors_io
+from stable_diffusion_tpu_torch.utils.device import SPANS
 from stable_diffusion_tpu_torch.utils.weights import build, from_jax_params, to_jax_params
 from tests import torch_checkpoints as C
 from tests.torch_threads import one_thread  # noqa: F401
@@ -168,9 +170,14 @@ def test_a_prompt_needs_a_tokenizer(model_dir, tmp_path):
 
 
 def test_profile_dir_writes_a_trace(model_dir, tmp_path):
+    """The trace holds the port's spans, recorded only while it is taken."""
     cli.main(_argv(model_dir, tmp_path / "out", "--one_step", "--n_samples", "1",
                    "--profile_dir", str(tmp_path / "prof")))
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with open(tmp_path / "prof" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"sd.text", "sd.denoise_step", "sd.unet", "sd.vae_decode", "sd.to_host"} <= names
+    assert SPANS.calls is None
 
 
 def test_flags_and_defaults_are_inference_py_s():
