@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cli            # phases 1-2 and 10 (no contract line)
     python3 chip_smoke.py --deepcache      # phases 1-2 and 11 (no contract line)
     python3 chip_smoke.py --trainer        # phases 1-2 and 12 (no contract line)
+    python3 chip_smoke.py --training       # phases 1-2 and 7 (no contract line)
     python3 chip_smoke.py --evaluation     # phases 1-2 and 13 (no contract line)
     python3 chip_smoke.py --demo           # phases 1-2 and 14 (no contract line)
     python3 chip_smoke.py --sharded        # phases 1-2 and 15 (no contract line)
@@ -840,6 +841,8 @@ def _case(kernel: str, key, gen):
 
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
     library = None
+    if kernel == "K1" and key[0] == "bwd":
+        return _k1_bwd_case(key, rn)
     if kernel == "K1":
         kind, b, hw, c = key[:4]
         eps = key[5]
@@ -993,6 +996,54 @@ def _case(kernel: str, key, gen):
                 ref=lambda: run(*f32(args), impl="torch"), library=library, **work)
 
 
+def _k1_bwd_case(key, rn):
+    """``_case`` for K1's backward (a ("bwd", b, hw, c, dtype, groups, silu,
+    affine) key): dx (and dgamma, dbeta when ``affine``) on the statistics
+    K1's forward kept; plain: the VJP of ``group_norm_plain`` by autograd
+    (the route the kernel replaced); library: the backward of
+    ``F.group_norm`` (+ ``F.silu``) on an NCHW copy, its forward taken once.
+    Bytes: x and dy read and dx written once; the design's own: x and dy
+    read twice."""
+    from stable_diffusion_tpu_torch.ops import groupnorm
+
+    _, b, hw, c, _, groups, silu, affine = key
+    x = rn(b, hw, 1, c, scale=2.0) + 0.5
+    w, bias = 1 + rn(c, scale=0.1), rn(c, scale=0.1)
+    dy = rn(b, hw, 1, c)
+    _, stats = groupnorm.KERNEL_OPS.norm(x, w, bias, groups, 1e-5, silu)
+    need = (True, affine, affine)
+
+    def vjp(x, w, bias, dy):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip((x, w, bias), need)]
+            y = groupnorm.group_norm_plain(*ins, groups, 1e-5, silu)
+            return torch.autograd.grad(y, [t for t in ins if t.requires_grad], dy)[0]
+
+    nchw = [t.view(b, hw, c).transpose(1, 2).contiguous() for t in (x, dy)]
+    with torch.enable_grad():
+        lib_in = [nchw[0].requires_grad_(), w.detach().requires_grad_(affine),
+                  bias.detach().requires_grad_(affine)]
+        y = F.group_norm(lib_in[0], groups, lib_in[1], lib_in[2], 1e-5)
+        y = F.silu(y) if silu else y
+
+    def library():
+        return torch.autograd.grad(y, [t for t in lib_in if t.requires_grad], nchw[1],
+                                   retain_graph=True)
+
+    def kernel():
+        return groupnorm.group_norm_bwd_kernel(x, dy, w, bias, stats, num_groups=groups, silu=silu,
+                                               affine=affine)[0]
+    nx = b * hw * c
+    plan = groupnorm.gn_bwd_plan(b, hw, c, groups, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    return dict(kernel=kernel, plain=lambda: vjp(x, w, bias, dy),
+                ref=lambda: vjp(x.float(), w.float(), bias.float(), dy.float()), library=library,
+                flops=(20 if silu else 10) * nx, bytes=3 * 2 * nx + 4 * c,
+                design_bytes=5 * 2 * nx + 4 * c, rate=F32_FLOPS, group="bwd", host=kernel,
+                note=f"plan=vec{plan.vec} gs{plan.gs} chunk{plan.chunk} chunks={plan.nchunks} "
+                     f"silu={silu} affine={affine}")
+
+
 def check_kernels(shapes, kernels, label: str):
     """Each kernel at each recorded shape: error against plain f32, and the
     kernel, plain, library and bound times.  Totals are per pass: each
@@ -1060,11 +1111,12 @@ def check_kernels(shapes, kernels, label: str):
             for name, ms in also.items():
                 tot_also[name] = tot_also.get(name, 0.0) + n * ms
             if case.get("group"):
-                grp = groups.setdefault(case["group"], dict(shapes=0, calls=0, ms=0.0,
+                grp = groups.setdefault(case["group"], dict(shapes=0, calls=0, ms=0.0, plain_ms=0.0,
                                                             library_ms=0.0, bound_ms=0.0))
                 grp["shapes"] += 1
                 grp["calls"] += n
                 grp["ms"] += n * k_ms
+                grp["plain_ms"] += n * p_ms
                 grp["library_ms"] += n * (lib_ms or 0.0)
                 grp["bound_ms"] += n * b_ms
                 if h_us is not None:
@@ -1098,8 +1150,9 @@ def check_kernels(shapes, kernels, label: str):
         if groups:
             summary[kernel]["groups"] = groups
             say(f"  {label} {kernel} by kind, per pass: " + "; ".join(
-                f"{name} {g['calls']} calls {g['ms']:.3f} ms (library {g['library_ms']:.3f}, "
-                f"bound {g['bound_ms']:.3f})" + (f", host {g['host_us']:.2f} us a call"
+                f"{name} {g['calls']} calls {g['ms']:.3f} ms (plain {g['plain_ms']:.3f}, library "
+                f"{g['library_ms']:.3f}, bound {g['bound_ms']:.3f})"
+                + (f", host {g['host_us']:.2f} us a call"
                                                  if "host_us" in g else "")
                 for name, g in groups.items()))
         if KERNELS[kernel]["library"] and lib_shapes < len(keys):
@@ -1392,6 +1445,19 @@ def phase_w8a8(pipe, counters):
 # ---------------------------------------------------------------------------
 # Phase 7: training
 # ---------------------------------------------------------------------------
+
+
+def training_line(ok: bool, train) -> str:
+    ts, tsum = train["secs"], train["summary"]
+    return (f"phase 7 training: {'ok' if ok else 'FAIL'}, SD1.5 LoRA r128 DreamBooth "
+            f"b{TRAIN_BATCH} 512^2, accumulation 2, EMA: s/step median {statistics.median(ts):.4f} "
+            f"(min {min(ts):.4f}, max {max(ts):.4f}, {len(ts)} steps) "
+            f"peak_mem={train['peak_gib']:.2f} GiB launches={train['launches']} "
+            f"grad rel_l2={train['grad_rel']:.3e}; K5+K6 "
+            f"{tsum['K5']['ms'] + tsum['K6']['ms']:.3f} ms "
+            f"vs plain {tsum['K5']['plain_ms'] + tsum['K6']['plain_ms']:.3f}, SDPA backward "
+            f"{train['pair_library_ms']:.3f}, bound {train['pair_bound_ms']:.3f} "
+            f"(K5's {tsum['K5']['bound_ms']:.3f} + K6's {tsum['K6']['bound_ms']:.3f}) ms per step")
 
 
 def train_setup(unet):
@@ -4324,7 +4390,7 @@ def main() -> int:
     occ = lambda d: "; ".join(  # noqa: E731
         f"{v} {o['registers']} registers, {o['spill_bytes']} spill bytes, {o['smem_bytes']} smem "
         f"bytes, {o['blocks_per_sm']} blocks/SM" for v, o in d.items())
-    say("  K1 statistics kernels (dtype, vec): " + occ(groupnorm.gn_occupancy()))
+    say("  K1 kernels (kind, vec): " + occ(groupnorm.gn_occupancy()))
     for c in (320, 640, 1280):
         say(f"  K4 variants at C={c} (G1 bm / G2 bn): " + occ(ffn.ffn_occupancy(c)))
     say("  K2 variants (bm, bn) at their largest tile: " + "; ".join(
@@ -4380,6 +4446,11 @@ def main() -> int:
         ok11, dc = phase_deepcache(counters, card)
         say(f"phase 11 deepcache: {'ok' if ok11 else 'FAIL'}, " + deepcache_line(dc))
         return 0 if ok11 else 1
+    if "--training" in sys.argv[1:]:
+        ok7, train = phase_training(build_pipeline(torch.bfloat16, "cuda").unet, counters)
+        say(training_line(ok7, train))
+        say(card)
+        return 0 if ok7 else 1
     if "--trainer" in sys.argv[1:]:
         ok12, tr = phase_trainer(counters, card)
         say(f"phase 12 trainer: {'ok' if ok12 else 'FAIL'}, " + trainer_line(tr))
@@ -4468,16 +4539,8 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     ok7, train = phase_training(unet, counters)
-    ts = train["secs"]
     tsum = train["summary"]
-    say(f"phase 7 training: {'ok' if ok7 else 'FAIL'}, SD1.5 LoRA r128 DreamBooth b{TRAIN_BATCH} "
-        f"512^2, accumulation 2, EMA: s/step median {statistics.median(ts):.4f} "
-        f"(min {min(ts):.4f}, max {max(ts):.4f}, {len(ts)} steps) "
-        f"peak_mem={train['peak_gib']:.2f} GiB launches={train['launches']} "
-        f"grad rel_l2={train['grad_rel']:.3e}; K5+K6 {tsum['K5']['ms'] + tsum['K6']['ms']:.3f} ms "
-        f"vs plain {tsum['K5']['plain_ms'] + tsum['K6']['plain_ms']:.3f}, SDPA backward "
-        f"{train['pair_library_ms']:.3f}, bound {train['pair_bound_ms']:.3f} "
-        f"(K5's {tsum['K5']['bound_ms']:.3f} + K6's {tsum['K6']['bound_ms']:.3f}) ms per step")
+    say(training_line(ok7, train))
     if not ok7:
         return 1
 

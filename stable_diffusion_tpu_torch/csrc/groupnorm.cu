@@ -41,12 +41,36 @@
 //   (means far from 0 at 512^2) lose its digits in f32.
 // * The normalize kernel: silu(x * scale + shift) in f32 from the folded
 //   scale/shift, 16-byte loads and stores, a grid-stride loop.
+//   When asked, the statistics kernel also writes each group's (mean,
+//   rstd), which the backward takes: the numbers the forward used.
+//
+// The backward (no TPU kernel: the JAX package differentiates the plain
+// formula, `_gn_bwd` and `_gn_split_bwd`, and XLA fuses it).  With x^ =
+// (x - mean) rstd, z = gamma x^ + beta = x scale + shift and dz = dy
+// silu'(z) (dy without the SiLU), dx = rstd (gamma dz - mean_g(gamma dz) -
+// x^ mean_g(gamma dz x^)), dgamma = sum dz x^ and dbeta = sum dz.  Bound
+// by bytes: x and dy read twice and dx written once (10 bytes an element
+// in bf16) against the ~200 of the eager f32 VJP.  Two launches a call:
+// * The reduction takes the statistics' slabs and splits each (batch,
+//   slab) over `nchunks` blocks of `chunk` rows, so that the blocks make one
+//   wave of two an SM even at a small batch.  A thread streams its rows
+//   (four at a time, 16-byte loads of x and dy) and keeps per-channel sums
+//   of dz and dz x^ in registers; they are summed over the row lanes in
+//   shared memory, weighted by gamma into the group sums, and the chunks
+//   meet through the statistics' workspace and tickets (the last block sums
+//   the partials in chunk order, so the result does not depend on
+//   scheduling).  It writes (B, 4, C) coefficients: dx = scale dz + m x + n.
+// * The apply pass streams x and dy again and writes dx, each thread on
+//   fixed channels (the grid's stride a multiple of the row's vectors) with
+//   its coefficients in registers; its first row of blocks also sums each
+//   image's per-channel dgamma and dbeta over the batch, when asked.
 // Not yet: the normalize fused into the statistics launch (a cooperative
 // grid whose blocks keep their chunk in registers), a cluster merge over
 // distributed shared memory.
 #include <string.h>
 
 #include <algorithm>
+#include <numeric>
 #include <type_traits>
 
 #include "common.cuh"
@@ -102,9 +126,21 @@ struct GnArgs {
   float* ss;         // (B, 2, C): scale, then shift
   float2* part;      // (B, nchunks, G) chunk partials (mean, M2) when nchunks > 1
   int* count;        // (B, slabs) tickets, 0 between launches
+  float2* mr;        // (B, G) each group's (mean, rstd), or null
   int HW, C, G, gs, lanes, tr, r, tiles, chunk, nchunks, mlanes, w_f32;
   float eps;
 };
+
+__device__ __forceinline__ float load_param(const void* p, int c, int f32) {
+  return f32 ? static_cast<const float*>(p)[c] : to_f(static_cast<const bf16*>(p)[c]);
+}
+
+// A channel's folded affine from its group's statistics: y = x scale + shift.
+__device__ __forceinline__ void gn_fold(float w, float b, float mean, float rstd, float& scale,
+                                        float& shift) {
+  scale = w * rstd;
+  shift = b - mean * scale;
+}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(GN_THREADS) gn_stats_kernel(GnArgs a) {
@@ -238,14 +274,16 @@ __global__ void __launch_bounds__(GN_THREADS) gn_stats_kernel(GnArgs a) {
   for (int c = tid; c < sc; c += GN_THREADS) {
     const int g = c / cpg;
     const float rstd = 1.f / sqrtf(gacc[2][g] / total + a.eps);
-    const float w = a.w_f32 ? static_cast<const float*>(a.w)[c0 + c]
-                            : to_f(static_cast<const bf16*>(a.w)[c0 + c]);
-    const float bb = a.w_f32 ? static_cast<const float*>(a.bias)[c0 + c]
-                             : to_f(static_cast<const bf16*>(a.bias)[c0 + c]);
-    const float scale = w * rstd;
+    float scale, shift;
+    gn_fold(load_param(a.w, c0 + c, a.w_f32), load_param(a.bias, c0 + c, a.w_f32), gacc[1][g],
+            rstd, scale, shift);
     ssb[c] = scale;
-    ssb[a.C + c] = bb - gacc[1][g] * scale;
+    ssb[a.C + c] = shift;
   }
+  if (a.mr != nullptr)
+    for (int g = tid; g < a.gs; g += GN_THREADS)
+      a.mr[b * a.G + slab * a.gs + g] =
+          make_float2(gacc[1][g], 1.f / sqrtf(gacc[2][g] / total + a.eps));
 }
 
 // y = x * scale + shift (+ SiLU) in f32, cast back; VEC channels a load.
@@ -286,6 +324,254 @@ __global__ void __launch_bounds__(256) gn_apply_kernel(const T* x, const float* 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+
+constexpr int GN_BWD_ROWS = 4;  // rows a thread loads at once in the reduction
+constexpr int GN_BWD_PER = 4;   // vectors a thread of the apply pass
+
+struct GnBwdArgs {
+  const void* x;      // (B, HW, C) bf16 or f32
+  const void* dy;     // (B, HW, C), x's type: the gradient of GroupNorm(+SiLU)'s output
+  const void* w;      // (C) gamma, bf16 or f32 (w_f32)
+  const void* bias;   // (C) beta, gamma's type
+  const float2* mr;   // (B, G) the forward's (mean, rstd)
+  float2* part;       // (B, nchunks, G) chunk partials (sum gamma dz, sum gamma dz x^), nchunks > 1
+  float2* cpart;      // (B, nchunks, C) chunk partials (sum dz, sum dz x^), affine and nchunks > 1
+  int* count;         // (B, slabs) tickets, 0 between launches
+  float* coef;        // (B, 4, C): scale, shift, m, n (dx = scale dz + m x + n)
+  float* dwb;         // (B, 2, C): each image's dgamma, dbeta (affine)
+  int HW, C, G, gs, lanes, tr, chunk, nchunks, mlanes, w_f32, silu, affine;
+};
+
+// dz = dy silu'(z), z = x scale + shift (the forward's pre-activation); dy
+// where the SiLU is off.
+__device__ __forceinline__ float gn_dz(float x, float dy, float scale, float shift, int silu_on) {
+  if (!silu_on) return dy;
+  const float z = fmaf(x, scale, shift);
+  const float s = 1.f / (1.f + __expf(-z));
+  return dy * s * fmaf(z, 1.f - s, 1.f);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(GN_THREADS, 2) gn_bwd_reduce_kernel(GnBwdArgs a) {
+  __shared__ float red[2][GN_THREADS * VEC];  // per thread per channel, then per slab channel
+  __shared__ float gsum[2][GN_MAX_GROUPS];    // the slab's group sums of gamma dz, gamma dz x^
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int lv = tid % a.lanes, rl = tid / a.lanes;  // vector lane in the row, row lane
+  const int chunk = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
+  const int cpg = a.C / a.G, sc = a.gs * cpg, c0 = slab * sc, slabs = a.G / a.gs;
+  float scale[VEC], shift[VEC], mu[VEC], rs[VEC], s1[VEC], s2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int c = c0 + lv * VEC + i;
+    const float2 m = a.mr[b * a.G + c / cpg];
+    mu[i] = m.x, rs[i] = m.y;
+    gn_fold(load_param(a.w, c, a.w_f32), load_param(a.bias, c, a.w_f32), m.x, m.y, scale[i],
+            shift[i]);
+    s1[i] = s2[i] = 0.f;
+  }
+  auto take = [&](const Vec<T, VEC>& xv, const Vec<T, VEC>& dv) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float xf = to_float(xv.v[i]);
+      const float dz = gn_dz(xf, to_float(dv.v[i]), scale[i], shift[i], a.silu);
+      s1[i] += dz;
+      s2[i] += dz * ((xf - mu[i]) * rs[i]);
+    }
+  };
+  if (rl < a.tr) {
+    const long base = (long)b * a.HW * a.C + c0 + lv * VEC;
+    const T* xb = static_cast<const T*>(a.x) + base;
+    const T* dyb = static_cast<const T*>(a.dy) + base;
+    const int r1 = min((chunk + 1) * a.chunk, a.HW);
+    int row = chunk * a.chunk + rl;
+    for (; row + (GN_BWD_ROWS - 1) * a.tr < r1; row += GN_BWD_ROWS * a.tr) {
+      Vec<T, VEC> xv[GN_BWD_ROWS], dv[GN_BWD_ROWS];
+#pragma unroll
+      for (int k = 0; k < GN_BWD_ROWS; ++k) {
+        load_vec(xv[k], xb + (long)(row + k * a.tr) * a.C);
+        load_vec(dv[k], dyb + (long)(row + k * a.tr) * a.C);
+      }
+#pragma unroll
+      for (int k = 0; k < GN_BWD_ROWS; ++k) take(xv[k], dv[k]);
+    }
+    for (; row < r1; row += a.tr) {
+      Vec<T, VEC> xv, dv;
+      load_vec(xv, xb + (long)row * a.C);
+      load_vec(dv, dyb + (long)row * a.C);
+      take(xv, dv);
+    }
+  }
+  // Per channel over the row lanes (thread t's channels at red[.][t * VEC
+  // ..] = red[.][rl * sc + lv * VEC ..]), in a fixed order.
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) red[0][tid * VEC + i] = s1[i], red[1][tid * VEC + i] = s2[i];
+  __syncthreads();
+  // Each channel's sums go to the chunk's partials (affine; with one chunk
+  // straight to the image's dgamma, dbeta) and, gamma-weighted, to red.
+  float* dwb = a.affine ? a.dwb + (long)b * 2 * a.C + c0 : nullptr;
+  for (int c = tid; c < sc; c += GN_THREADS) {
+    float p = 0.f, q = 0.f;
+    for (int i = 0; i < a.tr; ++i) p += red[0][i * sc + c], q += red[1][i * sc + c];
+    if (a.affine && a.nchunks > 1)
+      a.cpart[((long)b * a.nchunks + chunk) * a.C + c0 + c] = make_float2(p, q);
+    else if (a.affine)
+      dwb[c] = q, dwb[a.C + c] = p;
+    const float w = load_param(a.w, c0 + c, a.w_f32);
+    red[0][c] = w * p, red[1][c] = w * q;
+  }
+  __syncthreads();
+  for (int g = tid; g < a.gs; g += GN_THREADS) {
+    float p = 0.f, q = 0.f;
+    for (int j = 0; j < cpg; ++j) p += red[0][g * cpg + j], q += red[1][g * cpg + j];
+    gsum[0][g] = p, gsum[1][g] = q;
+  }
+  __syncthreads();
+
+  if (a.nchunks > 1) {
+    for (int g = tid; g < a.gs; g += GN_THREADS)
+      a.part[((long)b * a.nchunks + chunk) * a.G + slab * a.gs + g] =
+          make_float2(gsum[0][g], gsum[1][g]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(a.count + b * slabs + slab, 1) == a.nchunks - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // The last block: the group sums as the statistics' merge (mlanes
+    // lanes a group, each a contiguous run of chunks, then a fixed shuffle
+    // tree), then each channel's (affine) over the chunks in order.
+    const int warp = tid >> 5, lane = tid & 31, L = a.mlanes;
+    const int gpw = 32 / L, sub = lane & (L - 1);
+    const int per = (a.nchunks + L - 1) / L;
+    for (int base = warp * gpw; base < a.gs; base += (GN_THREADS / 32) * gpw) {
+      const int g = base + lane / L;
+      float p = 0.f, q = 0.f;
+      if (g < a.gs) {
+        const float2* pp = a.part + (long)b * a.nchunks * a.G + slab * a.gs + g;
+        const int i1 = min((sub + 1) * per, a.nchunks);
+#pragma unroll 4
+        for (int i = sub * per; i < i1; ++i) {
+          const float2 v = __ldcg(pp + (long)i * a.G);
+          p += v.x, q += v.y;
+        }
+      }
+      for (int off = 1; off < L; off <<= 1) {
+        const float p2 = __shfl_down_sync(0xffffffffu, p, off);
+        const float q2 = __shfl_down_sync(0xffffffffu, q, off);
+        if ((sub & (2 * off - 1)) == 0) p += p2, q += q2;
+      }
+      if (sub == 0 && g < a.gs) gsum[0][g] = p, gsum[1][g] = q;
+    }
+    if (a.affine)
+      for (int c = tid; c < sc; c += GN_THREADS) {
+        const float2* pp = a.cpart + (long)b * a.nchunks * a.C + c0 + c;
+        float p = 0.f, q = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < a.nchunks; ++i) {
+          const float2 v = __ldcg(pp + (long)i * a.C);
+          p += v.x, q += v.y;
+        }
+        dwb[c] = q, dwb[a.C + c] = p;
+      }
+    __syncthreads();
+    if (tid == 0) a.count[b * slabs + slab] = 0;
+  }
+  // The apply pass's coefficients: dx = rstd (gamma dz - S1 / N - x^ S2 /
+  // N) = scale dz + m x + n, m = -rstd^2 S2 / N, n = rstd (mean rstd S2 -
+  // S1) / N.
+  const float inv_n = 1.f / ((float)a.HW * cpg);
+  float* cb = a.coef + (long)b * 4 * a.C + c0;
+  for (int c = tid; c < sc; c += GN_THREADS) {
+    const int g = c / cpg;
+    const float2 m = a.mr[b * a.G + slab * a.gs + g];
+    float scale, shift;
+    gn_fold(load_param(a.w, c0 + c, a.w_f32), load_param(a.bias, c0 + c, a.w_f32), m.x, m.y,
+            scale, shift);
+    const float t1 = gsum[0][g] * inv_n, t2 = gsum[1][g] * inv_n;
+    cb[c] = scale;
+    cb[a.C + c] = shift;
+    cb[2 * a.C + c] = -m.y * m.y * t2;
+    cb[3 * a.C + c] = m.y * (m.x * m.y * t2 - t1);
+  }
+}
+
+// dx = scale dz + m x + n, VEC channels a load; a thread's channels are
+// fixed (gridDim.x * blockDim.x is a multiple of C / VEC), so it loads its
+// coefficients once.  With dwb, the blocks of image 0 also write dgamma and
+// dbeta (gamma's type): each image's sums added in image order.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256) gn_bwd_apply_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ coef,
+    T* __restrict__ dx, int HW, int C, int silu_on, const float* __restrict__ dwb, void* dw,
+    void* db, int w_f32, int B) {
+  const int b = blockIdx.y, cv = C / VEC;
+  const long nvec = (long)HW * cv;
+  const long start = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long stride = (long)gridDim.x * blockDim.x;
+  const int c = (int)(start % cv) * VEC;
+  float k[4][VEC];  // scale, shift, m, n
+  const float* cb = coef + (long)b * 4 * C + c;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(cb + j * C + i);
+        k[j][i] = v.x, k[j][i + 1] = v.y, k[j][i + 2] = v.z, k[j][i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) k[j][i] = cb[j * C + i];
+    }
+  }
+  const T* xb = x + (long)b * HW * C;
+  const T* dyb = dy + (long)b * HW * C;
+  T* ob = dx + (long)b * HW * C;
+  auto out = [&](const Vec<T, VEC>& xv, const Vec<T, VEC>& dv, long i) {
+    Vec<T, VEC> o;
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      const float xf = to_float(xv.v[q]);
+      const float dz = gn_dz(xf, to_float(dv.v[q]), k[0][q], k[1][q], silu_on);
+      o.v[q] = from_float<T>(fmaf(k[0][q], dz, fmaf(k[2][q], xf, k[3][q])));
+    }
+    *reinterpret_cast<decltype(o.u)*>(ob + i * VEC) = o.u;
+  };
+  long i = start;
+  for (; i + stride < nvec; i += 2 * stride) {
+    Vec<T, VEC> x0, d0, x1, d1;
+    load_vec(x0, xb + i * VEC);
+    load_vec(d0, dyb + i * VEC);
+    load_vec(x1, xb + (i + stride) * VEC);
+    load_vec(d1, dyb + (i + stride) * VEC);
+    out(x0, d0, i);
+    out(x1, d1, i + stride);
+  }
+  if (i < nvec) {
+    Vec<T, VEC> x0, d0;
+    load_vec(x0, xb + i * VEC);
+    load_vec(d0, dyb + i * VEC);
+    out(x0, d0, i);
+  }
+  if (dwb != nullptr && b == 0)
+    for (long ch = start; ch < C; ch += stride) {
+      float p = 0.f, q = 0.f;
+      for (int bb = 0; bb < B; ++bb)
+        p += dwb[(long)bb * 2 * C + ch], q += dwb[(long)bb * 2 * C + C + ch];
+      if (w_f32) {
+        static_cast<float*>(dw)[ch] = p;
+        static_cast<float*>(db)[ch] = q;
+      } else {
+        static_cast<bf16*>(dw)[ch] = to_bf(p);
+        static_cast<bf16*>(db)[ch] = to_bf(q);
+      }
+    }
+}
+
 // The plan's derived sizes; false when (vec, gs, r, tiles) is not a plan.
 struct GnShape {
   int cpg, lanes, tr, chunk, nchunks, slabs, mlanes;
@@ -312,9 +598,15 @@ __host__ inline bool gn_slab_ok(int G, int cpg, int vec, int d) {
   return G % d == 0 && d <= GN_MAX_GROUPS && (d * cpg) % vec == 0 && d * cpg / vec <= GN_THREADS;
 }
 
-template <typename T, int VEC>
-int gn_attrs(int* out) {
-  auto fn = gn_stats_kernel<T, VEC>;
+__host__ inline bool gn_bwd_shape(int HW, int C, int G, int vec, int gs, int chunk, GnShape& s) {
+  if (chunk < 1 || !gn_shape(HW, C, G, vec, gs, 1, 1, s)) return false;
+  s.chunk = chunk;
+  s.nchunks = (HW + chunk - 1) / chunk;
+  return true;
+}
+
+template <typename Fn>
+int kernel_attrs(Fn fn, int* out) {
   cudaFuncAttributes fa;
   int blocks = 0;
   cudaError_t err = cudaFuncGetAttributes(&fa, fn);
@@ -376,7 +668,8 @@ extern "C" int sdtk_gn_plan(int B, int HW, int C, int G, int elem_bytes, int sms
 
 // Statistics, one launch, the arguments packed as int64 (a[i]): x, w, bias,
 // ss, part, count (pointers), x_f32, w_f32, B, HW, C, G, vec, gs, r, tiles,
-// eps (its f32 bits), stream.  ss (B, 2, C) f32 from x (B, HW, C) (f32
+// eps (its f32 bits), stream, mr (a pointer, may be null: else each group's
+// (mean, rstd), (B, G) float2).  ss (B, 2, C) f32 from x (B, HW, C) (f32
 // when x_f32, else bf16) and the GroupNorm affine (f32 when w_f32, else
 // bf16), with the plan (vec, gs, r, tiles) from sdtk_gn_plan.  part holds
 // B * nchunks * G float2 (may be null with one chunk); count B * G / gs
@@ -392,12 +685,13 @@ extern "C" int sdtk_gn_stats(const long long* a) {
   float eps;
   memcpy(&eps, &eps_bits, sizeof eps);
   cudaStream_t st = (cudaStream_t)a[17];
+  float2* mr = (float2*)a[18];
   GnShape s;
   if (!gn_shape(HW, C, G, vec, gs, r, tiles, s) ||
       (s.nchunks > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   GnArgs ga{x, w, bias, static_cast<float*>(ss), static_cast<float2*>(part), static_cast<int*>(count),
-            HW, C, G, gs, s.lanes, s.tr, r, tiles, s.chunk, s.nchunks, s.mlanes, w_f32, eps};
+            mr, HW, C, G, gs, s.lanes, s.tr, r, tiles, s.chunk, s.nchunks, s.mlanes, w_f32, eps};
   const dim3 grid((unsigned)s.nchunks, (unsigned)s.slabs, (unsigned)B);
   if (x_f32 && vec == 4)
     gn_stats_kernel<float, 4><<<grid, GN_THREADS, 0, st>>>(ga);
@@ -448,9 +742,93 @@ extern "C" int sdtk_gn_apply(const long long* a) {
 // resident blocks an SM at 256 threads}.
 extern "C" int sdtk_gn_attrs(int x_f32, int vec, int* out) {
   using namespace sdtk;
-  if (x_f32 && vec == 4) return gn_attrs<float, 4>(out);
-  if (x_f32 && vec == 1) return gn_attrs<float, 1>(out);
-  if (!x_f32 && vec == 8) return gn_attrs<bf16, 8>(out);
-  if (!x_f32 && vec == 1) return gn_attrs<bf16, 1>(out);
+  if (x_f32 && vec == 4) return kernel_attrs(gn_stats_kernel<float, 4>, out);
+  if (x_f32 && vec == 1) return kernel_attrs(gn_stats_kernel<float, 1>, out);
+  if (!x_f32 && vec == 8) return kernel_attrs(gn_stats_kernel<bf16, 8>, out);
+  if (!x_f32 && vec == 1) return kernel_attrs(gn_stats_kernel<bf16, 1>, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward, two launches, the arguments packed as int64 (a[i]): x, dy,
+// w, bias, mr, dx, part, cpart, count, coef, dwb, dw, db (pointers), x_f32,
+// w_f32, B, HW, C, G, vec, gs, chunk, silu, affine, stream.  x, dy and dx
+// (B, HW, C) of x's type (f32 when x_f32, else bf16), w and bias (C) (f32
+// when w_f32, else bf16), mr (B, G) float2 the forward's (mean, rstd); the
+// plan (vec, gs, chunk) from ops/groupnorm.gn_bwd_plan.  part holds B *
+// nchunks * G float2 and, when affine, cpart B * nchunks * C (both may be
+// null with one chunk); count B * G / gs ints, all 0, left 0; coef B * 4 *
+// C floats and, when affine, dwb B * 2 * C; dw and db (C) of w's type are
+// written when affine (else may be null).  Shape rules (checked by the
+// Python wrapper): contiguous tensors, x, dy and dx 16-byte aligned.
+extern "C" int sdtk_gn_bwd(const long long* a) {
+  using namespace sdtk;
+  const void *x = (const void*)a[0], *dy = (const void*)a[1], *w = (const void*)a[2],
+             *bias = (const void*)a[3];
+  const float2* mr = (const float2*)a[4];
+  void* dx = (void*)a[5];
+  float2 *part = (float2*)a[6], *cpart = (float2*)a[7];
+  int* count = (int*)a[8];
+  float *coef = (float*)a[9], *dwb = (float*)a[10];
+  void *dw = (void*)a[11], *db = (void*)a[12];
+  const int x_f32 = (int)a[13], w_f32 = (int)a[14], B = (int)a[15], HW = (int)a[16],
+            C = (int)a[17], G = (int)a[18], vec = (int)a[19], gs = (int)a[20], chunk = (int)a[21],
+            silu = (int)a[22], affine = (int)a[23];
+  cudaStream_t st = (cudaStream_t)a[24];
+  GnShape s;
+  if (B < 1 || !gn_bwd_shape(HW, C, G, vec, gs, chunk, s) || mr == nullptr || coef == nullptr ||
+      (s.nchunks > 1 && (part == nullptr || count == nullptr || (affine && cpart == nullptr))) ||
+      (affine && (dwb == nullptr || dw == nullptr || db == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  GnBwdArgs ga{x, dy, w, bias, mr, part, cpart, count, coef, dwb, HW, C, G, gs, s.lanes, s.tr,
+               chunk, s.nchunks, s.mlanes, w_f32, silu, affine};
+  const dim3 grid1((unsigned)s.nchunks, (unsigned)s.slabs, (unsigned)B);
+  // The apply pass: enough blocks for GN_BWD_PER vectors a thread, their
+  // count a multiple of cv / gcd(cv, 256) so that the stride is a multiple of cv.
+  const int cv = C / vec;
+  const long nvec = (long)HW * cv, unit = cv / std::gcd(cv, 256);
+  long gx = (nvec + 256L * GN_BWD_PER - 1) / (256L * GN_BWD_PER);
+  gx = (gx + unit - 1) / unit * unit;
+  const dim3 grid2((unsigned)gx, (unsigned)B);
+  const float* fdwb = affine ? dwb : nullptr;
+#define SDTK_GN_BWD(T, V)                                                                        \
+  do {                                                                                           \
+    gn_bwd_reduce_kernel<T, V><<<grid1, GN_THREADS, 0, st>>>(ga);                                \
+    const cudaError_t e = cudaGetLastError();                                                    \
+    if (e != cudaSuccess) return (int)e;                                                         \
+    gn_bwd_apply_kernel<T, V><<<grid2, 256, 0, st>>>(static_cast<const T*>(x),                   \
+                                                     static_cast<const T*>(dy), coef,            \
+                                                     static_cast<T*>(dx), HW, C, silu, fdwb, dw, \
+                                                     db, w_f32, B);                              \
+  } while (0)
+  if (x_f32 && vec == 4)
+    SDTK_GN_BWD(float, 4);
+  else if (x_f32 && vec == 1)
+    SDTK_GN_BWD(float, 1);
+  else if (!x_f32 && vec == 8)
+    SDTK_GN_BWD(bf16, 8);
+  else if (!x_f32 && vec == 1)
+    SDTK_GN_BWD(bf16, 1);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef SDTK_GN_BWD
+  return (int)cudaGetLastError();
+}
+
+// The compiled backward kernels for (x_f32, vec), as sdtk_gn_attrs: the
+// reduction (apply 0) or the apply pass (apply 1).
+extern "C" int sdtk_gn_bwd_attrs(int x_f32, int vec, int apply, int* out) {
+  using namespace sdtk;
+  if (x_f32 && vec == 4)
+    return apply ? kernel_attrs(gn_bwd_apply_kernel<float, 4>, out)
+                 : kernel_attrs(gn_bwd_reduce_kernel<float, 4>, out);
+  if (x_f32 && vec == 1)
+    return apply ? kernel_attrs(gn_bwd_apply_kernel<float, 1>, out)
+                 : kernel_attrs(gn_bwd_reduce_kernel<float, 1>, out);
+  if (!x_f32 && vec == 8)
+    return apply ? kernel_attrs(gn_bwd_apply_kernel<bf16, 8>, out)
+                 : kernel_attrs(gn_bwd_reduce_kernel<bf16, 8>, out);
+  if (!x_f32 && vec == 1)
+    return apply ? kernel_attrs(gn_bwd_apply_kernel<bf16, 1>, out)
+                 : kernel_attrs(gn_bwd_reduce_kernel<bf16, 1>, out);
   return (int)cudaErrorInvalidValue;
 }

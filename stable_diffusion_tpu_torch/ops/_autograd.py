@@ -6,7 +6,7 @@ A kernel's output carries no graph, so its entry point runs the kernel in
 plain PyTorch version on the saved inputs (``jax.vjp`` of the ``_xla_*``
 reference in the JAX package).  ``fwd`` and ``plain`` are arguments, so the
 CPU tests run the same Function with the plain version in both places.
-Its users: K1 (``gn_scale_shift``, ``group_norm_silu``), K3 (cross
+Its users: K1 (``gn_scale_shift``), K3 (cross
 attention), K4 (``geglu_ffn``), K10 (``ln_matmul``, ``matmul_residual``:
 JAX ``_ln_mm_bwd``, ``_mm_res_bwd``), K11 (``gn_matmul``: ``_gn_mm_bwd``)
 and K12 (the routed ``conv3x3`` / ``gn_silu_conv3x3``: ``_conv_bwd``,

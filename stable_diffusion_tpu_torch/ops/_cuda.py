@@ -99,6 +99,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_gn_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_gn_apply.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_gn_attrs.argtypes = [I, I, IP]
+    lib.sdtk_gn_bwd.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtk_gn_bwd_attrs.argtypes = [I, I, I, IP]
     lib.sdtk_conv3x3_attrs.argtypes = [I, I, I, I, IP]
     lib.sdtk_attention_bwd_attrs.argtypes = [I] * 5 + [IP]
     lib.sdtk_attention_attrs.argtypes = [I] * 5 + [IP]
@@ -116,6 +118,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdtk_winograd.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     lib.sdtk_winograd_attrs.argtypes = [IP]
     for fn in (lib.sdtk_gn_plan, lib.sdtk_gn_stats, lib.sdtk_gn_apply, lib.sdtk_gn_attrs,
+               lib.sdtk_gn_bwd, lib.sdtk_gn_bwd_attrs,
                lib.sdtk_conv3x3, lib.sdtk_conv3x3_attrs, lib.sdtk_attention,
                lib.sdtk_attention_bwd_dq, lib.sdtk_attention_bwd_dkv,
                lib.sdtk_attention_bwd_attrs, lib.sdtk_attention_attrs, lib.sdtk_ffn,

@@ -46,10 +46,11 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from stable_diffusion_tpu_torch.ops import _cuda, winograd
+from stable_diffusion_tpu_torch.ops import _cuda, groupnorm, winograd
 from stable_diffusion_tpu_torch.ops._autograd import Recompute
-from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, gn_scale_shift_plain,
-                                                      gn_silu_prologue, group_norm_plain)
+from stable_diffusion_tpu_torch.ops.groupnorm import (GnOps, gn_scale_shift_kernel,
+                                                      gn_scale_shift_plain, gn_silu_prologue,
+                                                      group_norm_plain)
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, quantize_act
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, cached, require,
                                                      require_inference, require_no_grad, use_kernel,
@@ -461,19 +462,19 @@ def conv3x3_q_occupancy() -> dict:
 
 
 class ConvOps(NamedTuple):
-    conv: Callable         # (x, weight, bias, scale_shift) -> y
-    conv_dx: Callable      # (g, weight) -> the conv of g with flip_io(weight)
-    scale_shift: Callable  # (x, gn_weight, gn_bias, num_groups, eps) -> (B, 2, C) f32
+    conv: Callable     # (x, weight, bias, scale_shift) -> y
+    conv_dx: Callable  # (g, weight) -> the conv of g with flip_io(weight)
+    gn: GnOps          # the GroupNorm's statistics, normalize and backward
 
 
 KERNEL_OPS = ConvOps(
     conv3x3_kernel,
     lambda g, weight: conv3x3_kernel(g, weight, transposed=True),
-    lambda x, gw, gb, groups, eps: gn_scale_shift_kernel(x, gw, gb, num_groups=groups, eps=eps))
+    groupnorm.KERNEL_OPS)
 PLAIN_OPS = ConvOps(
     conv3x3_scale_shift_plain,
     lambda g, weight: conv3x3_plain(g, flip_io(weight)),
-    lambda x, gw, gb, groups, eps: gn_scale_shift_plain(x, gw, gb, groups, eps))
+    groupnorm.PLAIN_OPS)
 
 
 def _weight_grads(x, weight, bias, g, need_w: bool, need_b: bool):
@@ -507,32 +508,33 @@ class Conv3x3Fn(torch.autograd.Function):
 class GnSiluConv3x3Fn(torch.autograd.Function):
     """GroupNorm -> SiLU -> 3x3 conv with the split backward of JAX
     ``_gn_split_bwd``: the conv's input gradient by the flipped-weight conv
-    (no prologue), then the VJP of the plain GroupNorm+SiLU, recomputed; dW
-    and db from the plain conv VJP on the recomputed activation."""
+    (no prologue), then the GroupNorm+SiLU's backward (K1's on the card) on
+    the forward's statistics; dW and db from the plain conv VJP on the
+    activation, normalized again (K1's forward on the card)."""
 
     @staticmethod
     def forward(ctx, ops: ConvOps, x, gn_weight, gn_bias, weight, bias, num_groups, eps):
         ctx.ops, ctx.num_groups, ctx.eps = ops, num_groups, eps
-        ctx.save_for_backward(x, gn_weight, gn_bias, weight, bias)
-        ss = ops.scale_shift(x, gn_weight, gn_bias, num_groups, eps)
+        ss, stats = ops.gn.scale_shift(x, gn_weight, gn_bias, num_groups, eps)
+        ctx.save_for_backward(x, gn_weight, gn_bias, weight, bias, stats)
         return ops.conv(x, weight, bias, ss)
 
     @staticmethod
     def backward(ctx, g):
-        x, gw, gb, weight, bias = ctx.saved_tensors
+        x, gw, gb, weight, bias, stats = ctx.saved_tensors
         _, nx, ngw, ngb, nw, nb, _, _ = ctx.needs_input_grad
+        nb = nb and bias is not None
         g = g.contiguous()
-        need = (nx, ngw, ngb)
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip((x, gw, gb), need)]
-            xn = group_norm_plain(*ins, ctx.num_groups, ctx.eps, silu=True)
-        dw, db = _weight_grads(xn.detach(), weight, bias, g, nw, nb and bias is not None)
-        dx = dgw = dgb = None
-        if any(need):
-            dxn = ctx.ops.conv_dx(g, weight).to(xn.dtype)
-            got = iter(torch.autograd.grad(xn, [t for t, n in zip(ins, need) if n], dxn))
-            dx, dgw, dgb = (next(got) if n else None for n in need)
-        return None, dx, dgw, dgb, dw, db, None, None
+        dx = dgw = dgb = dw = db = None
+        if nw or nb:
+            xn, _ = ctx.ops.gn.norm(x, gw, gb, ctx.num_groups, ctx.eps, True)
+            dw, db = _weight_grads(xn, weight, bias, g, nw, nb)
+        if nx or ngw or ngb:
+            dxn = ctx.ops.conv_dx(g, weight).to(x.dtype)
+            dx, dgw, dgb = ctx.ops.gn.backward(x, dxn, gw, gb, stats, ctx.num_groups, True,
+                                               ngw or ngb)
+        return (None, dx if nx else None, dgw if ngw else None, dgb if ngb else None, dw, db,
+                None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -12,17 +12,23 @@ the CPU tests hold the plan and an emulation of its schedule.
 
 The scale/shift is also exposed on its own (:func:`gn_scale_shift`), since
 K2, K7, K11 and K12 apply it in their prologues.  Each wrapper allocates
-only its output: the statistics kernel's partials and tickets, and the
+only its outputs: the statistics kernel's partials and tickets, and the
 normalize path's scale/shift, live in one workspace per device, made on
 first use and reused (each launch leaves the tickets at 0).  Calls on one
 stream are ordered, so two streams must not run K1 on one device at once.
+
+K1's backward (``sdtk_gn_bwd``, two launches: a reduction planned by
+:func:`gn_bwd_plan`, then the dx pass) is the closed-form VJP of
+GroupNorm(+SiLU) on the statistics the forward kept (:class:`GroupNormFn`,
+and ``ops/conv.GnSiluConv3x3Fn``); :func:`group_norm_bwd_plain` follows its
+arithmetic on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -43,20 +49,30 @@ GN_MAX_GROUPS = 128  # most groups of a block's channel slab
 # ---------------------------------------------------------------------------
 
 
+def gn_stats_plain(x, num_groups: int = 32, eps: float = 1e-5):
+    """(B, G, 2) each group's (mean, 1 / sigma) in f32 (or wider): two-pass
+    statistics as models/layers.group_norm; what K1's forward keeps for its
+    backward."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = at_least_f32(x).reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3))
+    var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=-1)
+
+
+def _per_channel(stats, c: int):
+    """(B, 1, C) mean and rstd of each channel's group, from (B, G, 2) statistics."""
+    mean, rstd = stats.repeat_interleave(c // stats.shape[1], dim=1)[:, None].unbind(-1)
+    return mean, rstd
+
+
 def gn_scale_shift_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5):
     """(B, 2, C) f32 folded affine with ``y = x * out[:, 0] + out[:, 1]``;
     two-pass f32 statistics as models/layers.group_norm."""
-    b, c = x.shape[0], x.shape[-1]
-    g = num_groups
-    xf = at_least_f32(x).reshape(b, -1, g, c // g)
-    mean = xf.mean(dim=(1, 3))
-    var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
-    inv = torch.rsqrt(var + eps)
-    mean_c = mean.repeat_interleave(c // g, dim=-1)
-    inv_c = inv.repeat_interleave(c // g, dim=-1)
-    scale = at_least_f32(weight)[None, :] * inv_c
-    shift = at_least_f32(bias)[None, :] - mean_c * scale
-    return torch.stack([scale, shift], dim=1)
+    mean, rstd = _per_channel(gn_stats_plain(x, num_groups, eps), x.shape[-1])
+    scale = at_least_f32(weight) * rstd
+    shift = at_least_f32(bias) - mean * scale
+    return torch.cat([scale, shift], dim=1)
 
 
 def group_norm_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
@@ -69,6 +85,44 @@ def group_norm_plain(x, weight, bias, num_groups: int = 32, eps: float = 1e-5, s
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     y = (y * at_least_f32(weight) + at_least_f32(bias)).to(x.dtype)
     return torch.nn.functional.silu(y) if silu else y
+
+
+def group_norm_bwd_plain(x, dy, weight, bias, stats, num_groups: int = 32, silu: bool = False,
+                         affine: bool = True):
+    """The VJP of :func:`group_norm_plain` against ``dy`` in closed form, on
+    the forward's (B, G, 2) statistics: ``(dx, dweight, dbias)``, the last
+    two None unless ``affine``.  K1's backward in f32 (or wider): per
+    channel ``scale = gamma rstd``, ``shift = beta - mean scale``; ``dz = dy
+    silu'(x scale + shift)`` (``dy`` without the SiLU); per image and channel
+    the sums ``P1 = sum dz`` and ``P2 = sum dz x^`` over the rows, ``x^ = (x
+    - mean) rstd``; per group ``S1, S2`` = the gamma-weighted sums of
+    ``P1, P2`` over its channels, over N = HW C / G; then ``dx = scale dz +
+    m x + n`` with ``m = -rstd^2 S2 / N`` and ``n = rstd (mean rstd S2 - S1)
+    / N``; ``dgamma = sum_b P2``, ``dbeta = sum_b P1``."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = at_least_f32(x).reshape(b, -1, c)
+    w, bb = at_least_f32(weight), at_least_f32(bias)
+    mean, rstd = _per_channel(stats, c)
+    scale = w * rstd
+    shift = bb - mean * scale
+    dz = at_least_f32(dy).reshape(b, -1, c)
+    if silu:
+        z = xf * scale + shift
+        s = torch.sigmoid(z)
+        dz = dz * s * (z * (1 - s) + 1)
+    p1 = dz.sum(dim=1)
+    p2 = (dz * ((xf - mean) * rstd)).sum(dim=1)
+    n = xf.shape[1] * (c // num_groups)
+
+    def group_sum(p):
+        sums = (w * p).reshape(b, num_groups, -1).sum(-1)
+        return sums.repeat_interleave(c // num_groups, -1)[:, None] / n
+
+    t1, t2 = group_sum(p1), group_sum(p2)
+    dx = (scale * dz + (-rstd * rstd * t2 * xf + rstd * (mean * rstd * t2 - t1))).to(x.dtype)
+    if not affine:
+        return dx.reshape(x.shape), None, None
+    return dx.reshape(x.shape), p2.sum(0).to(weight.dtype), p1.sum(0).to(bias.dtype)
 
 
 def gn_silu_prologue(x, scale_shift):
@@ -125,6 +179,23 @@ def _plan(vec, gs, r, tiles, hw, c, g) -> GnPlan:
     return GnPlan(vec, gs, r, tiles, lanes, tr, chunk, -(-hw // chunk), g // gs, mlanes)
 
 
+def _slabs(c: int, g: int, elem_bytes: int):
+    """``(vec, gs)`` candidates of a statistics or backward launch: ``vec``
+    channels a load (16 bytes where C allows, else 1) and the slab widths
+    ``gs`` (groups) it takes, largest first."""
+    require(g >= 1 and c % g == 0, f"K1: C={c} not divisible by {g} groups")
+    cpg = c // g
+    vec = 16 // elem_bytes
+    if c % vec:
+        vec = 1
+    ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
+    if not ok:
+        vec = 1
+        ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
+    require(bool(ok), f"K1: a group of {cpg} channels is wider than a block")
+    return vec, ok
+
+
 @functools.lru_cache(maxsize=None)
 def gn_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
             elem_bytes: int = 2) -> GnPlan:
@@ -141,16 +212,9 @@ def gn_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
     SM (the kernel's occupancy), at least enough for at most 512 chunks a
     (batch, slab) (the last block merges them)."""
     g = num_groups
-    require(g >= 1 and c % g == 0 and hw >= 1, f"K1: C={c} not divisible by {g} groups")
+    require(hw >= 1, f"K1: {hw} rows")
+    vec, ok = _slabs(c, g, elem_bytes)
     cpg = c // g
-    vec = 16 // elem_bytes
-    if c % vec:
-        vec = 1
-    ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
-    if not ok:
-        vec = 1
-        ok = [d for d in range(g, 0, -1) if _slab_ok(g, cpg, vec, d)]
-    require(bool(ok), f"K1: a group of {cpg} channels is wider than a block")
     for d in ok:
         tr = GN_THREADS // (d * cpg // vec)
         if hw <= GN_RMAX * tr:
@@ -165,13 +229,55 @@ def gn_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
     return _plan(vec, gs, r, tiles, hw, c, g)
 
 
-_WORKSPACE = {}  # device index -> [partials f32, tickets int32 (all 0), scale/shift f32]
+GN_BWD_BLOCKS = 2  # blocks an SM the backward's reduction is planned for
+
+
+class GnBwdPlan(NamedTuple):
+    """A backward reduction launch: the statistics' slab (``vec``, ``gs``,
+    ``lanes``, ``tr`` and ``mlanes`` as :class:`GnPlan`'s), ``chunk`` rows
+    a block (a multiple of ``tr``) and ``nchunks`` blocks a (batch, slab)."""
+    vec: int
+    gs: int
+    lanes: int
+    tr: int
+    chunk: int
+    nchunks: int
+    slabs: int
+    mlanes: int
+
+    @property
+    def ticket(self) -> bool:
+        return self.nchunks > 1
+
+    def grid(self, b: int):
+        return self.nchunks, self.slabs, b
+
+
+@functools.lru_cache(maxsize=None)
+def gn_bwd_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
+                elem_bytes: int = 2) -> GnBwdPlan:
+    """K1's backward reduction for a (b, hw, c) input of ``elem_bytes`` a
+    value: the widest slab (whole rows read contiguously where C allows),
+    and each (batch, slab) split into as many chunks as make one wave of
+    ``GN_BWD_BLOCKS`` blocks an SM over the card (one chunk where the
+    batch's slabs fill it), a chunk's rows rounded up to whole row lanes."""
+    require(hw >= 1, f"K1: {hw} rows")
+    vec, ok = _slabs(c, num_groups, elem_bytes)
+    p = _plan(vec, ok[0], 1, 1, hw, c, num_groups)
+    split = max(1, GN_BWD_BLOCKS * sms // (b * p.slabs))
+    rows = -(-hw // split)
+    chunk = -(-rows // p.tr) * p.tr
+    return GnBwdPlan(vec, p.gs, p.lanes, p.tr, chunk, -(-hw // chunk), p.slabs, p.mlanes)
+
+
+_WORKSPACE = {}  # device index -> [partials f32, tickets int32 (all 0), scratch f32]
 
 
 def _workspace(x: torch.Tensor, n_part: int, n_count: int, n_ss: int = 0):
     """The statistics workspace of ``x``'s device, each part grown to at
     least its count: the chunk partials (floats), the tickets and the
-    normalize path's scale/shift scratch (floats, reused call after call:
+    scratch between two launches of one call (floats: the normalize path's
+    scale/shift, the backward's coefficients; reused call after call:
     calls on one stream are ordered); their pointers."""
     ws = _WORKSPACE.get(x.get_device())
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count or ws[2].numel() < n_ss:
@@ -209,8 +315,9 @@ def _check(x, weight, bias, num_groups):
     return b, x.numel() // (b * c), c
 
 
-def _stats(x, weight, bias, ss_ptr, b, hw, c, num_groups, eps) -> GnPlan:
-    """Launch the statistics kernel into the (B, 2, C) f32 at ``ss_ptr``."""
+def _stats(x, weight, bias, ss_ptr, b, hw, c, num_groups, eps, mr=None) -> GnPlan:
+    """Launch the statistics kernel into the (B, 2, C) f32 at ``ss_ptr``
+    (and each group's (mean, rstd) into ``mr``, a (B, G, 2) f32 tensor)."""
     f32 = x.dtype == torch.float32
     plan = gn_plan(b, hw, c, num_groups, _cuda.sm_count(x.get_device()), 4 if f32 else 2)
     part = count = None
@@ -219,32 +326,66 @@ def _stats(x, weight, bias, ss_ptr, b, hw, c, num_groups, eps) -> GnPlan:
     _cuda.check(_cuda.call_packed(
         _cuda.library().sdtk_gn_stats, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         ss_ptr, part, count, f32, weight.dtype == torch.float32, b, hw, c, num_groups,
-        plan.vec, plan.gs, plan.r, plan.tiles, _cuda.f32_bits(eps), _cuda.stream_handle(x)),
-        "K1 statistics")
+        plan.vec, plan.gs, plan.r, plan.tiles, _cuda.f32_bits(eps), _cuda.stream_handle(x),
+        None if mr is None else mr.data_ptr()), "K1 statistics")
     return plan
 
 
-def _scale_shift(x, weight, bias, num_groups, eps):
+def _stats_out(x, num_groups):
+    """An empty (B, G, 2) f32 tensor for each group's (mean, rstd)."""
+    return torch.empty((x.shape[0], num_groups, 2), device=x.device, dtype=torch.float32)
+
+
+def _scale_shift(x, weight, bias, num_groups, eps, keep_stats=False):
     with K1.span():
         b, hw, c = _check(x, weight, bias, num_groups)
         ss = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
-        _stats(x, weight, bias, ss.data_ptr(), b, hw, c, num_groups, eps)
+        mr = _stats_out(x, num_groups) if keep_stats else None
+        _stats(x, weight, bias, ss.data_ptr(), b, hw, c, num_groups, eps, mr)
         K1.launched(("stats", b, hw, c, x.dtype, eps))
-        return ss
+        return (ss, mr) if keep_stats else ss
 
 
-def _norm(x, weight, bias, num_groups, eps, silu):
+def _norm(x, weight, bias, num_groups, eps, silu, keep_stats=False):
     with K1.span():
         b, hw, c = _check(x, weight, bias, num_groups)
         ss = _workspace(x, 0, 0, b * 2 * c)[2]  # the scale/shift between the two launches
-        plan = _stats(x, weight, bias, ss, b, hw, c, num_groups, eps)
+        mr = _stats_out(x, num_groups) if keep_stats else None
+        plan = _stats(x, weight, bias, ss, b, hw, c, num_groups, eps, mr)
         y = torch.empty_like(x)
         _cuda.check(_cuda.call_packed(
             _cuda.library().sdtk_gn_apply, x.data_ptr(), ss, y.data_ptr(),
             x.dtype == torch.float32, b, hw, c, plan.vec, silu, _cuda.stream_handle(x)),
             "K1 normalize")
         K1.launched(("norm", b, hw, c, x.dtype, eps, silu))
-        return y
+        return (y, mr) if keep_stats else y
+
+
+def _bwd(x, dy, weight, bias, stats, num_groups, silu, affine):
+    with K1.span():
+        b, hw, c = _check(x, weight, bias, num_groups)
+        dy = dy.contiguous()
+        require(dy.shape == x.shape and dy.dtype == x.dtype and dy.data_ptr() % 16 == 0,
+                f"K1 backward: dy {tuple(dy.shape)} {dy.dtype} (16-byte aligned) for x "
+                f"{tuple(x.shape)} {x.dtype}")
+        require(stats.shape == (b, num_groups, 2) and stats.dtype == torch.float32
+                and stats.is_contiguous(), "K1 backward: stats must be contiguous f32 (B, G, 2)")
+        f32 = x.dtype == torch.float32
+        plan = gn_bwd_plan(b, hw, c, num_groups, _cuda.sm_count(x.get_device()), 4 if f32 else 2)
+        n_part = 2 * b * plan.nchunks * (num_groups + c * affine) if plan.ticket else 0
+        part, count, scratch = _workspace(x, n_part, b * plan.slabs, b * c * (6 if affine else 4))
+        cpart = part + 4 * 2 * b * plan.nchunks * num_groups if affine and plan.ticket else None
+        dx = torch.empty_like(x)
+        dw, db = (torch.empty_like(weight), torch.empty_like(bias)) if affine else (None, None)
+        _cuda.check(_cuda.call_packed(
+            _cuda.library().sdtk_gn_bwd, x.data_ptr(), dy.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), stats.data_ptr(), dx.data_ptr(), part if plan.ticket else None,
+            cpart, count, scratch, scratch + 4 * 4 * b * c if affine else None,
+            None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(), f32,
+            weight.dtype == torch.float32, b, hw, c, num_groups, plan.vec, plan.gs, plan.chunk,
+            silu, affine, _cuda.stream_handle(x)), "K1 backward")
+        K1.launched(("bwd", b, hw, c, x.dtype, num_groups, silu, affine))
+        return dx, dw, db
 
 
 def gn_scale_shift_kernel(x, weight, bias, *, num_groups: int = 32,
@@ -261,16 +402,32 @@ def group_norm_silu_kernel(x, weight, bias, *, num_groups: int = 32, eps: float 
     return _norm(x, weight, bias, num_groups, eps, silu)
 
 
+def group_norm_bwd_kernel(x, dy, weight, bias, stats, *, num_groups: int = 32,
+                          silu: bool = True, affine: bool = True):
+    """Launch K1's backward: ``(dx, dweight, dbias)`` of GroupNorm(+SiLU)
+    against ``dy`` on the forward's (B, G, 2) statistics, the last two None
+    unless ``affine`` (:func:`group_norm_bwd_plain`'s arithmetic)."""
+    require_no_grad("K1", x, dy, weight, bias)
+    return _bwd(x, dy, weight, bias, stats, num_groups, silu, affine)
+
+
 def gn_occupancy() -> dict:
-    """Each compiled statistics kernel on the current card, ``{(dtype, vec):
-    {...}}``: registers a thread, spill (local) bytes a thread, static shared
-    bytes a block and resident blocks an SM at 256 threads, from the runtime."""
+    """Each compiled K1 kernel on the current card, ``{(kind, vec): {...}}``
+    (kind: the dtype for the statistics kernel, "<dtype> bwd reduce" and
+    "<dtype> bwd apply" for the backward's): registers a thread, spill
+    (local) bytes a thread, static shared bytes a block and resident blocks
+    an SM at 256 threads, from the runtime."""
     keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
     out = {}
     for name, f32, vec in (("bf16", 0, 8), ("bf16", 0, 1), ("f32", 1, 4), ("f32", 1, 1)):
         got = (ctypes.c_int * 4)()
         _cuda.check(_cuda.library().sdtk_gn_attrs(f32, vec, got), "K1 attributes")
         out[(name, vec)] = dict(zip(keys, got))
+        for apply, kind in enumerate(("reduce", "apply")):
+            got = (ctypes.c_int * 4)()
+            _cuda.check(_cuda.library().sdtk_gn_bwd_attrs(f32, vec, apply, got),
+                        "K1 backward attributes")
+            out[(f"{name} bwd {kind}", vec)] = dict(zip(keys, got))
     return out
 
 
@@ -281,6 +438,54 @@ def gn_plan_native(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132
     _cuda.check(_cuda.library().sdtk_gn_plan(b, hw, c, num_groups, elem_bytes, sms, got),
                 "K1 plan")
     return _plan(*got, hw, c, num_groups)
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the forward and backward are arguments, so the CPU tests run the
+# same Function on the plain versions
+# ---------------------------------------------------------------------------
+
+
+class GnOps(NamedTuple):
+    """K1 (:data:`KERNEL_OPS`) or its plain versions (:data:`PLAIN_OPS`); each
+    forward also returns the (B, G, 2) statistics the backward takes."""
+    scale_shift: Callable  # (x, w, b, groups, eps) -> ((B, 2, C) f32 scale/shift, stats)
+    norm: Callable         # (x, w, b, groups, eps, silu) -> (y, stats)
+    backward: Callable     # (x, dy, w, b, stats, groups, silu, affine) -> (dx, dw, db)
+
+
+KERNEL_OPS = GnOps(
+    lambda x, w, b, groups, eps: _scale_shift(x, w, b, groups, eps, keep_stats=True),
+    lambda x, w, b, groups, eps, silu: _norm(x, w, b, groups, eps, silu, keep_stats=True),
+    lambda x, dy, w, b, stats, groups, silu, affine: group_norm_bwd_kernel(
+        x, dy, w, b, stats, num_groups=groups, silu=silu, affine=affine))
+PLAIN_OPS = GnOps(
+    lambda x, w, b, groups, eps: (gn_scale_shift_plain(x, w, b, groups, eps),
+                                  gn_stats_plain(x, groups, eps)),
+    lambda x, w, b, groups, eps, silu: (group_norm_plain(x, w, b, groups, eps, silu),
+                                        gn_stats_plain(x, groups, eps)),
+    group_norm_bwd_plain)
+
+
+class GroupNormFn(torch.autograd.Function):
+    """GroupNorm(+SiLU) whose backward is the closed-form VJP on the
+    forward's statistics (JAX ``_gn_bwd``); dgamma and dbeta only where a
+    gradient of either is wanted."""
+
+    @staticmethod
+    def forward(ctx, ops: GnOps, x, weight, bias, num_groups, eps, silu):
+        y, stats = ops.norm(x, weight, bias, num_groups, eps, silu)
+        ctx.ops, ctx.num_groups, ctx.silu = ops, num_groups, silu
+        ctx.save_for_backward(x, weight, bias, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, stats = ctx.saved_tensors
+        _, nx, nw, nb, _, _, _ = ctx.needs_input_grad
+        dx, dw, db = ctx.ops.backward(x, dy, weight, bias, stats, ctx.num_groups, ctx.silu,
+                                      nw or nb)
+        return None, dx if nx else None, dw if nw else None, db if nb else None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +509,10 @@ def gn_scale_shift(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
 
 def group_norm_silu(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                     silu: bool = True, impl: str = "auto") -> torch.Tensor:
-    """GroupNorm over the channel (last) dim of an NHWC tensor (+SiLU).  Its
-    gradient is the VJP of the plain version, recomputed (JAX ``_gn_bwd``)."""
+    """GroupNorm over the channel (last) dim of an NHWC tensor (+SiLU); on
+    the card its gradient is K1's backward (:class:`GroupNormFn`)."""
     if not use_kernel(impl, x):
         return group_norm_plain(x, weight, bias, num_groups, eps, silu)
     if wants_grad(x, weight, bias):
-        return Recompute.apply(
-            functools.partial(group_norm_silu_kernel, num_groups=num_groups, eps=eps, silu=silu),
-            functools.partial(group_norm_plain, num_groups=num_groups, eps=eps, silu=silu),
-            x, weight, bias)
+        return GroupNormFn.apply(KERNEL_OPS, x, weight, bias, num_groups, eps, silu)
     return _norm(x, weight, bias, num_groups, eps, silu)

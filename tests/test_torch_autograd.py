@@ -4,8 +4,10 @@
   backward (``_premerged_flash_bwd``, interpret mode) and ``jax.vjp`` of the
   plain attention; the conv's input gradient through the flipped,
   I/O-swapped kernel and the GroupNorm split backward against the gradients
-  of ``_conv3x3`` / ``_gn_silu_conv`` (interpret mode).  f32; tolerances as
-  the JAX package's own tests of the same kernels, or stated.
+  of ``_conv3x3`` / ``_gn_silu_conv`` (interpret mode); the closed-form
+  GroupNorm(+SiLU) backward that K1's backward computes against
+  ``torch.autograd`` of the plain GroupNorm and JAX ``_gn_bwd``.  f32;
+  tolerances as the JAX package's own tests of the same kernels, or stated.
 * Each autograd Function's wiring: the Functions take their forward and
   backward callables as arguments, so ``torch.autograd.gradcheck`` (f64,
   tiny shapes) runs each with the plain versions in both places, with some
@@ -27,6 +29,7 @@ from jax.experimental.pallas import tpu as pltpu
 from stable_diffusion_tpu.models import unet as junet
 from stable_diffusion_tpu.ops import conv as jconv
 from stable_diffusion_tpu.ops import flash_attention as jfa
+from stable_diffusion_tpu.ops import groupnorm as jgn
 from stable_diffusion_tpu_torch.models import unet as tunet
 from stable_diffusion_tpu_torch.ops import conv as tconv
 from stable_diffusion_tpu_torch.ops import ffn as tffn
@@ -136,6 +139,44 @@ def test_gn_split_bwd_matches_jax(rng):
         _rel_close(a, w, 2e-5, name)
 
 
+@functools.lru_cache(maxsize=None)
+def _gn_bwd_case(cpg: int, silu: bool):
+    """x (2, 3, 5, 4 cpg) with mean 1.5 and std 2, gamma, beta, dy (numpy
+    f64), and JAX ``_gn_bwd``'s (dgamma, dbeta, dx) on them in f32."""
+    rng = np.random.default_rng(cpg + silu)
+    c = 4 * cpg
+    x, dy = rng.standard_normal((2, 3, 5, c)) * 2 + 1.5, rng.standard_normal((2, 3, 5, c))
+    gamma, beta = 1 + 0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c)
+    f32 = [a.astype(np.float32) for a in (gamma, beta, x, dy)]
+    want = jax.jit(functools.partial(jgn._gn_bwd, 4, 1e-5, silu))(tuple(f32[:3]), f32[3])
+    return (x, gamma, beta, dy), [np.asarray(a) for a in want]
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("cpg", [10, 20, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("silu", [True, False])
+def test_group_norm_bwd_plain_matches_autograd_and_jax(silu, dtype, cpg, affine):
+    """K1's backward arithmetic (``group_norm_bwd_plain`` on the forward's
+    statistics) against ``torch.autograd`` of ``group_norm_plain`` in the
+    same dtype (f64: 1e-10 of the largest gradient; f32: 2e-5) and against
+    JAX ``_gn_bwd`` in f32 (2e-5); the group widths of SD's 320, 640 and
+    1280 channels; dgamma and dbeta only when asked."""
+    (x, gamma, beta, dy), (jdg, jdb, jdx) = _gn_bwd_case(cpg, silu)
+    xs, gs, bs, dys = (torch.tensor(a, dtype=dtype) for a in (x, gamma, beta, dy))
+    stats = tgn.gn_stats_plain(xs, 4, 1e-5)
+    got = tgn.group_norm_bwd_plain(xs, dys, gs, bs, stats, 4, silu, affine)
+    assert all(a.dtype == dtype for a in got if a is not None)
+    assert (got[1] is None and got[2] is None) != affine
+    ins = [t.clone().requires_grad_() for t in (xs, gs, bs)]
+    want = torch.autograd.grad(tgn.group_norm_plain(*ins, 4, 1e-5, silu), ins, dys)
+    tol = 1e-10 if dtype == torch.float64 else 2e-5
+    for name, a, w, j in zip(("dx", "dgamma", "dbeta"), got, want, (jdx, jdg, jdb)):
+        if a is not None:
+            _rel_close(a, w, tol, name)
+            _rel_close(a, j, 2e-5, name + " vs JAX")
+
+
 # ---------------------------------------------------------------------------
 # Each Function's wiring, with the plain versions (gradcheck, f64)
 # ---------------------------------------------------------------------------
@@ -148,9 +189,12 @@ def _r(*shape, grad=True, scale=1.0):
 
 @pytest.mark.parametrize("silu", [True, False])
 def test_gradcheck_group_norm_function(silu):
-    plain = functools.partial(tgn.group_norm_plain, num_groups=4, eps=1e-5, silu=silu)
-    args = (_r(2, 3, 3, 8), _r(8), _r(8, grad=False))
-    assert torch.autograd.gradcheck(lambda *a: Recompute.apply(plain, plain, *a), args)
+    """GroupNormFn (the closed-form backward on the forward's statistics),
+    with and without dgamma / dbeta; gn_scale_shift's recompute."""
+    def fn(*a):
+        return tgn.GroupNormFn.apply(tgn.PLAIN_OPS, *a, 4, 1e-5, silu)
+    assert torch.autograd.gradcheck(fn, (_r(2, 3, 3, 8), _r(8), _r(8, grad=False)))
+    assert torch.autograd.gradcheck(fn, (_r(2, 3, 3, 8), _r(8, grad=False), _r(8, grad=False)))
     ss = functools.partial(tgn.gn_scale_shift_plain, num_groups=4, eps=1e-5)
     assert torch.autograd.gradcheck(lambda *a: Recompute.apply(ss, ss, *a),
                                     (_r(2, 3, 3, 8), _r(8, grad=False), _r(8)))

@@ -132,6 +132,106 @@ def test_k1_plan_mirrors_the_c_dispatch(gen, shape, elem_bytes):
             == groupnorm.gn_plan_native(*shape, groups, sms, elem_bytes))
 
 
+# The UNet's GroupNorm widths by level (tests/test_torch_norm_ffn_tiles.py UNET_GN)
+_UNET_GN = [(0, 320), (0, 640), (0, 960), (1, 320), (1, 640), (1, 960), (1, 1280), (1, 1920),
+            (2, 640), (2, 1280), (2, 1920), (2, 2560), (3, 1280), (3, 2560)]
+
+
+def _k1_bwd_inputs(gen, b, hw, c, dtype=torch.bfloat16):
+    x = ((torch.randn((b, hw, 1, c), generator=gen, device="cuda") * 3 + 1)).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn((b, hw, 1, c), generator=gen, device="cuda").to(dtype)
+    return x, w, bias, dy
+
+
+def _plain_vjp(x, w, bias, dy, groups, eps, silu):
+    """dx, dgamma, dbeta of group_norm_plain in f32 on the same values (autograd)."""
+    ins = [t.detach().float().requires_grad_() for t in (x, w, bias)]
+    return torch.autograd.grad(groupnorm.group_norm_plain(*ins, groups, eps, silu), ins, dy.float())
+
+
+@pytest.mark.parametrize("shape",
+                         [(2, (64 >> lv) ** 2, c) for lv, c in _UNET_GN] + [(32, 4096, 320)])
+@pytest.mark.parametrize("silu", [True, False])
+def test_k1_backward(gen, shape, silu):
+    """K1's backward at every GroupNorm shape of the UNet at b2 (64^2
+    latents) and the training cell's largest at b32, on the statistics K1's
+    forward kept, against the plain VJP: dx alone, then with dgamma and
+    dbeta (the same dx bits); one launch counted each."""
+    b, hw, c = shape
+    x, w, bias, dy = _k1_bwd_inputs(gen, b, hw, c)
+    _, stats = groupnorm.KERNEL_OPS.norm(x, w, bias, 32, 1e-6, silu)
+    torch.testing.assert_close(stats, groupnorm.gn_stats_plain(x, 32, 1e-6), rtol=1e-4, atol=1e-4)
+    before = groupnorm.K1.launches
+    dx_only, none_w, none_b = groupnorm.group_norm_bwd_kernel(x, dy, w, bias, stats, silu=silu,
+                                                              affine=False)
+    dx, dw, db = groupnorm.group_norm_bwd_kernel(x, dy, w, bias, stats, silu=silu, affine=True)
+    assert groupnorm.K1.launches == before + 2 and none_w is None and none_b is None
+    assert dw.dtype == db.dtype == w.dtype
+    for got, ref in zip((dx, dw, db), _plain_vjp(x, w, bias, dy, 32, 1e-6, silu)):
+        _check(got, ref)
+    assert torch.equal(dx, dx_only)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 130, 36, 4), (2, 5000, 20, 4), (2, 300, 320, 32),
+                                   (1, 16384, 512, 32)])
+def test_k1_backward_scalar_and_f32_loads(gen, dtype, shape):
+    """C % 8 != 0 (one channel a load), f32 input and GroupNorm weights (4
+    channels a load), a ragged last chunk and many chunks a slab."""
+    b, hw, c, groups = shape
+    x, w, bias, dy = _k1_bwd_inputs(gen, b, hw, c, dtype)
+    for silu in (True, False):
+        _, stats = groupnorm.KERNEL_OPS.norm(x, w, bias, groups, 1e-5, silu)
+        got = groupnorm.group_norm_bwd_kernel(x, dy, w, bias, stats, num_groups=groups, silu=silu)
+        for g, ref in zip(got, _plain_vjp(x, w, bias, dy, groups, 1e-5, silu)):
+            assert g.dtype == dtype
+            _check(g, ref)
+
+
+def test_k1_backward_back_to_back_leaves_the_tickets_at_zero(gen):
+    """Ticketed forward and backward launches of two shapes in turns, then
+    the same again: the same bits the second time (the merges' order is
+    fixed) and every ticket back at 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(2, 4096, 320), (1, 16384, 512)]
+    cases = [_k1_bwd_inputs(gen, *s) for s in shapes]
+    for b, hw, c in shapes:
+        assert groupnorm.gn_plan(b, hw, c, 32, sms).ticket
+        assert groupnorm.gn_bwd_plan(b, hw, c, 32, sms).ticket
+
+    def run():
+        out = []
+        for x, w, bias, dy in cases:
+            _, stats = groupnorm.KERNEL_OPS.norm(x, w, bias, 32, 1e-5, True)
+            out.append((stats, *groupnorm.group_norm_bwd_kernel(x, dy, w, bias, stats)))
+        return out
+
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    for one, two in zip(first, again):
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+    _, count, _ = groupnorm._WORKSPACE[torch.cuda.current_device()]
+    assert int(count.abs().sum()) == 0
+
+
+def test_k1_backward_is_the_functions_gradient(gen):
+    """group_norm_silu (SiLU on and off) and gn_silu_conv3x3 take K1's
+    backward when x wants a gradient: one "bwd" launch each, with dgamma and
+    dbeta only where the GroupNorm's weights want one."""
+    x, w, bias, _ = _k1_bwd_inputs(gen, 2, 256, 640)
+    x = x.reshape(2, 16, 16, 640).detach().requires_grad_()
+    wt = _rn(gen, 320, 640, 3, 3, scale=(9 * 640) ** -0.5)
+    groupnorm.K1.record()
+    for silu in (True, False):
+        groupnorm.group_norm_silu(x, w, bias, silu=silu, impl="cuda").float().sum().backward()
+    conv.gn_silu_conv3x3(x, w.requires_grad_(), bias, wt, impl="cuda").float().sum().backward()
+    shapes = groupnorm.K1.stop_recording()
+    bwd = sorted((k[6], k[7]) for k in shapes if k[0] == "bwd")
+    assert bwd == [(False, False), (True, False), (True, True)], shapes
+
+
 def test_k1_imports_no_triton(gen):
     """K1 is CUDA C++: a process that runs both of its kernels has not
     imported Triton."""

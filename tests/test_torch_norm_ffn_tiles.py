@@ -132,6 +132,25 @@ def test_gn_plan_f32_loads_four_channels():
     assert plan.vec == 4 and plan.lanes == 80
 
 
+@pytest.mark.parametrize("path", ["train", "train_b32"])
+def test_gn_bwd_plan_at_every_path_shape(path):
+    """The backward's reduction at the b4 and b32 train steps' GroupNorms:
+    the statistics' widest slab, whole row lanes a chunk, every row once,
+    and about one wave of GN_BWD_BLOCKS blocks an SM."""
+    b = 32 if path == "train_b32" else 4
+    for _, hw, c in (GN_PATHS["train"] if b == 4 else
+                     [(b, (64 >> lv) ** 2, c) for lv, c in UNET_GN]):
+        plan = gn.gn_bwd_plan(b, hw, c, 32, SMS)
+        assert plan.gs == max(d for d in (32, 16, 8) if d * (c // 32) // 8 <= gn.GN_THREADS)
+        assert (plan.vec, plan.lanes) == (8, plan.gs * (c // 32) // 8)
+        assert plan.tr == gn.GN_THREADS // plan.lanes
+        assert plan.slabs * plan.gs == 32 and plan.chunk % plan.tr == 0
+        assert (plan.nchunks - 1) * plan.chunk < hw <= plan.nchunks * plan.chunk
+        blocks = b * plan.slabs * plan.nchunks
+        assert blocks <= gn.GN_BWD_BLOCKS * SMS + b * plan.slabs, (b, hw, c, plan)
+        assert blocks >= SMS or plan.chunk == plan.tr, (b, hw, c, plan)
+
+
 def _chan(a, b):
     (n, mean, m2), (nb, mb, m2b) = a, b
     if nb == 0:
