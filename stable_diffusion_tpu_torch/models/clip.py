@@ -3,8 +3,11 @@
 Text: ``text_model_apply`` and ``openclip_apply`` (SD1.5's CLIP ViT-L,
 QuickGELU, and SD2.1's OpenCLIP ViT-H, GELU: one pre-LN causal transformer
 with a final LayerNorm; :class:`OpenCLIP` is the same tower rooted at
-``text_model``), and the v1 naming of the same tower
-(:class:`TextEncoderV1`, JAX ``text_encoder_v1_apply``).  The causal
+``text_model``), SDXL's pair (``CLIPTextConfig.sdxl_pair``: ViT-L and
+:class:`CLIPTextModelWithProjection`'s OpenCLIP ViT-bigG, each handing on
+its penultimate layer, bigG also its pooled, projected EOS state), and the
+v1 naming of the same tower (:class:`TextEncoderV1`, JAX
+``text_encoder_v1_apply``).  The causal
 attention stays plain on the card, as JAX leaves it to XLA; a W8A8 text
 tower (``utils/quantize_model.quantize_text_encoder_static``) runs every
 linear on K8.
@@ -46,6 +49,10 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     hidden_act: str = "gelu"  # "gelu" (ViT-H) | "quick_gelu" (ViT-L)
     layer_norm_eps: float = 1e-5
+    # the state a text tower hands the UNet: "last" (the last layer through
+    # the final LayerNorm) or "penultimate" (SDXL: the second-to-last
+    # layer's output, not normalized)
+    hidden_state: str = "last"
 
     @classmethod
     def from_dict(cls, data: dict) -> "CLIPTextConfig":
@@ -63,6 +70,15 @@ class CLIPTextConfig:
         """SD 1.5 CLIP ViT-L/14 text tower."""
         return cls(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
                    num_attention_heads=12, hidden_act="quick_gelu")
+
+    @classmethod
+    def sdxl_pair(cls) -> tuple:
+        """SDXL base's two towers, each handing on its penultimate layer:
+        CLIP ViT-L/14 and OpenCLIP ViT-bigG/14 (1280 wide, 32 layers, 20
+        heads, GELU, a 1280-wide projection of its pooled state)."""
+        return (dataclasses.replace(cls.vit_l(), hidden_state="penultimate"),
+                cls(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                    num_attention_heads=20, hidden_act="gelu", hidden_state="penultimate"))
 
 
 class _MLP(nn.Module):
@@ -123,22 +139,62 @@ class CLIPTextModel(nn.Module):
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
+        if cfg.hidden_state not in ("last", "penultimate"):
+            raise ValueError(f"hidden_state must be 'last' or 'penultimate', got "
+                             f"{cfg.hidden_state!r}")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size)
 
-    def forward(self, input_ids: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-        """Token ids (B, S) -> last hidden state (B, S, hidden), in the
-        parameters' dtype."""
+    def hidden_states(self, input_ids: torch.Tensor, *, impl: str = "auto",
+                      count: Optional[int] = None) -> list:
+        """The outputs of the first ``count`` layers (all when None), in order."""
         cfg = self.cfg
         x = _embed(self.embeddings.token_embedding, self.embeddings.position_embedding, input_ids)
-        for layer in self.encoder.layers.values():
+        out = []
+        for layer in list(self.encoder.layers.values())[:count]:
             x = _block(x, layer.layer_norm1, layer.self_attn, layer.layer_norm2, layer.mlp.fc1,
                        layer.mlp.fc2, act=_act(cfg.hidden_act),
                        num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps, causal=True,
                        impl=impl)
+            out.append(x)
+        return out
+
+    def forward(self, input_ids: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """Token ids (B, S) -> the hidden state (B, S, hidden) that
+        ``cfg.hidden_state`` names, in the parameters' dtype ("penultimate"
+        stops before the last layer, which it does not need)."""
+        cfg = self.cfg
+        if cfg.hidden_state == "penultimate":
+            return self.hidden_states(input_ids, impl=impl, count=cfg.num_hidden_layers - 1)[-1]
+        x = self.hidden_states(input_ids, impl=impl)[-1]
         return layers.layer_norm(self.final_layer_norm, x, eps=cfg.layer_norm_eps)
+
+
+class CLIPTextModelWithProjection(CLIPTextModel):
+    """HF ``CLIPTextModelWithProjection`` (SDXL's second tower): the tower's
+    keys and ``text_projection`` (no bias, at the tower's width, as bigG's
+    1280 -> 1280).  Returns the hidden state and the pooled state: the final
+    LayerNorm of the last layer at the EOS token (the first maximum of the
+    ids) through ``text_projection``."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__(cfg)
+        self.text_projection = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=False)
+
+    def forward(self, input_ids: torch.Tensor, *, impl: str = "auto"):
+        """Token ids (B, S) -> ((B, S, hidden) as ``cfg.hidden_state`` names
+        it, (B, hidden) pooled)."""
+        cfg = self.cfg
+        states = self.hidden_states(input_ids, impl=impl)
+        last = states[-1]
+        eos = _first_argmax(input_ids)
+        rows = torch.arange(last.shape[0], device=last.device)
+        pooled = layers.layer_norm(self.final_layer_norm, last[rows, eos], eps=cfg.layer_norm_eps)
+        hidden = (states[-2] if cfg.hidden_state == "penultimate"
+                  else layers.layer_norm(self.final_layer_norm, last, eps=cfg.layer_norm_eps))
+        return hidden, layers.linear(self.text_projection, pooled, impl=impl)
 
 
 class OpenCLIP(nn.Module):

@@ -13,6 +13,13 @@ transformer's ``conv_output`` + residual and the attention pre-LN
 projections run K10, the transformer's GroupNorm -> ``conv_input`` K11;
 with SD_TPU_WINOGRAD=1 the routed 3x3 convs run K12 (ops/winograd.py).
 
+SDXL base (``UNetConfig.sdxl``; no JAX counterpart): a transformer of
+``transformer_layers_per_block`` blocks at each attention site of a stage,
+the bottleneck at the last stage's depth, and the text-time conditioning
+(``add_embedding`` on the pooled text state and six size numbers) added to
+the time embedding in :meth:`UNet.time_embedding_apply`, the one place
+every pass takes its ``t_embed`` from.
+
 DeepCache (JAX ``unet_shallow_encoder``, ``unet_deep``,
 ``unet_shallow_decoder``, ``unet_apply_split``, ``unet_apply_cached``):
 the body is written once, as three parts cut where JAX cuts it, and
@@ -73,6 +80,14 @@ class UNetConfig:
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     t_embed_dim: int = 320
+    # transformer blocks in each attention site of a stage (SDXL: 1, 2, 10;
+    # the bottleneck takes the last stage's)
+    transformer_layers_per_block: Union[int, tuple] = 1
+    # SDXL's added conditioning: "text_time" adds to the time embedding an
+    # MLP of the pooled text state beside the six size numbers' sinusoids
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None
 
     @classmethod
     def from_dict(cls, data: dict) -> "UNetConfig":
@@ -90,6 +105,18 @@ class UNetConfig:
         """SD2.1: heads (5, 10, 20, 20) of d=64, cross dim 1024 (the defaults)."""
         return cls()
 
+    @classmethod
+    def sdxl(cls) -> "UNetConfig":
+        """SDXL base 1.0: three stages, no attention at the first, transformer
+        depths (1, 2, 10), heads of d=64, cross dim 2048, the text-time
+        conditioning (pooled 1280 + 6 x 256 sinusoids = 2816)."""
+        return cls(block_out_channels=(320, 640, 1280), attention_head_dim=(5, 10, 20),
+                   cross_attention_dim=2048,
+                   down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                     "CrossAttnDownBlock2D"),
+                   transformer_layers_per_block=(1, 2, 10), addition_embed_type="text_time",
+                   addition_time_embed_dim=256, projection_class_embeddings_input_dim=2816)
+
     @property
     def num_stages(self) -> int:
         return len(self.block_out_channels)
@@ -103,6 +130,11 @@ class UNetConfig:
     def cross_dim_per_stage(self) -> tuple:
         c = self.cross_attention_dim
         return tuple([c] * self.num_stages) if isinstance(c, int) else tuple(c)
+
+    @property
+    def depth_per_stage(self) -> tuple:
+        d = self.transformer_layers_per_block
+        return tuple([d] * self.num_stages) if isinstance(d, int) else tuple(d)
 
     @property
     def stage_has_attention(self) -> tuple:
@@ -146,12 +178,25 @@ class TransformerBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, ch: int, cond_dim: int, groups: int):
+    """GroupNorm -> ``conv_input`` -> ``depth`` transformer blocks ->
+    ``conv_output``; one block is held as ``transformer_block`` (the JAX key
+    path), a deeper stack as ``transformer_blocks.{k}``."""
+
+    def __init__(self, ch: int, cond_dim: int, groups: int, depth: int = 1):
         super().__init__()
         self.groupnorm = nn.GroupNorm(groups, ch)
         self.conv_input = _conv(ch, ch, 1)
-        self.transformer_block = TransformerBlock(ch, cond_dim)
+        if depth == 1:
+            self.transformer_block = TransformerBlock(ch, cond_dim)
+        else:
+            self.transformer_blocks = nn.ModuleDict({str(k): TransformerBlock(ch, cond_dim)
+                                                     for k in range(depth)})
         self.conv_output = _conv(ch, ch, 1)
+
+    def blocks(self) -> tuple:
+        """The stack's transformer blocks in order."""
+        stack = self._modules.get("transformer_blocks")
+        return (self.transformer_block,) if stack is None else tuple(stack.values())
 
 
 class _Block(nn.ModuleDict):
@@ -199,6 +244,25 @@ class _TimeEmbedding(nn.Module):
         self.ffn = nn.ModuleDict({"0": nn.Linear(t_in, t_dim), "2": nn.Linear(t_dim, t_dim)})
 
 
+class _AddEmbedding(nn.Module):
+    """SDXL's ``add_embedding``: linear_1 -> SiLU -> linear_2 (diffusers' key paths)."""
+
+    def __init__(self, d_in: int, t_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(d_in, t_dim)
+        self.linear_2 = nn.Linear(t_dim, t_dim)
+
+
+def sinusoid(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """(N,) values -> (N, dim) f32: cos then sin of t * 10000^(-i / (dim / 2))
+    (diffusers' ``flip_sin_to_cos``, frequency shift 0)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    x = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(x), torch.sin(x)], dim=-1)
+
+
 def resblock_apply(p: ResBlock, x, t_embed, *, eps: float, impl: str):
     h = layers.gn_silu_conv3x3(p.groupnorm_1, p.conv_1, x, eps=eps, impl=impl)
     h = h + layers.linear(p.t_embed, layers.silu(t_embed), impl=impl)[:, None, None, :]
@@ -241,19 +305,20 @@ def ffn_apply(ln: nn.LayerNorm, ffn: nn.ModuleDict, x, *, impl: str):
 
 
 def transformer_apply(p: Transformer, x, cond, *, num_heads: int, impl: str):
-    b, hh, ww, c = x.shape
-    res = x
-    x = gn_matmul(x, p.groupnorm.weight, p.groupnorm.bias, p.conv_input.weight[:, :, 0, 0],
-                  p.conv_input.bias, eps=1e-6, impl=impl).reshape(b, hh * ww, c)
-    tb = p.transformer_block
-    x = multihead_attention(tb.attn1, x, num_heads=num_heads, impl=impl,
-                            ln=tb.layernorm_1, residual=x)
-    x = multihead_attention(tb.attn2, x, num_heads=num_heads, cond=cond, impl=impl,
-                            ln=tb.layernorm_2, residual=x)
-    x = ffn_apply(tb.layernorm_3, tb.ffn, x, impl=impl)
-    x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
-                        res.reshape(b, hh * ww, c), impl=impl)
-    return x.reshape(b, hh, ww, c)
+    with span("transformer"):
+        b, hh, ww, c = x.shape
+        res = x
+        x = gn_matmul(x, p.groupnorm.weight, p.groupnorm.bias, p.conv_input.weight[:, :, 0, 0],
+                      p.conv_input.bias, eps=1e-6, impl=impl).reshape(b, hh * ww, c)
+        for tb in p.blocks():
+            x = multihead_attention(tb.attn1, x, num_heads=num_heads, impl=impl,
+                                    ln=tb.layernorm_1, residual=x)
+            x = multihead_attention(tb.attn2, x, num_heads=num_heads, cond=cond, impl=impl,
+                                    ln=tb.layernorm_2, residual=x)
+            x = ffn_apply(tb.layernorm_3, tb.ffn, x, impl=impl)
+        x = matmul_residual(x, p.conv_output.weight[:, :, 0, 0], p.conv_output.bias,
+                            res.reshape(b, hh * ww, c), impl=impl)
+        return x.reshape(b, hh, ww, c)
 
 
 class UNet(nn.Module):
@@ -263,6 +328,7 @@ class UNet(nn.Module):
         bc = list(cfg.block_out_channels)
         n = cfg.num_stages
         cross = cfg.cross_dim_per_stage
+        depth = cfg.depth_per_stage
         has_attn = cfg.stage_has_attention
         t_dim = cfg.time_embed_dim
         g = cfg.norm_num_groups
@@ -270,7 +336,7 @@ class UNet(nn.Module):
         def block(in_ch, out_ch, stage):
             m = {"0": ResBlock(in_ch, out_ch, t_dim, g)}
             if has_attn[stage]:
-                m["1"] = Transformer(out_ch, cross[stage], g)
+                m["1"] = Transformer(out_ch, cross[stage], g, depth[stage])
             return _Block(m)
 
         block_in = [bc[0]] + bc
@@ -280,11 +346,16 @@ class UNet(nn.Module):
                       for j in range(cfg.layers_per_block)}
             down[str(i)] = _Stage(blocks, "downsample" if i != n - 1 else None, bc[i])
         self.time_embedding = _TimeEmbedding(cfg.t_embed_dim, t_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = _AddEmbedding(cfg.projection_class_embeddings_input_dim, t_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r} is not supported "
+                             "(only SDXL's 'text_time')")
         self.encoder = _Encoder(_conv(cfg.in_channels, bc[0], 3), down)
         mid = bc[-1]
         self.bottleneck = nn.ModuleDict({
             "0": ResBlock(mid, mid, t_dim, g),
-            "1": Transformer(mid, cross[-1], g),
+            "1": Transformer(mid, cross[-1], g, depth[-1]),
             "2": ResBlock(mid, mid, t_dim, g),
         })
         dec_in = bc + [bc[-1]]
@@ -301,16 +372,31 @@ class UNet(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def time_embedding_apply(self, timestep: torch.Tensor, dtype, impl: str = "auto") -> torch.Tensor:
-        """(B,) int timesteps -> (B, 4*t_embed_dim); cos-then-sin sinusoid."""
-        half = self.cfg.t_embed_dim // 2
-        freqs = torch.exp(-math.log(10000.0)
-                          * torch.arange(half, dtype=torch.float32, device=timestep.device) / half)
-        x = timestep.float()[:, None] * freqs[None, :]
-        t = torch.cat([torch.cos(x), torch.sin(x)], dim=-1).to(dtype)
+    def time_embedding_apply(self, timestep: torch.Tensor, dtype, impl: str = "auto",
+                             added_cond: Optional[dict] = None) -> torch.Tensor:
+        """(B,) int timesteps -> (B, 4*t_embed_dim); cos-then-sin sinusoid.
+        A UNet with SDXL's text-time conditioning adds to it
+        ``add_embedding`` of [text_embeds, the sinusoids of the six
+        time_ids] from ``added_cond`` (``{"text_embeds": (B, P),
+        "time_ids": (B, 6)}``), which it requires; any other UNet refuses it."""
+        t = sinusoid(timestep, self.cfg.t_embed_dim).to(dtype)
         ffn = self.time_embedding.ffn
-        return layers.linear(ffn["2"], layers.silu(layers.linear(ffn["0"], t, impl=impl)),
-                             impl=impl)
+        emb = layers.linear(ffn["2"], layers.silu(layers.linear(ffn["0"], t, impl=impl)),
+                            impl=impl)
+        add = self._modules.get("add_embedding")
+        if (add is None) != (added_cond is None):
+            raise ValueError("added_cond ({'text_embeds', 'time_ids'}) is required by a UNet with "
+                             "addition_embed_type 'text_time' and refused by any other")
+        if add is None:
+            return emb
+        with span("add_embed"):
+            ids = added_cond["time_ids"]
+            times = sinusoid(ids.reshape(-1), self.cfg.addition_time_embed_dim)
+            a = torch.cat([added_cond["text_embeds"].to(dtype),
+                           times.reshape(ids.shape[0], -1).to(dtype)], dim=-1)
+            a = layers.linear(add.linear_2, layers.silu(layers.linear(add.linear_1, a, impl=impl)),
+                              impl=impl)
+            return emb + a
 
     def _block(self, p: _Block, x, t_embed, cond, num_heads, impl, remat):
         kw = dict(num_heads=num_heads, eps=self.cfg.norm_eps, impl=impl)
@@ -388,32 +474,40 @@ class UNet(nn.Module):
                             impl=impl)
         return layers.conv2d(out["2"], h)
 
-    def _full(self, x, timestep, cond, *, impl: str, gradient_checkpointing: bool):
+    def _full(self, x, timestep, cond, *, impl: str, gradient_checkpointing: bool,
+              added_cond: Optional[dict]):
         kw = dict(impl=impl, gradient_checkpointing=gradient_checkpointing)
-        t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
+        t_embed = self.time_embedding_apply(timestep, x.dtype, impl, added_cond)
         skips, down0 = self.shallow_encoder(x, t_embed, cond, **kw)
         deep_h = self.deep(down0, t_embed, cond, **kw)
         return self.shallow_decoder(deep_h, skips, t_embed, cond, **kw), deep_h
 
     def forward_split(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
-                      impl: str = "auto", gradient_checkpointing: bool = False):
+                      added_cond: Optional[dict] = None, impl: str = "auto",
+                      gradient_checkpointing: bool = False):
         """The full pass -> (epsilon prediction, the deep feature to hold)."""
         with span("unet"):
             return self._full(x, timestep, cond, impl=impl,
-                              gradient_checkpointing=gradient_checkpointing)
+                              gradient_checkpointing=gradient_checkpointing,
+                              added_cond=added_cond)
 
     def forward_cached(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor,
-                       deep_h: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+                       deep_h: torch.Tensor, *, added_cond: Optional[dict] = None,
+                       impl: str = "auto") -> torch.Tensor:
         """A cached step: the shallow stage recomputed around ``deep_h``."""
         with span("unet"):
-            t_embed = self.time_embedding_apply(timestep, x.dtype, impl)
+            t_embed = self.time_embedding_apply(timestep, x.dtype, impl, added_cond)
             skips, _ = self.shallow_encoder(x, t_embed, cond, impl=impl)
             return self.shallow_decoder(deep_h, skips, t_embed, cond, impl=impl)
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor, cond: torch.Tensor, *,
-                impl: str = "auto", gradient_checkpointing: bool = False) -> torch.Tensor:
+                added_cond: Optional[dict] = None, impl: str = "auto",
+                gradient_checkpointing: bool = False) -> torch.Tensor:
         """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
-        cond: (B, 77, cross_dim).  Returns the epsilon prediction."""
+        cond: (B, 77, cross_dim); ``added_cond``: SDXL's pooled text and
+        size conditioning (:meth:`time_embedding_apply`).  Returns the
+        epsilon prediction."""
         with span("unet"):
             return self._full(x, timestep, cond, impl=impl,
-                              gradient_checkpointing=gradient_checkpointing)[0]
+                              gradient_checkpointing=gradient_checkpointing,
+                              added_cond=added_cond)[0]

@@ -41,6 +41,13 @@ class VAEConfig:
     base_channels: int = 128
     ch_mult: tuple = (1, 2, 4, 4)
     norm_eps: float = 1e-6
+    # latents are the encoder's sample times this (SDXL's VAE: 0.13025)
+    scaling_factor: float = SD_LATENT_SCALE
+
+    @classmethod
+    def sdxl(cls) -> "VAEConfig":
+        """SDXL base 1.0's VAE: SD's architecture at scaling factor 0.13025."""
+        return cls(scaling_factor=0.13025)
 
     @classmethod
     def from_dict(cls, data: dict) -> "VAEConfig":
@@ -48,7 +55,8 @@ class VAEConfig:
         ``base_channels`` / ``ch_mult``; what the fixed topology (2 encoder
         and 3 decoder resnets a stage, GroupNorm(32)) cannot build raises."""
         kw = dict(in_channels=data.get("in_channels", 3), out_channels=data.get("out_channels", 3),
-                  latent_channels=data.get("latent_channels", 4))
+                  latent_channels=data.get("latent_channels", 4),
+                  scaling_factor=float(data.get("scaling_factor", SD_LATENT_SCALE)))
         boc = data.get("block_out_channels")
         if boc is not None:
             base = int(boc[0])
@@ -233,9 +241,10 @@ class VAEDecoder(nn.Module):
         return decoder_apply(self.decoder, z, self.cfg.norm_eps, impl)
 
     def decode(self, z: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-        """Latent -> image in [-1, 1]; divides by the 0.18215 latent scale."""
+        """Latent -> image in [-1, 1]; divides by the latent scale
+        (``cfg.scaling_factor``, SD's 0.18215 by default)."""
         with span("vae_decode"):
-            z = layers.conv2d(self.post_quant_conv, z / SD_LATENT_SCALE)
+            z = layers.conv2d(self.post_quant_conv, z / self.cfg.scaling_factor)
             return self.decoder_apply(z, impl=impl)
 
 
@@ -264,12 +273,12 @@ class VAE(VAEDecoder):
         """-> (latent, mean, stdev).  With ``noise`` the latent is
         mean + stdev * noise, unscaled (img2img, inpaint and training use
         this); without, the noise is drawn from ``generator`` and the latent
-        is scaled by 0.18215 (JAX's asymmetry, kept)."""
+        is scaled by ``cfg.scaling_factor`` (JAX's asymmetry, kept)."""
         mean, std = self.encode_moments(x, impl=impl)
         if noise is not None:
             return mean + std * noise, mean, std
         draw = torch.randn(std.shape, generator=generator, device=std.device).to(std.dtype)
-        return (mean + std * draw) * SD_LATENT_SCALE, mean, std
+        return (mean + std * draw) * self.cfg.scaling_factor, mean, std
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,15 @@ The pipeline carries its scheduler config, as JAX's does
 ``prediction_type``: :meth:`StableDiffusion.for_version` builds SD1.5
 (ViT-L, epsilon) or SD2.1 (OpenCLIP ViT-H, v-prediction), mirroring the JAX
 package's ``sd_version`` choice.  Without a config the schedule is SD1.5's.
+
+SDXL base (:meth:`StableDiffusion.sdxl`, or a diffusers directory with
+``text_encoder_2/``; no JAX counterpart) takes the same calls: the ids go
+to both text towers, the context is their penultimate states side by side,
+and every UNet pass of ``generate`` (img2img included) and ``inpaint``
+gets the second tower's pooled state and the time ids (the request's
+``img_size`` as original and target size, crop (0, 0)), CFG's halves in
+the context's order.  The one-step entry, training, sharding and W8A8 are
+not ported for it.
 """
 
 from __future__ import annotations
@@ -66,7 +75,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stable_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from stable_diffusion_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextModel,
+                                                    CLIPTextModelWithProjection)
 from stable_diffusion_tpu_torch.models.unet import UNet, UNetConfig
 from stable_diffusion_tpu_torch.models.vae import VAE, VAEConfig
 from stable_diffusion_tpu_torch.parallel import mesh as pmesh
@@ -219,8 +229,11 @@ def _prompts(prompt, uncond_prompt, batch_size: Optional[int]):
 
 @dataclasses.dataclass
 class StableDiffusion:
-    """The three models on one device, in one dtype, the ``impl`` switch and
-    the scheduler config (None: SD1.5's)."""
+    """The models on one device, in one dtype, the ``impl`` switch and the
+    scheduler config (None: SD1.5's).  SDXL adds ``text_encoder_2`` (a
+    :class:`CLIPTextModelWithProjection`): the context is both towers'
+    hidden states side by side, and the UNet's text-time conditioning takes
+    the second's pooled state with the size numbers of the request."""
 
     unet: UNet
     text_encoder: CLIPTextModel
@@ -229,24 +242,41 @@ class StableDiffusion:
     scheduler_config: Optional[dict] = None
     tokenizer: Any = None
     mesh: Any = None  # parallel.mesh.Mesh after shard()
+    text_encoder_2: Optional[CLIPTextModelWithProjection] = None
 
     @classmethod
     def build(cls, unet_config: UNetConfig, text_config: CLIPTextConfig,
               vae_config: VAEConfig = VAEConfig(), *, device="cuda", dtype=torch.float32,
-              impl: str = "auto", scheduler_config: Optional[dict] = None) -> "StableDiffusion":
+              impl: str = "auto", scheduler_config: Optional[dict] = None,
+              text_config_2: Optional[CLIPTextConfig] = None) -> "StableDiffusion":
         """Uninitialised models on ``device`` (the card unless the caller asks
         for the CPU): load a state_dict into each
         (``utils.weights.from_jax_params``) or initialise them
         (``utils.weights.init_random_``) before generating.  On a CUDA device
         the kernels take bf16: build with ``dtype=torch.bfloat16``, or use
         ``impl="torch"`` for f32 (the kernels raise on f32 rather than fall
-        back)."""
+        back).  ``text_config_2`` adds SDXL's second tower, its pooled state
+        projected at the tower's width; the UNet's ``cross_attention_dim`` is
+        then the two towers' widths together."""
         from stable_diffusion_tpu_torch.utils.weights import build
 
-        return cls(unet=build(UNet, unet_config, device=device, dtype=dtype),
+        pipe = cls(unet=build(UNet, unet_config, device=device, dtype=dtype),
                    text_encoder=build(CLIPTextModel, text_config, device=device, dtype=dtype),
                    vae=build(VAE, vae_config, device=device, dtype=dtype), impl=impl,
                    scheduler_config=scheduler_config)
+        if text_config_2 is not None:
+            pipe.text_encoder_2 = build(CLIPTextModelWithProjection, text_config_2,
+                                        device=device, dtype=dtype)
+        return pipe
+
+    @classmethod
+    def sdxl(cls, *, device="cuda", dtype=torch.float32, impl: str = "auto") -> "StableDiffusion":
+        """SDXL base 1.0 at its published widths (``UNetConfig.sdxl``,
+        ``CLIPTextConfig.sdxl_pair``, ``VAEConfig.sdxl``); its schedule is
+        SD1.5's, the default.  Uninitialised, as :meth:`build`."""
+        text, text_2 = CLIPTextConfig.sdxl_pair()
+        return cls.build(UNetConfig.sdxl(), text, VAEConfig.sdxl(), device=device, dtype=dtype,
+                         impl=impl, text_config_2=text_2)
 
     @classmethod
     def for_version(cls, sd_version: str = "1.5", *, device="cuda", dtype=torch.float32,
@@ -266,7 +296,9 @@ class StableDiffusion:
                         tokenizer=None, impl: str = "auto", device="cuda") -> "StableDiffusion":
         """The models of a diffusers directory (``unet/``, ``text_encoder/``,
         ``vae/``, each a ``config.json`` and a safetensors file, and an
-        optional ``scheduler/scheduler_config.json``) or of a single
+        optional ``scheduler/scheduler_config.json``; SDXL's also
+        ``text_encoder_2/``, and then both towers hand on their penultimate
+        layers) or of a single
         CompVis/LDM ``.ckpt`` / ``.safetensors`` file, whose configs come
         from ``sd_version`` (:meth:`for_version`).  The modules are built on
         ``device`` in ``dtype`` and the checkpoint's tensors copied into
@@ -283,21 +315,31 @@ class StableDiffusion:
                     return json.load(f)
 
             sched = os.path.join(path, "scheduler", "scheduler_config.json")
-            pipe = cls.build(UNetConfig.from_dict(config("unet")),
-                             CLIPTextConfig.from_dict(config("text_encoder")),
+            xl = os.path.isdir(os.path.join(path, "text_encoder_2"))
+            text = [CLIPTextConfig.from_dict(config(sub))
+                    for sub in ("text_encoder", "text_encoder_2")[:1 + xl]]
+            if xl:
+                text = [dataclasses.replace(c, hidden_state="penultimate") for c in text]
+                width = config("text_encoder_2").get("projection_dim", text[1].hidden_size)
+                if width != text[1].hidden_size:
+                    raise ValueError(f"text_encoder_2 projects {text[1].hidden_size} -> {width}; "
+                                     "the port's SDXL tower projects at its own width")
+            pipe = cls.build(UNetConfig.from_dict(config("unet")), text[0],
                              VAEConfig.from_dict(config("vae")), device=device, dtype=dtype,
                              impl=impl,
                              scheduler_config=config("scheduler", "scheduler_config.json")
-                             if os.path.exists(sched) else None)
+                             if os.path.exists(sched) else None,
+                             text_config_2=text[1] if xl else None)
             states = {
                 "unet": mc.load_unet_diffusers(
                     os.path.join(path, "unet", "diffusion_pytorch_model.safetensors")),
-                "text_encoder": mc.load_text_encoder_diffusers(
-                    os.path.join(path, "text_encoder", "model.safetensors")),
                 "vae": mc.load_vae_diffusers(
                     os.path.join(path, "vae", "diffusion_pytorch_model.safetensors")),
             }
-        for name in ("unet", "text_encoder", "vae"):
+            for sub in ("text_encoder", "text_encoder_2")[:1 + xl]:
+                states[sub] = mc.load_text_encoder_diffusers(
+                    os.path.join(path, sub, "model.safetensors"))
+        for name in list(states):
             mc.load_into(getattr(pipe, name), states.pop(name))
         pipe.tokenizer = tokenizer
         return pipe
@@ -307,6 +349,8 @@ class StableDiffusion:
         ``shard``): the UNet's and text tower's transformer linears keep
         this rank's slices over "model" (``shard_module_``), the VAE stays
         replicated, and requests then split their lanes over "data"."""
+        if self.text_encoder_2 is not None:
+            raise NotImplementedError("sharding an SDXL pipeline (two text towers) is not ported")
         for m in (self.unet, self.text_encoder):
             pmesh.shard_module_(m, mesh)
         self.mesh = mesh
@@ -349,17 +393,39 @@ class StableDiffusion:
         return dev
 
     @torch.no_grad()
-    def encode_text(self, input_ids) -> torch.Tensor:
+    def encode_text(self, input_ids, *, return_pooled: bool = False):
         """(B, 77) token ids -> the text tower's (B, 77, D) context on the
-        pipeline's device (JAX ``encode_text``)."""
+        pipeline's device (JAX ``encode_text``).  With SDXL's second tower
+        the same ids go through both and the context is their hidden
+        states side by side (D = D1 + D2); ``return_pooled`` also returns
+        the second tower's pooled state (B, P), None without one."""
         with span("text"):
             ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
-            return self.text_encoder(ids, impl=self.impl)
+            context, pooled = self.text_encoder(ids, impl=self.impl), None
+            if self.text_encoder_2 is not None:
+                hidden, pooled = self.text_encoder_2(ids, impl=self.impl)
+                context = torch.cat([context, hidden], dim=-1)
+            return (context, pooled) if return_pooled else context
 
-    def _context(self, first_ids, second_ids=None) -> torch.Tensor:
-        """The text tower on [first; second] token ids (second None: first alone)."""
+    def _context(self, first_ids, second_ids=None):
+        """(context, pooled state or None) of the text towers on [first;
+        second] token ids (second None: first alone)."""
         ids = [np.asarray(i) for i in (first_ids, second_ids) if i is not None]
-        return self.encode_text(np.concatenate(ids, axis=0))
+        return self.encode_text(np.concatenate(ids, axis=0), return_pooled=True)
+
+    def _added_cond(self, pooled, img_size) -> Optional[dict]:
+        """The UNet's SDXL conditioning for a request at ``img_size``, one
+        row a row of ``pooled``: the pooled text state and the time ids
+        (original size, crop top-left (0, 0), target size), the original
+        and target sizes being ``img_size``; None for a UNet without it."""
+        if self.unet.cfg.addition_embed_type is None:
+            return None
+        if pooled is None:
+            raise ValueError("an SDXL UNet needs the pooled text state: pass token ids or prompts, "
+                             "not a precomputed context")
+        h, w = img_size
+        ids = torch.tensor([[h, w, 0, 0, h, w]], dtype=torch.float32, device=pooled.device)
+        return {"text_embeds": pooled, "time_ids": ids.expand(pooled.shape[0], 6)}
 
     def _ids(self, cond_ids, uncond_ids, prompt, uncond_prompt, batch_size, do_cfg: bool, what: str):
         """(cond, uncond or None) token ids: those given, else the prompts'
@@ -393,7 +459,7 @@ class StableDiffusion:
                  order: str, sampler: str, prediction_type: str, eta: float, draws: _Draws,
                  step_noise=None, blend: Optional[Callable] = None,
                  deepcache_interval: int = 1, progress_callback: Optional[Callable] = None,
-                 progress_every: int = 5) -> torch.Tensor:
+                 progress_every: int = 5, added_cond: Optional[dict] = None) -> torch.Tensor:
         """The denoise loop: CFG UNet step, ``blend(latents, t, eps)`` (inpaint),
         then the sampler's step; DDPM takes a fresh noise every step, DDIM
         one only when eta > 0.  With ``deepcache_interval`` k > 1 (JAX
@@ -403,7 +469,8 @@ class StableDiffusion:
         ``progress_callback`` (JAX's progress mode) the steps run in
         segments of ``progress_every``, the callback called with (0, n) and
         then (steps done, n) after each; i counts from 0 again in each
-        segment, so DeepCache restarts there."""
+        segment, so DeepCache restarts there.  ``added_cond`` (SDXL) goes
+        to every UNet pass, its rows those of ``context``."""
         needs_noise = sampler == "ddpm" or eta > 0
         if step_noise is not None and needs_noise:
             want = (len(ts), *draws.full(latents.shape))
@@ -417,17 +484,18 @@ class StableDiffusion:
             b, h, w = latents.shape[0] * (2 if do_cfg else 1), *latents.shape[1:3]
             deep = torch.zeros((b, h, w, self.unet.cfg.block_out_channels[1]),
                                dtype=latents.dtype, device=latents.device)
+        kw = dict(added_cond=added_cond, impl=self.impl)
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
             j = i % seg  # the step's index in its segment
             with span("denoise_step"):
                 model_in = torch.cat([latents, latents], dim=0) if do_cfg else latents
                 t_in = torch.full((1,), t, dtype=torch.long, device=latents.device)
                 if k <= 1:
-                    pred = self.unet(model_in, t_in, context, impl=self.impl)
+                    pred = self.unet(model_in, t_in, context, **kw)
                 elif j % k == 0:
-                    pred, deep = self.unet.forward_split(model_in, t_in, context, impl=self.impl)
+                    pred, deep = self.unet.forward_split(model_in, t_in, context, **kw)
                 else:
-                    pred = self.unet.forward_cached(model_in, t_in, context, deep, impl=self.impl)
+                    pred = self.unet.forward_cached(model_in, t_in, context, deep, **kw)
                 with span("sampler"):
                     eps = cfg_combine(pred, cfg_scale, order) if do_cfg else pred
                     if blend is not None:
@@ -485,6 +553,7 @@ class StableDiffusion:
         dev, dtype, impl, mesh = self._device(), self.dtype, self.impl, self.mesh
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
+        pooled = None
         if context is not None:
             context = torch.as_tensor(context).to(device=dev, dtype=dtype)
             if context.dim() == 2:
@@ -503,7 +572,9 @@ class StableDiffusion:
             if mesh is not None:
                 cond_ids, uncond_ids = (None if i is None else pmesh.data_sharding(i, mesh)
                                         for i in (cond_ids, uncond_ids))
-            context = self._context(uncond_ids, cond_ids) if do_cfg else self._context(cond_ids)
+            context, pooled = (self._context(uncond_ids, cond_ids) if do_cfg
+                               else self._context(cond_ids))
+        added_cond = self._added_cond(pooled, img_size)
         lanes = None if mesh is None else mesh.lanes(b)
         h, w = img_size
         lat_shape = (b, h // 8, w // 8, 4)
@@ -533,7 +604,8 @@ class StableDiffusion:
                                 do_cfg=do_cfg, order="uncond_first", sampler=sampler,
                                 prediction_type=sched.prediction_type, eta=eta, draws=draws,
                                 step_noise=step_noise, deepcache_interval=deepcache_interval,
-                                progress_callback=progress_callback, progress_every=progress_every)
+                                progress_callback=progress_callback, progress_every=progress_every,
+                                added_cond=added_cond)
         if return_latents:
             return self._gather(latents).float().cpu().numpy()
         return _finish(self._gather(self.vae.decode(latents, impl=impl)), output_dtype, "generate")
@@ -569,7 +641,7 @@ class StableDiffusion:
         if b < rows:
             raise ValueError(f"batch_size={b} is smaller than the {rows} rows of cond_ids; "
                              "pass at most batch_size rows or omit batch_size")
-        context = self._context(cond_ids)
+        context, _ = self._context(cond_ids)
         if b != rows:  # ceil-tile then slice: lane i takes row i % rows
             context = context.repeat(-(-b // rows), 1, 1)[:b]
         lanes = None if mesh is None else mesh.lanes(b)
@@ -617,7 +689,9 @@ class StableDiffusion:
             raise ValueError("inpaint needs input_image and mask")
         cond_ids, uncond_ids = self._ids(cond_ids, uncond_ids, prompt, uncond_prompt, None, do_cfg,
                                          "inpaint")
-        context = self._context(cond_ids, uncond_ids) if do_cfg else self._context(cond_ids)
+        context, pooled = (self._context(cond_ids, uncond_ids) if do_cfg
+                           else self._context(cond_ids))
+        added_cond = self._added_cond(pooled, img_size)
         h, w = img_size
         lat_shape = (1, h // 8, w // 8, 4)
         sched = self.make_schedule(use_cosine_schedule)
@@ -639,7 +713,8 @@ class StableDiffusion:
                                 do_cfg=do_cfg, order="cond_first", sampler=sampler,
                                 prediction_type=sched.prediction_type, eta=0.0, draws=draws,
                                 step_noise=step_noise, blend=blend,
-                                progress_callback=progress_callback, progress_every=progress_every)
+                                progress_callback=progress_callback, progress_every=progress_every,
+                                added_cond=added_cond)
         if return_latents:
             return latents.float().cpu().numpy()
         imgs = self.vae.decode(latents, impl=impl).float()

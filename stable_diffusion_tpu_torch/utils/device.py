@@ -98,8 +98,10 @@ def span(name: str):
 
     The spans: ``denoise_step`` (one step of the denoise loop, or the one
     UNet pass and x0 of the one-step model), ``unet`` (a UNet pass),
-    ``sampler`` (CFG combine, inpaint blend, step noise, the sampler's
-    step), ``text`` (the text tower), ``vae_decode``, ``to_host`` (the
+    ``transformer`` (one transformer stack of the UNet), ``add_embed``
+    (SDXL's pooled and size conditioning), ``sampler`` (CFG combine,
+    inpaint blend, step noise, the sampler's step), ``text`` (the text
+    tower, both of SDXL's), ``vae_decode``, ``to_host`` (the
     images' finite check, rounding and copy to the host), ``train_step``
     (one micro-step), ``lora_merge``, ``backward``, ``optimizer`` (the
     update, its application and the EMA) and ``K1``..``K12`` (a

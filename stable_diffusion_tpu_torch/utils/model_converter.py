@@ -131,19 +131,20 @@ def _unet_rules() -> List[Rule]:
         (r"proj_in\.bias", r"conv_input.bias", None),
         (r"proj_out\.weight", r"conv_output.weight", _as_conv1x1),
         (r"proj_out\.bias", r"conv_output.bias", None),
-        (r"transformer_blocks\.0\.norm1\.(weight|bias)", r"transformer_block.layernorm_1.\1", None),
-        (r"transformer_blocks\.0\.norm2\.(weight|bias)", r"transformer_block.layernorm_2.\1", None),
-        (r"transformer_blocks\.0\.norm3\.(weight|bias)", r"transformer_block.layernorm_3.\1", None),
-        (r"transformer_blocks\.0\.attn(\d)\.to_q\.(weight|bias)", r"transformer_block.attn\1.q_proj.\2", None),
-        (r"transformer_blocks\.0\.attn(\d)\.to_k\.(weight|bias)", r"transformer_block.attn\1.k_proj.\2", None),
-        (r"transformer_blocks\.0\.attn(\d)\.to_v\.(weight|bias)", r"transformer_block.attn\1.v_proj.\2", None),
-        (r"transformer_blocks\.0\.attn(\d)\.to_out\.0\.(weight|bias)", r"transformer_block.attn\1.out_proj.\2", None),
-        (r"transformer_blocks\.0\.ff\.net\.0\.proj\.(weight|bias)", r"transformer_block.ffn.0.proj.\1", None),
-        (r"transformer_blocks\.0\.ff\.net\.2\.(weight|bias)", r"transformer_block.ffn.1.\1", None),
+        (r"transformer_blocks\.(\d+)\.norm1\.(weight|bias)", r"transformer_blocks.\1.layernorm_1.\2", None),
+        (r"transformer_blocks\.(\d+)\.norm2\.(weight|bias)", r"transformer_blocks.\1.layernorm_2.\2", None),
+        (r"transformer_blocks\.(\d+)\.norm3\.(weight|bias)", r"transformer_blocks.\1.layernorm_3.\2", None),
+        (r"transformer_blocks\.(\d+)\.attn(\d)\.to_q\.(weight|bias)", r"transformer_blocks.\1.attn\2.q_proj.\3", None),
+        (r"transformer_blocks\.(\d+)\.attn(\d)\.to_k\.(weight|bias)", r"transformer_blocks.\1.attn\2.k_proj.\3", None),
+        (r"transformer_blocks\.(\d+)\.attn(\d)\.to_v\.(weight|bias)", r"transformer_blocks.\1.attn\2.v_proj.\3", None),
+        (r"transformer_blocks\.(\d+)\.attn(\d)\.to_out\.0\.(weight|bias)", r"transformer_blocks.\1.attn\2.out_proj.\3", None),
+        (r"transformer_blocks\.(\d+)\.ff\.net\.0\.proj\.(weight|bias)", r"transformer_blocks.\1.ffn.0.proj.\2", None),
+        (r"transformer_blocks\.(\d+)\.ff\.net\.2\.(weight|bias)", r"transformer_blocks.\1.ffn.1.\2", None),
     ]
     rules: List[Tuple] = [
         (r"time_embedding\.linear_1\.(weight|bias)", r"time_embedding.ffn.0.\1"),
         (r"time_embedding\.linear_2\.(weight|bias)", r"time_embedding.ffn.2.\1"),
+        (r"add_embedding\.(linear_[12])\.(weight|bias)", r"add_embedding.\1.\2"),
         (r"conv_in\.(weight|bias)", r"encoder.conv_in.\1"),
         (r"conv_norm_out\.(weight|bias)", r"output.0.\1"),
         (r"conv_out\.(weight|bias)", r"output.2.\1"),
@@ -173,10 +174,28 @@ def _unet_rules() -> List[Rule]:
 _UNET_RULES = _unet_rules()
 
 
+_STACK = re.compile(r"(.*\.)transformer_blocks\.(\d+)\.(.*)")
+
+
+def _single_blocks(flat: Flat) -> Flat:
+    """A transformer whose checkpoint holds block 0 alone is the port's
+    depth-1 ``Transformer``: its ``transformer_blocks.0.*`` become
+    ``transformer_block.*``; deeper stacks keep ``transformer_blocks.{k}``."""
+    deep = {m.group(1) for k in flat if (m := _STACK.fullmatch(k)) and m.group(2) != "0"}
+    out: Flat = {}
+    for k, v in flat.items():
+        m = _STACK.fullmatch(k)
+        if m and m.group(1) not in deep:
+            k = f"{m.group(1)}transformer_block.{m.group(3)}"
+        out[k] = v
+    return out
+
+
 def convert_unet_diffusers(flat: Mapping[str, torch.Tensor]) -> Flat:
-    """A diffusers UNet state dict (SD1.5's conv or SD2.1's linear
-    proj_in / proj_out) -> the port's ``UNet`` state dict."""
-    return remap(flat, _UNET_RULES)
+    """A diffusers UNet state dict (SD1.5's conv or SD2.1's and SDXL's
+    linear proj_in / proj_out; SDXL's deeper transformer stacks and
+    ``add_embedding``) -> the port's ``UNet`` state dict."""
+    return _single_blocks(remap(flat, _UNET_RULES))
 
 
 def load_unet_diffusers(path: str) -> Flat:
@@ -208,7 +227,9 @@ def load_vae_diffusers(path: str) -> Flat:
 
 def convert_text_encoder_diffusers(flat: Mapping[str, torch.Tensor]) -> Flat:
     """HF ``CLIPTextModel`` naming is the port's under ``text_model.``: strip
-    that root and drop ``position_ids`` (a buffer, not a weight)."""
+    that root and drop ``position_ids`` (a buffer, not a weight).
+    ``CLIPTextModelWithProjection``'s ``text_projection`` (SDXL's
+    ``text_encoder_2/``) keeps its name."""
     out = {}
     for k, v in flat.items():
         if k.split(".")[-1] == "position_ids":

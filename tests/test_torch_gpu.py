@@ -1720,3 +1720,69 @@ def test_train_checkpoint_loads_back_onto_cuda_bit_for_bit(gen, tmp_path):
     assert len(a) == len(b) > 0
     for x, y in zip(a, b):
         assert y.is_cuda and y.dtype == x.dtype and torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# SDXL base at full width
+# ---------------------------------------------------------------------------
+
+# relative L2 gap of the bf16 kernels from the plain f32 path on the same
+# values, for a whole SDXL UNet call and a 1024^2 decode (seeded random
+# weights: bf16's rounding, grown through 70 transformer blocks)
+SDXL_REL_L2 = 5e-2
+
+
+def _rel_l2(got, ref):
+    got, ref = got.float(), ref.float()
+    return (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item()
+
+
+def test_sdxl_unet_and_decode_at_full_width(gen):
+    """SDXL base at its published widths (seeded random weights): one UNet
+    call on 128^2 latents at batch 2 with the text-time conditioning, and a
+    1024^2 decode at batch 2, in bf16 on K1-K4, against the plain path in
+    f32 (TF32 off) on the same values: finite and within SDXL_REL_L2.  It
+    launches the kernel shapes no SD cell reaches: K3's ring body at s =
+    4096 (10 heads) and 1024 (20 heads) of d = 64, its cross body on the
+    2048-wide context's 77 keys, its wide body at d = 512, s = 16384; K4 at
+    C = 640 and 1280; K2 at 128^2 x 320 and 1024^2 x 128; and never K3's
+    general body."""
+    import copy
+
+    from stable_diffusion_tpu_torch.pipeline import StableDiffusion
+    from stable_diffusion_tpu_torch.utils.weights import init_random_
+
+    pipe = StableDiffusion.sdxl(device="cuda", dtype=torch.bfloat16, impl="cuda")
+    for i, m in enumerate((pipe.unet, pipe.vae)):
+        init_random_(m, i)
+    x, ctx, pooled = _rn(gen, 2, 128, 128, 4), _rn(gen, 2, 77, 2048), _rn(gen, 2, 1280)
+    t = torch.tensor([500], device="cuda")
+    added = pipe._added_cond(pooled, (1024, 1024))
+    (eps, img), shapes = _recorded(lambda: (pipe.unet(x, t, ctx, added_cond=added, impl="cuda"),
+                                            pipe.vae.decode(x, impl="cuda")))
+    assert eps.shape == (2, 128, 128, 4) and img.shape == (2, 1024, 1024, 3)
+    assert torch.isfinite(eps).all() and torch.isfinite(img).all()
+    for key in ((2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64), (2, 4096, 77, 10, 64),
+                (2, 1024, 77, 20, 64), (2, 16384, 16384, 1, 512)):
+        assert shapes["K3"][key] > 0, key
+    assert shapes["K4"][(8192, 640)] == 2 * 2 + 3 * 2 and shapes["K4"][(2048, 1280)] == 10 * 6
+    assert shapes["K2"][(2, 128, 128, 320, 320, True)] > 0
+    assert shapes["K2"][(2, 1024, 1024, 128, 128, True)] > 0
+    assert not shapes["general"]
+    unet32, vae32 = copy.deepcopy(pipe.unet).float(), copy.deepcopy(pipe.vae).float()
+    del pipe
+    torch.cuda.empty_cache()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = unet32(x.float(), t, ctx.float(), impl="torch",
+                         added_cond={k: v.float() for k, v in added.items()})
+            del unet32
+            torch.cuda.empty_cache()
+            ref_img = vae32.decode(x.float(), impl="torch")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    gaps = _rel_l2(eps, ref), _rel_l2(img, ref_img)
+    print(f"sdxl full width: UNet rel L2 {gaps[0]:.4g}, decode rel L2 {gaps[1]:.4g}")
+    assert max(gaps) <= SDXL_REL_L2, gaps

@@ -83,14 +83,17 @@ def test_spans_off_leave_no_trace(pipe):
     assert span("unet") is span("vae_decode")  # the one shared null context
 
 
-# the exact count of each span a call opens on the CPU (no kernel spans there)
+# the exact count of each span a call opens on the CPU (no kernel spans there);
+# the tiny UNet has 16 transformer stacks (2 down and 3 up blocks at each of
+# its three attention stages, and the bottleneck's)
+STACKS = 16
 WANT = {
     "generate": (_generate, {"text": 1, "denoise_step": 2, "unet": 2, "sampler": 2,
-                             "vae_decode": 1, "to_host": 1}),
+                             "vae_decode": 1, "to_host": 1, "transformer": 2 * STACKS}),
     "one_step": (_one_step, {"text": 1, "denoise_step": 1, "unet": 1, "sampler": 1,
-                             "vae_decode": 1, "to_host": 1}),
+                             "vae_decode": 1, "to_host": 1, "transformer": STACKS}),
     "train_step": (_train_step, {"train_step": 1, "lora_merge": 1, "unet": 1, "backward": 1,
-                                 "optimizer": 1}),
+                                 "optimizer": 1, "transformer": STACKS}),
 }
 
 
@@ -110,3 +113,5 @@ def test_spans_counted_and_nested(pipe, call):
     for name in inner:
         for s, e in spans[name]:
             assert any(s0 <= s and e <= e0 for s0, e0 in spans[outer]), (name, s, e)
+    for s, e in spans["transformer"]:
+        assert any(s0 <= s and e <= e0 for s0, e0 in spans["unet"]), ("transformer", s, e)

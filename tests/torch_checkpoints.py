@@ -62,10 +62,15 @@ _D_PROJ = {"q_proj": "to_q", "k_proj": "to_k", "v_proj": "to_v", "out_proj": "to
 
 
 def _d_attn(inner: str) -> str:
+    """The diffusers name of a transformer's key: its one ``transformer_block``
+    or a deeper stack's ``transformer_blocks.{k}`` (SDXL)."""
+    m = re.fullmatch(r"transformer_blocks\.(\d+)\.(.*)", inner)
+    k, inner = (m.group(1), "transformer_block." + m.group(2)) if m else ("0", inner)
     m = re.fullmatch(r"transformer_block\.(attn\d)\.(\w+)", inner)
     if m:
-        return f"transformer_blocks.0.{m.group(1)}.{_D_PROJ[m.group(2)]}"
-    return _D_ATTN[inner.removeprefix("transformer_block.")]
+        return f"transformer_blocks.{k}.{m.group(1)}.{_D_PROJ[m.group(2)]}"
+    return _D_ATTN[inner.removeprefix("transformer_block.")].replace(
+        "transformer_blocks.0.", f"transformer_blocks.{k}.")
 
 
 def diffusers_unet_key(key: str) -> str:
@@ -73,6 +78,8 @@ def diffusers_unet_key(key: str) -> str:
     stem, leaf = key.rsplit(".", 1)
     simple = {"time_embedding.ffn.0": "time_embedding.linear_1",
               "time_embedding.ffn.2": "time_embedding.linear_2", "encoder.conv_in": "conv_in",
+              "add_embedding.linear_1": "add_embedding.linear_1",
+              "add_embedding.linear_2": "add_embedding.linear_2",
               "output.0": "conv_norm_out", "output.2": "conv_out"}
     if stem in simple:
         return f"{simple[stem]}.{leaf}"
@@ -125,12 +132,23 @@ def to_diffusers_text(state: Mapping[str, torch.Tensor], n_positions: int = 77):
     return out
 
 
+def to_diffusers_text_2(state: Mapping[str, torch.Tensor], n_positions: int = 77):
+    """HF ``CLIPTextModelWithProjection`` naming: the tower under
+    ``text_model.``, ``text_projection`` at the root."""
+    out = to_diffusers_text({k: v for k, v in state.items()
+                             if not k.startswith("text_projection.")}, n_positions)
+    out["text_projection.weight"] = state["text_projection.weight"]
+    return out
+
+
 def write_diffusers_dir(root: str, unet: Mapping, text: Mapping, vae: Mapping, *, unet_config: dict,
                         text_config: dict, vae_config: dict, scheduler_config: Optional[dict] = None,
                         dtype: Optional[torch.dtype] = None, linear_proj: bool = False,
-                        swiftbrush: bool = False) -> None:
-    """A diffusers model directory of three port state dicts (cast to
-    ``dtype`` when given; ``position_ids`` stay int64)."""
+                        swiftbrush: bool = False, text_2: Optional[Mapping] = None,
+                        text_config_2: Optional[dict] = None) -> None:
+    """A diffusers model directory of three port state dicts, or four with
+    SDXL's ``text_2`` (cast to ``dtype`` when given; ``position_ids`` stay
+    int64)."""
     def cast(sd):
         return {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v).contiguous()
                 for k, v in sd.items()}
@@ -141,7 +159,10 @@ def write_diffusers_dir(root: str, unet: Mapping, text: Mapping, vae: Mapping, *
             ("text_encoder", to_diffusers_text(text, text_config.get("max_position_embeddings", 77)),
              "model.safetensors", text_config),
             ("vae", to_diffusers_vae(vae, swiftbrush=swiftbrush), "diffusion_pytorch_model.safetensors",
-             vae_config)):
+             vae_config)) + (() if text_2 is None else (
+            ("text_encoder_2",
+             to_diffusers_text_2(text_2, text_config_2.get("max_position_embeddings", 77)),
+             "model.safetensors", text_config_2),)):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         safetensors_io.save_file(cast(sd), os.path.join(root, sub, name))
         with open(os.path.join(root, sub, "config.json"), "w") as f:
