@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Union
 
 import torch
@@ -63,6 +64,7 @@ from stable_diffusion_tpu_torch.ops.ffn import geglu_ffn, geglu_ffn_w8a8
 from stable_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 from stable_diffusion_tpu_torch.ops.linear import gn_matmul, matmul_residual
 from stable_diffusion_tpu_torch.parallel.mesh import reduce_add, row_parallel
+from stable_diffusion_tpu_torch.utils import graphs
 from stable_diffusion_tpu_torch.utils.device import cached, span
 
 
@@ -506,8 +508,25 @@ class UNet(nn.Module):
         """x: (B, H, W, in_channels) NHWC latents; timestep: (B,) or (1,);
         cond: (B, 77, cross_dim); ``added_cond``: SDXL's pooled text and
         size conditioning (:meth:`time_embedding_apply`).  Returns the
-        epsilon prediction."""
+        epsilon prediction.
+
+        On the card's kernels, with nothing for autograd to record, no
+        calibration capture and no tensor-parallel shard, the pass replays
+        as a CUDA graph (utils/graphs.py) from its second call at a
+        signature and weights on; the graph launches the same kernels."""
         with span("unet"):
+            keys = None if added_cond is None else tuple(sorted(added_cond))
+            inputs = (x, timestep, cond, *(added_cond[k] for k in keys or ()))
+            if (graphs.replays(x, impl, gradient_checkpointing) and layers.CAPTURE is None
+                    and all(isinstance(t, torch.Tensor) and t.device == x.device
+                            for t in inputs)):
+                def run(x, timestep, cond, *added):
+                    return self._full(x, timestep, cond, impl=impl, gradient_checkpointing=False,
+                                      added_cond=None if keys is None else dict(zip(keys, added))
+                                      )[0]
+
+                switches = tuple(os.environ.get(k) for k in ("SD_TPU_FUSED_MM", "SD_TPU_WINOGRAD"))
+                return graphs.cache(self, "unet_replay")(self, run, inputs, (impl, keys, switches))
             return self._full(x, timestep, cond, impl=impl,
                               gradient_checkpointing=gradient_checkpointing,
                               added_cond=added_cond)[0]

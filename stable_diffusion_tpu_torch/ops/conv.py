@@ -54,7 +54,7 @@ from stable_diffusion_tpu_torch.ops.groupnorm import (GnOps, gn_scale_shift_kern
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, quantize_act
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, cached, require,
                                                      require_inference, require_no_grad, use_kernel,
-                                                     wants_grad)
+                                                     wants_grad, workspace_table)
 
 K2 = LaunchCounter("K2")
 K7 = LaunchCounter("K7")
@@ -340,8 +340,8 @@ def taps_q(weight_q: torch.Tensor) -> torch.Tensor:
                   lambda: weight_q.permute(2, 3, 0, 1).contiguous())
 
 
-_Q_CODES = {}  # device index -> int8 scratch: launch 1's codes
-_Q_WS = {}     # device index -> zero int32: split-K sums, then tickets; left zero
+_Q_CODES = workspace_table()  # device index -> int8 scratch: launch 1's codes
+_Q_WS = workspace_table()     # device index -> zero int32: split-K sums, then tickets; left zero
 
 
 def _q_scratch(x: torch.Tensor, nbytes: int) -> int:

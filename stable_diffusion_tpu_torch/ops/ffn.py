@@ -47,7 +47,7 @@ from stable_diffusion_tpu_torch.ops.linear import layer_norm_plain, matmul_w8a8_
 from stable_diffusion_tpu_torch.ops.quantize import folded_scales
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
                                                      require_inference, require_no_grad, use_kernel,
-                                                     wants_grad)
+                                                     wants_grad, workspace_table)
 
 K4 = LaunchCounter("K4")
 K9 = LaunchCounter("K9")
@@ -175,7 +175,7 @@ def ffn_plan(m: int, c: int, sms: int = 132, g1: tuple = None, g2: tuple = None,
     return FfnPlan(g1, best[1], g2, ksplit2, smem1, _dn_smem(*g2[:3]))
 
 
-_SCRATCH = {}  # device index -> uint8 scratch: G1's output h, G2's split-K partials
+_SCRATCH = workspace_table()  # device index -> uint8 scratch: G1's output h, G2's split-K partials
 
 
 def _scratch(x: torch.Tensor, nbytes: int) -> int:
@@ -366,7 +366,7 @@ def ffn_q_plan(m: int, c: int, hidden: int, sms: int = 132, g2: tuple = None) ->
     return FfnQPlan(g1, best[1], g2, smem1, g2_smem(*g2))
 
 
-_Q_SCRATCH = {}  # device index -> int8 scratch: the LN'd rows' codes, then G1's codes
+_Q_SCRATCH = workspace_table()  # device index -> int8 scratch: the LN'd rows' codes, then G1's codes
 
 
 def _q_scratch(x: torch.Tensor, nbytes: int) -> int:

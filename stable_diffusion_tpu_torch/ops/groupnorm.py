@@ -35,7 +35,8 @@ import torch
 from stable_diffusion_tpu_torch.ops import _cuda
 from stable_diffusion_tpu_torch.ops._autograd import Recompute
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
-                                                     require_no_grad, use_kernel, wants_grad)
+                                                     require_no_grad, use_kernel, wants_grad,
+                                                     workspace_table)
 
 K1 = LaunchCounter("K1")
 
@@ -270,7 +271,7 @@ def gn_bwd_plan(b: int, hw: int, c: int, num_groups: int = 32, sms: int = 132,
     return GnBwdPlan(vec, p.gs, p.lanes, p.tr, chunk, -(-hw // chunk), p.slabs, p.mlanes)
 
 
-_WORKSPACE = {}  # device index -> [partials f32, tickets int32 (all 0), scratch f32]
+_WORKSPACE = workspace_table()  # device index -> [partials f32, tickets int32 (all 0), scratch f32]
 
 
 def _workspace(x: torch.Tensor, n_part: int, n_count: int, n_ss: int = 0):

@@ -71,7 +71,7 @@ from stable_diffusion_tpu_torch.ops.groupnorm import (gn_scale_shift_kernel, gro
 from stable_diffusion_tpu_torch.ops.quantize import act_step, folded_scales, int_matmul, quantize_act
 from stable_diffusion_tpu_torch.utils.device import (LaunchCounter, at_least_f32, require,
                                                      require_inference, require_no_grad, use_kernel,
-                                                     wants_grad)
+                                                     wants_grad, workspace_table)
 
 K8 = LaunchCounter("K8")
 K10 = LaunchCounter("K10")
@@ -254,7 +254,7 @@ def linear_plan(m: int, k: int, n: int, prologue: str = "none", sms: int = 132,
     return LinearPlan(v, ntiles, ks, lin_smem(*v[:4], kch))
 
 
-_LIN_WS = {}  # device index -> f32 scratch: split-K partials
+_LIN_WS = workspace_table()  # device index -> f32 scratch: split-K partials
 
 
 def _lin_workspace(x: torch.Tensor, floats: int) -> int:
@@ -538,8 +538,8 @@ def linear_q_plan(m: int, k: int, n: int, sms: int = 132, variant: tuple = None)
     return make(*best[1:])
 
 
-_LQ_WS = {}  # device index -> int32 workspace: split-K sums, then tickets; left zero
-_LQ_Q = {}   # device index -> uint8 scratch: the quantized rows
+_LQ_WS = workspace_table()  # device index -> int32 workspace: split-K sums, then tickets; left zero
+_LQ_Q = workspace_table()   # device index -> uint8 scratch: the quantized rows
 
 
 def _lq_workspace(x: torch.Tensor, ints: int) -> int:

@@ -1,6 +1,8 @@
 """The ``impl`` switch, the launch counters every kernel wrapper keeps, the
-spans that name the port's work on the profiler's clock, and the cache of
-the tensors a wrapper derives from its weights."""
+spans that name the port's work on the profiler's clock, the cache of the
+tensors a wrapper derives from its weights, the wrappers' per-device
+scratch tables, and what a CUDA-graph capture (utils/graphs.py) gathers
+from all of them."""
 
 from __future__ import annotations
 
@@ -98,7 +100,10 @@ def span(name: str):
 
     The spans: ``denoise_step`` (one step of the denoise loop, or the one
     UNet pass and x0 of the one-step model), ``unet`` (a UNet pass),
-    ``transformer`` (one transformer stack of the UNet), ``add_embed``
+    ``unet_replay`` (inside ``unet``: the pass replayed as a CUDA graph,
+    utils/graphs.py; its ``transformer``, ``add_embed`` and kernel spans
+    are not opened then), ``transformer`` (one transformer stack of the
+    UNet), ``add_embed``
     (SDXL's pooled and size conditioning), ``sampler`` (CFG combine,
     inpaint blend, step noise, the sampler's step), ``text`` (the text
     tower, both of SDXL's), ``vae_decode``, ``to_host`` (the
@@ -133,9 +138,18 @@ class LaunchCounter:
         return span(self.name)
 
     def launched(self, key) -> None:
+        if _CAPTURE is not None:  # inside a graph capture: counted at each replay instead
+            _CAPTURE.launches.append((self, key))
+            return
         self.launches += 1
         if self.shapes is not None:
             self.shapes[key] += 1
+
+    def credit(self, launches: int, keys: collections.Counter) -> None:
+        """Count a replayed graph's ``launches`` of the kernel, with their shape keys."""
+        self.launches += launches
+        if self.shapes is not None:
+            self.shapes.update(keys)
 
     def reset(self) -> None:
         self.launches = 0
@@ -160,7 +174,55 @@ def cached(owner, attr: str, tensors: Sequence[torch.Tensor], make: Callable):
     hit = owner.__dict__.get(attr)
     if (hit is not None and len(hit[0]) == len(tensors)
             and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == key):
-        return hit[2]
-    value = make()
-    owner.__dict__[attr] = ([weakref.ref(t) for t in tensors], key, value)
+        value = hit[2]
+    else:
+        value = make()
+        owner.__dict__[attr] = ([weakref.ref(t) for t in tensors], key, value)
+    if _CAPTURE is not None:
+        _CAPTURE.keep.append(value)
     return value
+
+
+WORKSPACES = []  # every table of workspace_table()
+
+
+def workspace_table() -> dict:
+    """A kernel wrapper's table of per-device scratch (device index -> its
+    tensor, or a list of them), grown by replacing the entry.  Registered
+    here, so a graph capture can hold what it was captured with."""
+    table = {}
+    WORKSPACES.append(table)
+    return table
+
+
+class GraphCapture:
+    """What runs of the kernel wrappers leave while a CUDA graph is
+    captured: each ``LaunchCounter.launched`` call (the kernel does not run
+    then; a replay counts it, :meth:`LaunchCounter.credit`) and each value
+    :func:`cached` returned (the graph reads it, so it must outlive a
+    refresh of the cache)."""
+
+    def __init__(self):
+        self.launches = []
+        self.keep = []
+
+    def tensors_read(self) -> list:
+        """The cached values and every workspace the graph was captured
+        with: held as long as the graph, so no address it reads is reused."""
+        return self.keep + [v for table in WORKSPACES for v in table.values()]
+
+
+_CAPTURE = None
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Gather a :class:`GraphCapture` while the block captures a graph."""
+    global _CAPTURE
+    if _CAPTURE is not None:
+        raise RuntimeError("a graph capture is already gathering")
+    _CAPTURE = GraphCapture()
+    try:
+        yield _CAPTURE
+    finally:
+        _CAPTURE = None
